@@ -1,0 +1,131 @@
+"""Build and load the CUDA sources in ``orleans_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library lands in ``build/orleans_tpu_torch/`` at the repository root under
+a name that carries a hash of its sources and flags, so an edited source
+rebuilds and an unchanged one loads at once.  ``build_all`` starts one
+``nvcc`` per source, all together.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine class has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Callable, Dict, List
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "orleans_tpu_torch"
+SOURCES = ("resolve", "scatter", "segment")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# name → loaded library (one load per process)
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# kernel wrappers that count their launches (see ``counted``)
+_COUNTED: List[Callable] = []
+
+
+def counted(fn: Callable) -> Callable:
+    """Register a kernel wrapper whose ``launches`` attribute counts the
+    times it launched its CUDA kernel (never its plain version)."""
+    fn.launches = 0
+    _COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> Dict[str, int]:
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def reset_launch_counts() -> None:
+    for fn in _COUNTED:
+        fn.launches = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "of orleans_tpu_torch build only where the CUDA "
+                       "toolkit is installed")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    all started together; returns name → library path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {name: _target(name) for name in SOURCES}
+    jobs = []
+    for name, target in targets.items():
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, target))
+    failed = []
+    for name, proc, tmp, target in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{out}")
+            Path(tmp).unlink(missing_ok=True)
+        else:
+            os.replace(tmp, target)  # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return targets
+
+
+def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use) with
+    ``argtypes`` set from ``signatures`` (function → argtypes); every
+    function returns a ``cudaError_t`` as ``int``."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _target(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.ot_error_string.argtypes = [ctypes.c_int]
+        lib.ot_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch reported an error (``cudaGetLastError``)."""
+    if err != 0:
+        msg = lib.ot_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,131 @@
+"""K3 ``row_scatter``: ``column[rows] = v`` / ``+= v`` / ``max= v`` in
+place, dropping every lane whose row is ``< 0`` or ``>= len(column)``.
+
+Replaces ``orleans_tpu/tensor/vector_grain.py`` ``scatter_rows`` /
+``scatter_add_rows`` and ``orleans_tpu/tensor/arena.py`` ``_touch_kernel``.
+A bare ``index_put_`` would wrap row -1 onto the last row and silently
+corrupt whichever grain lives there; both versions here drop it.
+
+``values`` is either a tensor ``[m, *column.shape[1:]]`` of the column's
+dtype or a host scalar (Python or numpy), broadcast to every lane without
+materialising a lane vector (the heartbeat's ``tick``).  SET with
+duplicate rows keeps one of the writers, not a chosen one.
+
+What bounds the kernel on an H100 and what it does about it is in the
+note at the top of ``csrc/scatter.cu``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import numbers
+from typing import Union
+
+import numpy as np
+import torch
+
+from orleans_tpu_torch.kernels import _build
+
+OPS = {"set": 0, "add": 1, "max": 2}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "row_scatter_i32": (_P, _I64, _P, _I64, _I64, _P, ctypes.c_int32,
+                        ctypes.c_int, _P),
+    "row_scatter_f32": (_P, _I64, _P, _I64, _I64, _P, ctypes.c_float,
+                        ctypes.c_int, _P),
+}
+_FN = {torch.int32: "row_scatter_i32", torch.float32: "row_scatter_f32"}
+
+Values = Union[torch.Tensor, numbers.Number, np.generic, np.ndarray]
+
+
+def _is_host_scalar(values) -> bool:
+    return isinstance(values, (numbers.Number, np.generic)) or (
+        isinstance(values, np.ndarray) and values.ndim == 0)
+
+
+def _check(column: torch.Tensor, rows: torch.Tensor, values, op: str
+           ) -> None:
+    if op not in OPS:
+        raise ValueError(f"op must be one of {sorted(OPS)}, got {op!r}")
+    if not isinstance(column, torch.Tensor) or column.dtype not in _FN:
+        raise TypeError("column must be an int32 or float32 tensor")
+    if column.dim() < 1 or not column.is_contiguous():
+        raise ValueError("column must be a contiguous tensor [n, ...]")
+    if column.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {column.device}")
+    if not isinstance(rows, torch.Tensor) or rows.dtype != torch.int32 \
+            or rows.dim() != 1 or not rows.is_contiguous():
+        raise TypeError("rows must be a contiguous 1-D int32 tensor")
+    if rows.device != column.device:
+        raise ValueError(f"rows on {rows.device}, column on {column.device}")
+    if _is_host_scalar(values):
+        return
+    if not isinstance(values, torch.Tensor):
+        raise TypeError(f"values must be a tensor or a host scalar, got "
+                        f"{type(values)}")
+    if values.dtype != column.dtype:
+        raise TypeError(f"values {values.dtype} != column {column.dtype}")
+    if values.device != column.device:
+        raise ValueError(f"values on {values.device}, column on "
+                         f"{column.device}")
+    if values.dim() and tuple(values.shape) != (rows.shape[0],
+                                                *column.shape[1:]):
+        raise ValueError(f"values {tuple(values.shape)} do not match rows "
+                         f"{tuple(rows.shape)} x column "
+                         f"{tuple(column.shape)}")
+
+
+def row_scatter_plain(column: torch.Tensor, rows: torch.Tensor,
+                      values: Values, op: str) -> torch.Tensor:
+    """Plain PyTorch version of ``row_scatter`` (same in-place contract)."""
+    keep = (rows >= 0) & (rows < column.shape[0])
+    idx = rows[keep].long()
+    if isinstance(values, torch.Tensor):
+        v = values[keep] if values.dim() else \
+            values.expand(idx.shape[0], *column.shape[1:])
+    else:
+        v = torch.as_tensor(np.asarray(values), device=column.device).to(
+            column.dtype).expand(idx.shape[0], *column.shape[1:])
+    if op == "set":
+        column.index_put_((idx,), v)
+    elif op == "add":
+        column.index_put_((idx,), v, accumulate=True)
+    else:
+        index = idx.reshape(-1, *([1] * (column.dim() - 1))).expand_as(v)
+        column.scatter_reduce_(0, index, v, "amax", include_self=True)
+    return column
+
+
+@_build.counted
+def row_scatter(column: torch.Tensor, rows: torch.Tensor, values: Values,
+                op: str) -> torch.Tensor:
+    """Update ``column`` in place at ``rows`` with ``values`` under ``op``
+    (``"set"``, ``"add"`` or ``"max"``); returns ``column``."""
+    _check(column, rows, values, op)
+    if column.device.type == "cpu":
+        return row_scatter_plain(column, rows, values, op)
+    m = rows.shape[0]
+    if m == 0:
+        return column
+    inner = column[0].numel()
+    if _is_host_scalar(values):
+        ptr = None
+        scalar = int(values) if column.dtype == torch.int32 \
+            else float(values)
+    else:
+        if values.dim() == 0:  # a device scalar: broadcast it explicitly
+            values = values.expand(m, *column.shape[1:]).contiguous()
+        elif not values.is_contiguous():
+            raise ValueError("values must be contiguous")
+        ptr, scalar = values.data_ptr(), 0
+    fn_name = _FN[column.dtype]
+    lib = _build.library("scatter", _SIGNATURES)
+    err = getattr(lib, fn_name)(
+        column.data_ptr(), column.shape[0], rows.data_ptr(), m, inner, ptr,
+        scalar, OPS[op], torch.cuda.current_stream(column.device).cuda_stream)
+    _build.check(lib, err, fn_name)
+    row_scatter.launches += 1
+    return column

@@ -1,0 +1,71 @@
+"""The port stands alone: no module of ``orleans_tpu_torch`` imports JAX or
+anything of ``orleans_tpu``, and its engine never carries on silently on
+the CPU.  Checked in a fresh interpreter, since this test process has both
+packages loaded."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import orleans_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    orleans_tpu_torch.__path__, "orleans_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "orleans_tpu" or m.startswith("orleans_tpu."))
+import torch
+from orleans_tpu_torch.tensor.engine import TensorEngine
+try:
+    TensorEngine()
+    default = "constructed"
+except RuntimeError:
+    default = "raised"
+print(json.dumps({"modules": names, "leaked": leaked, "default": default,
+                  "cuda": torch.cuda.is_available()}))
+"""
+
+
+def _probe():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_neither_jax_nor_orleans_tpu():
+    report = _probe()
+    expected = {
+        "orleans_tpu_torch.hashing", "orleans_tpu_torch.ids",
+        "orleans_tpu_torch.core.grain", "orleans_tpu_torch.config",
+        "orleans_tpu_torch.device", "orleans_tpu_torch.kernels._build",
+        "orleans_tpu_torch.kernels.resolve",
+        "orleans_tpu_torch.kernels.scatter",
+        "orleans_tpu_torch.kernels.segment",
+        "orleans_tpu_torch.tensor.vector_grain",
+        "orleans_tpu_torch.tensor.arena", "orleans_tpu_torch.tensor.engine",
+        "orleans_tpu_torch.samples.presence", "orleans_tpu_torch.convert"}
+    assert expected <= set(report["modules"])
+    assert report["leaked"] == []
+    # no card here: the default device must refuse, not fall back
+    if not report["cuda"]:
+        assert report["default"] == "raised"
+    else:
+        assert report["default"] == "constructed"
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    src = (REPO / "chip_smoke.py").read_text()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in ("jax", "orleans_tpu",
+                                                  "samples"), line
