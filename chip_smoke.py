@@ -13,19 +13,28 @@ Phases, each of which fails loudly (exit code other than 0):
 3. Kernels against their plain PyTorch versions on the card, at the
    shapes of Presence with 1,000,000 players and 10,000 games, on the
    main path's inputs and on adversarial inputs (padding rows -1, rows
-   past the end, sentinel, negative, out-of-range and unseen keys).
-   Integers must match exactly; float32 sums within Higham's bound for
-   recursive summation (see ``_fan_in_tol``).  Each kernel is timed (median
-   of CUDA-event times over 25 launches, L2 flushed before each) beside
-   its plain version, one PyTorch library call as a yardstick, and its
-   bound: the larger of the bytes it must move over 3.35 TB/s and its
-   operations over the card's peak rate.
-4. The main path: ``run_presence_load`` on ``TensorEngine(device="cuda")``
-   at 1M players / 10k games, a pipelined run and a ``measure_latency``
-   run, each checked exactly against a numpy oracle of the seeded load.
-   Launch counters are zeroed just before and read just after; every
-   kernel must have launched.
-5. One JSON line of the kernels, the card line, and last
+   past the end, sentinel, negative, out-of-range and unseen keys, more
+   unique misses than the drain's buffer).  Integers must match exactly;
+   float32 sums within Higham's bound for recursive summation (see
+   ``_fan_in_tol``).  Each kernel is timed (median of CUDA-event times
+   over 25 launches, L2 flushed before each) beside its plain version,
+   one PyTorch library call as a yardstick, and its bound: the larger of
+   the bytes it must move over 3.35 TB/s and its operations over the
+   card's peak rate.
+4. The unfused path: ``run_presence_load`` on ``TensorEngine(device=
+   "cuda")`` with auto-fusion off, at 1M players / 10k games, a pipelined
+   run and a ``measure_latency`` run, each checked exactly against a
+   numpy oracle of the seeded load.
+5. The fused path, at the default config (auto-fusion and the latency
+   ledger on): 3 warm ticks, the detection ticks, then 8 windows of 16
+   ticks, each window one CUDA graph replay — once pipelined, once synced
+   per window — and a run that forces one rollback with a cold game key
+   inside a window.  Each is checked against the oracle, and the ledger
+   histogram against the counts the run implies.
+   Launch counters are zeroed just before each path and read just after;
+   every kernel must have launched on each path (graph replays count the
+   launches their capture recorded).
+6. One JSON line of the kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -42,6 +51,8 @@ import torch
 
 PLAYERS, GAMES = 1_000_000, 10_000
 WARM_TICKS, TICKS = 3, 20
+WINDOWS = 8                    # fused windows per fused run
+COLD_GAME = GAMES + 7          # a game key no player starts in
 REPS = 25
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12      # integer ALU: half the 67 TFLOP/s float32 rate
@@ -56,9 +67,14 @@ SOURCES = {
                     "orleans_tpu/tensor/vector_grain.py:238"),
     "seg_sum": ("orleans_tpu_torch/csrc/segment.cu",
                 "orleans_tpu/tensor/vector_grain.py:164"),
+    "hist_count": ("orleans_tpu_torch/csrc/hist.cu",
+                   "orleans_tpu/tensor/ledger.py:98"),
+    "miss_keys": ("orleans_tpu_torch/csrc/miss.cu",
+                  "orleans_tpu/tensor/engine.py:333"),
 }
 ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
-                                 "orleans_tpu/tensor/arena.py:34"]}
+                                 "orleans_tpu/tensor/arena.py:34"],
+                 "hist_count": ["orleans_tpu/tensor/fused.py:384"]}
 
 
 def require(ok: bool, what: str) -> None:
@@ -141,8 +157,9 @@ def bound(bytes_moved: float, int_ops: float = 0.0):
 # ---------------------------------------------------------------------------
 
 def check_kernels(dev, timer, card: str):
-    from orleans_tpu_torch.kernels import resolve, scatter, segment
+    from orleans_tpu_torch.kernels import hist, miss, resolve, scatter, segment
     from orleans_tpu_torch.samples.presence import presence_inputs
+    from orleans_tpu_torch.tensor.engine import MISS_BUF
 
     rng = np.random.default_rng(1234)
     _, games, scores = presence_inputs(PLAYERS, GAMES, seed=0)
@@ -258,6 +275,11 @@ def check_kernels(dev, timer, card: str):
         ("set i32 tick (scalar)", "set", lambda: torch.zeros(
          cap_p, dtype=torch.int32, device=dev), prow_d, np.int32(tick),
          lambda c: c.index_put_((prow64_d,), tick_0d), m * 8, True),
+        # the fused window's form: the tick read through a device pointer
+        ("set i32 tick (device scalar, fused window)", "set",
+         lambda: torch.zeros(cap_p, dtype=torch.int32, device=dev), prow_d,
+         tick_0d, lambda c: c.index_put_((prow64_d,), tick_0d), m * 8 + 4,
+         False),
         ("add i32 heartbeats", "add", lambda: torch.zeros(
          cap_p, dtype=torch.int32, device=dev), prow_d, ones_d,
          lambda c: c.index_add_(0, prow_d, ones_d), m * 16, True),
@@ -290,7 +312,9 @@ def check_kernels(dev, timer, card: str):
         b = scatter.row_scatter_plain(make(), rows_d, values, op)
         adv = adversarial_rows(n, unique=(op == "set"))
         adv_d = t(adv)
-        if isinstance(values, torch.Tensor):
+        if isinstance(values, torch.Tensor) and values.dim() == 0:
+            adv_vals = torch.tensor(-3, dtype=dtype, device=dev)
+        elif isinstance(values, torch.Tensor):
             adv_vals = t(rng.standard_normal(m).astype(np.float32)) \
                 if dtype == torch.float32 else \
                 t(rng.integers(-999, 999, m).astype(np.int32))
@@ -304,7 +328,9 @@ def check_kernels(dev, timer, card: str):
                                         (c, d, adv_vals, adv_d, base)):
             if op == "add" and dtype == torch.float32:
                 diff = (x - y).abs().cpu().numpy()
-                lane_vals = lanes.cpu().numpy()
+                lane_vals = lanes.cpu().numpy() \
+                    if isinstance(lanes, torch.Tensor) \
+                    else np.full(len(rws), lanes, np.float32)
                 tol = _fan_in_tol(lane_vals, rws.cpu().numpy(), n,
                                   None if start is None
                                   else start.cpu().numpy())
@@ -362,7 +388,120 @@ def check_kernels(dev, timer, card: str):
         bound=(seg_bound, "bytes"), **seg_ms,
         per="sum of the 2 launches of one steady tick")
 
+    # -- seg_max (K3 MAX into a -inf column) and seg_mean (K4 twice) -------
+    from orleans_tpu_torch.tensor.vector_grain import seg_max, seg_mean
+
+    ref_max = torch.full((cap_g,), float("-inf"), device=dev)
+    require(torch.equal(seg_max(scores_d, grow_d, cap_g),
+                        ref_max.scatter_reduce(0, grow64_d, scores_d,
+                                               "amax")), "seg_max")
+    mean_ref = segment.seg_sum_plain(scores_d, grow_d, cap_g) / torch.clamp(
+        segment.seg_sum_plain(torch.ones_like(scores_d), grow_d, cap_g),
+        min=1)
+    mean_diff = (seg_mean(scores_d, grow_d, cap_g) - mean_ref).abs()
+    mean_tol = torch.from_numpy(_fan_in_tol(
+        scores, games, cap_g)).to(dev) / torch.clamp(
+        torch.bincount(grow64_d, minlength=cap_g), min=1) \
+        + 2.0**-23 * mean_ref.abs()
+    require(bool((mean_diff <= mean_tol).all()), "seg_mean beyond tolerance")
+    ones_f = torch.ones_like(scores_d)
+    for name, fn, plain, library in (
+            ("seg_max", lambda: seg_max(scores_d, grow_d, cap_g),
+             lambda: scatter.row_scatter_plain(
+                 torch.full((cap_g,), float("-inf"), device=dev), grow_d,
+                 scores_d, "max"),
+             lambda: ref_max.scatter_reduce(0, grow64_d, scores_d, "amax")),
+            ("seg_mean", lambda: seg_mean(scores_d, grow_d, cap_g),
+             lambda: segment.seg_sum_plain(scores_d, grow_d, cap_g)
+             / torch.clamp(segment.seg_sum_plain(ones_f, grow_d, cap_g),
+                           min=1),
+             lambda: torch.zeros(cap_g, device=dev).index_reduce_(
+                 0, grow64_d, scores_d, "mean", include_self=False))):
+        times = measure(timer, fn, plain, library)
+        print(f"composite {name} (not on Presence's path): "
+              f"{times['ms']:.4f} ms on the device, host "
+              f"{times['host_ms']:.4f} (plain {times['plain_ms']:.4f}, "
+              f"library {times['library_ms']:.4f}, bound "
+              f"{bound(m * 8 + cap_g * 4)[0]:.4f} by bytes) on {card}",
+              flush=True)
+
+    # the fused window's bound: per tick the bytes of its kernels — K3 set
+    # game, set tick (device scalar), add heartbeats; K1; K4 twice; K5
+    # three times on a mask alone — times the 16 ticks of a window
+    per_tick = bound(m * 12)[0] + bound(m * 8 + 4)[0] + bound(m * 16)[0] \
+        + results["resolve_dense"]["bound"][0] + seg_bound \
+        + 3 * bound(m + 4)[0]
+    results["window_bound_ms"] = 16 * per_tick
+
+    # -- K5 hist_count: the ledger's masked count ----------------------------
+    hist_d = torch.zeros((64, 16), dtype=torch.int32, device=dev)
+    base_adv = t(rng.random(m) < 0.7)
+    rows_adv = t(adversarial_rows(cap_g, unique=False))
+    for base, rows, what in ((valid_d, grow_d, "main path, rows"),
+                             (valid_d, None, "in-window, no rows"),
+                             (base_adv, rows_adv, "adversarial, rows"),
+                             (base_adv, None, "adversarial, no rows")):
+        h0 = t(rng.integers(0, 99, (64, 16)).astype(np.int32))
+        a = hist.hist_count(h0.clone(), 9, 4, base, rows)
+        b = hist.hist_count_plain(h0.clone(), 9, 4, base, rows)
+        require(torch.equal(a, b), f"hist_count != plain ({what})")
+    require(int(hist.hist_count(torch.zeros_like(hist_d), 1, 0, valid_d,
+                                grow_d)[1, 0]) == m,
+            "hist_count: main-path lanes must all count")
+    cell = torch.tensor([9 * 16 + 4], dtype=torch.int64, device=dev)
+    flat = hist_d.view(-1)
+
+    def library_count():
+        flat.index_add_(0, cell, ((grow_d >= 0) & valid_d).sum(
+            dtype=torch.int32).view(1))
+
+    results["hist_count"] = dict(
+        max_abs_err=0,
+        library="torch.sum + index_add_ (two calls)",
+        bound=bound(m * (1 + 4) + 4),
+        per="one launch: a batch's rows and mask (the in-window form "
+            "reads the mask alone)",
+        **measure(timer,
+                  lambda: hist.hist_count(hist_d, 9, 4, valid_d, grow_d),
+                  lambda: hist.hist_count_plain(hist_d, 9, 4, valid_d,
+                                                grow_d),
+                  library_count))
+
+    # -- K6 miss_keys: the cold drain ----------------------------------------
+    cold_rows = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    many = t(rng.permutation(8 * m)[:m].astype(np.int32))  # > MISS_BUF
+    dup = torch.full((m,), 41, dtype=torch.int32, device=dev)
+    odd_keys, odd_valid = adversarial_keys(4 * GAMES)
+    odd_rows = t(np.where(rng.random(m) < 0.5, -1, 3).astype(np.int32))
+    for keys, rows, valid, what in (
+            (games_d, cold_rows, valid_d, "cold tick (main path)"),
+            (many, cold_rows, valid_d, f"{m} unique misses > {MISS_BUF}"),
+            (dup, odd_rows, valid_d, "all-duplicate keys"),
+            (odd_keys, odd_rows, odd_valid, "sentinel/negative/hit lanes")):
+        for miss_buf in (MISS_BUF, 1000):
+            a = miss.miss_keys(keys, rows, valid, miss_buf)
+            b = miss.miss_keys_plain(keys, rows, valid, miss_buf)
+            require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                    f"miss_keys != plain ({what}, miss_buf {miss_buf})")
+    results["miss_keys"] = dict(
+        max_abs_err=0,
+        library="torch.unique (sorted) of the masked keys",
+        bound=bound(m * (4 + 4 + 1) + m + MISS_BUF * 4),
+        per="one launch of the chain (four kernels: init, mark + hash "
+            "dedupe, one cooperative bitonic sort of the unique misses "
+            "padded to a power of two, emit)",
+        **measure(timer,
+                  lambda: miss.miss_keys(games_d, cold_rows, valid_d,
+                                         MISS_BUF),
+                  lambda: miss.miss_keys_plain(games_d, cold_rows, valid_d,
+                                               MISS_BUF),
+                  lambda: torch.unique(torch.where(
+                      (cold_rows < 0) & valid_d, games_d, SENTINEL),
+                      sorted=True)))
+
     for name, r in results.items():
+        if not isinstance(r, dict):
+            continue
         print(f"kernel {name}: {r['ms']:.4f} ms on the device, "
               f"{r['host_ms']:.4f} ms host enqueue "
               f"(plain {r['plain_ms']:.4f}, "
@@ -381,44 +520,84 @@ def check_kernels(dev, timer, card: str):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def check_presence(engine, stats, games, scores, warm, ticks) -> None:
-    """Every column of both arenas against the numpy oracle of the load."""
-    n_ticks = warm + ticks
+def check_presence(engine, games, scores, hb_ticks, last_tick, want_msgs,
+                   switch=None) -> None:
+    """Every column of both arenas against the numpy oracle of the load:
+    ``hb_ticks`` heartbeats per player, the last one carrying
+    ``last_tick``; ``switch = (player, game, ticks)`` moves one player to
+    another game for its last ``ticks`` heartbeats."""
     players = np.arange(PLAYERS, dtype=np.int64)
-    require(stats["messages"] == 2 * PLAYERS * ticks, "stats messages")
-    # every game-emit batch before the first miss-check drain (the warm
-    # phase's flush) misses all its lanes and is delivered again
-    want_msgs = 2 * PLAYERS * n_ticks + PLAYERS * warm
     require(engine.messages_processed == want_msgs,
             f"messages_processed {engine.messages_processed} != {want_msgs}")
+    final_games = games.copy()
+    per_game = np.bincount(games, minlength=COLD_GAME + 1) * hb_ticks
+    score_sum = np.bincount(games, weights=scores.astype(np.float64),
+                            minlength=COLD_GAME + 1) * hb_ticks
+    if switch is not None:
+        p, g, n = switch
+        final_games[p] = g
+        for key, sign in ((games[p], -1), (g, 1)):
+            per_game[key] += sign * n
+            score_sum[key] += sign * n * float(scores[p])
 
     pa = engine.arena_for("PresenceGrain")
     rows, found = pa.lookup_rows(players)
     require(bool(found.all()) and pa.live_count == PLAYERS, "players live")
     cols = {k: v.cpu().numpy()[rows] for k, v in pa.state.items()}
-    require(bool(np.all(cols["heartbeats"] == n_ticks)), "heartbeats")
-    require(bool(np.all(cols["last_heartbeat"] == ticks)), "last_heartbeat")
-    require(bool(np.array_equal(cols["game"], games)), "game")
+    require(bool(np.all(cols["heartbeats"] == hb_ticks)), "heartbeats")
+    require(bool(np.all(cols["last_heartbeat"] == last_tick)),
+            "last_heartbeat")
+    require(bool(np.array_equal(cols["game"], final_games)), "game")
 
     ga = engine.arena_for("GameGrain")
-    game_keys = np.arange(GAMES, dtype=np.int64)
-    present = np.bincount(games, minlength=GAMES) > 0
+    game_keys = np.arange(COLD_GAME + 1, dtype=np.int64)
+    present = per_game > 0
     rows, found = ga.lookup_rows(game_keys)
     require(np.array_equal(found, present)
             and ga.live_count == int(present.sum()), "games live")
     rows = rows[present]
-    per_game = np.bincount(games, minlength=GAMES)[present]
     updates = ga.state["updates"].cpu().numpy()[rows]
-    require(bool(np.array_equal(updates, per_game * n_ticks)), "updates")
+    require(bool(np.array_equal(updates, per_game[present])), "updates")
     total = ga.state["total_score"].cpu().numpy()[rows].astype(np.float64)
-    oracle = n_ticks * np.bincount(games, weights=scores.astype(np.float64),
-                                   minlength=GAMES)[present]
+    oracle = score_sum[present]
     # float32 sums of k = updates positive terms in any order: Higham,
     # |err| <= (k - 1) * 2**-24 * sum|x| (+ O(2**-48)); k * 2**-24 covers it
     tol = updates * 2.0**-24 * oracle
     err = np.abs(total - oracle)
     require(bool(np.all(np.isfinite(total)) and np.all(err <= tol)),
             f"total_score off by {err.max()} (tolerance {tol.min()}..)")
+
+
+def _bucket(delta: int) -> int:
+    return 0 if delta <= 0 else min(delta.bit_length(), 15)
+
+
+def check_ledger(engine, hb_ticks: int, fused_ticks: int, warm: int,
+                 late: tuple = ()) -> None:
+    """The latency histogram against the counts the run implies: every
+    message counted once; heartbeats of unfused and replayed ticks at
+    delta 1 (applied the tick after injection), of fused ticks at delta 0;
+    game updates at delta 0, except the cold warm ticks' lanes, which miss
+    and are delivered again at the drain after the warm phase, tick
+    warm + 1, and the single updates that ``late`` lists by their delta
+    (a rollback's cold key)."""
+    snap = engine.ledger.snapshot()
+    hb = snap["PresenceGrain.heartbeat"]["counts"]
+    up = snap["GameGrain.update_game_status"]["counts"]
+    require(sum(hb) == PLAYERS * hb_ticks and sum(up) == PLAYERS * hb_ticks,
+            f"ledger totals {sum(hb)}/{sum(up)} != {PLAYERS * hb_ticks}")
+    want_hb = [0] * 16
+    want_hb[0] = PLAYERS * fused_ticks
+    want_hb[1] = PLAYERS * (hb_ticks - fused_ticks)
+    want_up = [0] * 16
+    want_up[0] = PLAYERS * (hb_ticks - warm)
+    for t in range(1, warm + 1):
+        want_up[_bucket(warm + 1 - t)] += PLAYERS
+    want_up[0] -= len(late)
+    for delta in late:
+        want_up[_bucket(delta)] += 1
+    require(hb == want_hb, f"ledger heartbeat {hb} != {want_hb}")
+    require(up == want_up, f"ledger game updates {up} != {want_up}")
 
 
 def tick_device_ms(engine, games_d, scores_d, reps: int = 10):
@@ -446,7 +625,15 @@ def tick_device_ms(engine, games_d, scores_d, reps: int = 10):
     return float(np.median(device)), float(np.median(host))
 
 
-def drive_main_path(dev, card: str):
+def require_launched(counts: dict, path: str) -> None:
+    for name in SOURCES:
+        require(counts.get(name, 0) > 0,
+                f"{name} never launched on the {path} path")
+
+
+def drive_unfused_path(dev, card: str):
+    """Phase 4: the unfused tick (auto-fusion off), pipelined and synced."""
+    from orleans_tpu_torch.config import TensorEngineConfig
     from orleans_tpu_torch.kernels import _build
     from orleans_tpu_torch.samples.presence import (
         presence_inputs,
@@ -458,30 +645,310 @@ def drive_main_path(dev, card: str):
     _build.reset_launch_counts()
     runs = {}
     for mode in ("pipelined", "latency"):
-        engine = TensorEngine(device=dev)
+        engine = TensorEngine(device=dev, config=TensorEngineConfig(
+            auto_fusion_ticks=0))
         stats = asyncio.run(run_presence_load(
             engine, n_players=PLAYERS, n_games=GAMES, n_ticks=TICKS, seed=0,
             measure_latency=(mode == "latency"), warm_ticks=WARM_TICKS))
-        check_presence(engine, stats, games, scores, WARM_TICKS, TICKS)
+        require(stats["messages"] == 2 * PLAYERS * TICKS, "stats messages")
+        hb = WARM_TICKS + TICKS
+        # every game-emit batch before the first miss-check drain (the
+        # warm phase's flush) misses all its lanes and is delivered again
+        check_presence(engine, games, scores, hb, TICKS,
+                       2 * PLAYERS * hb + PLAYERS * WARM_TICKS)
+        check_ledger(engine, hb, 0, WARM_TICKS)
         runs[mode] = stats
     counts = _build.launch_counts()
-    print(f"launches on the main path: {json.dumps(counts)}", flush=True)
-    for name in SOURCES:
-        require(counts.get(name, 0) > 0,
-                f"{name} never launched on the main path")
+    print(f"launches on the unfused path: {json.dumps(counts)}", flush=True)
+    require_launched(counts, "unfused")
     runs["tick_device_ms"], runs["tick_host_ms"] = tick_device_ms(
         engine, torch.from_numpy(games).to(dev),
         torch.from_numpy(scores).to(dev))
     lat = runs["latency"]
-    print(f"presence {PLAYERS} players / {GAMES} games, {TICKS} ticks after "
-          f"{WARM_TICKS} warm: {runs['pipelined']['messages_per_sec']:.1f} "
-          f"messages/s pipelined; tick p50 "
-          f"{lat['tick_p50_seconds'] * 1e3:.3f} ms, p99 "
+    print(f"unfused presence {PLAYERS} players / {GAMES} games, {TICKS} "
+          f"ticks after {WARM_TICKS} warm: "
+          f"{runs['pipelined']['messages_per_sec']:.1f} messages/s "
+          f"pipelined; tick p50 {lat['tick_p50_seconds'] * 1e3:.3f} ms, p99 "
           f"{lat['tick_p99_seconds'] * 1e3:.3f} ms synced; one steady tick "
           f"{runs['tick_device_ms']:.4f} ms on the device, "
-          f"{runs['tick_host_ms']:.4f} ms to enqueue on the host; on {card}",
-          flush=True)
+          f"{runs['tick_host_ms']:.4f} ms to enqueue on the host; device "
+          f"idle share synced {1 - runs['tick_device_ms'] / (lat['tick_p50_seconds'] * 1e3):.4f}; "
+          f"on {card}", flush=True)
     return counts, runs
+
+
+class FusedRun:
+    """One engine at the default config driven by the inject-only loader,
+    one tick at a time: warm ticks and a flush, then ticks until a number
+    of windows ran.  ``moving``: the loader hands the engine a fresh copy
+    of the players' games every tick (players may move), so ``game`` is a
+    per-tick leaf of the window, not a static one."""
+
+    def __init__(self, dev, games, scores, moving: bool = False):
+        from orleans_tpu_torch.tensor.engine import TensorEngine
+
+        self.engine = TensorEngine(device=dev)
+        self.af = self.engine.autofuser
+        self.engine.arena_for("PresenceGrain").reserve(PLAYERS)
+        self.engine.arena_for("GameGrain").reserve(GAMES)
+        self.injector = self.engine.make_injector(
+            "PresenceGrain", "heartbeat", np.arange(PLAYERS, dtype=np.int64))
+        # a copy: the rollback phase moves a player
+        self.games_d = torch.from_numpy(games.copy()).to(dev)
+        self.moving = moving
+        self.scores_d = torch.from_numpy(scores).to(dev)
+        self.ticks = 0
+        for _ in range(WARM_TICKS):
+            self.tick()
+        asyncio.run(self.engine.flush())
+
+    def tick(self) -> None:
+        self.ticks += 1
+        game = self.games_d.clone() if self.moving else self.games_d
+        self.injector.inject({"game": game, "score": self.scores_d,
+                              "tick": np.int32(self.ticks)})
+        self.engine.run_tick()
+        for _ in range(self.engine.config.max_rounds_per_tick):
+            if not any(self.engine.queues.values()):
+                break
+            self.engine.run_tick()
+        require(not any(self.engine.queues.values()), "a tick did not drain")
+
+    def windows(self, n: int, synced: bool = False) -> list:
+        """Drive ticks until ``n`` more windows ran; returns, per window,
+        (host ms of the tick that ran it, wall ms from the window's first
+        inject to completion when ``synced``)."""
+        out = []
+        target = self.af.windows_run + n
+        # detection takes auto_fusion_ticks ticks at most twice over
+        limit = self.ticks + 4 * self.engine.config.auto_fusion_ticks \
+            + 2 * n * self.engine.config.auto_fusion_window
+        w_start = time.perf_counter()
+        while self.af.windows_run < target:
+            require(self.ticks < limit, f"{n} windows did not run by tick "
+                    f"{limit}: {self.af.snapshot()}")
+            if not self.af._buffer:
+                w_start = time.perf_counter()
+            before = self.af.windows_run
+            t0 = time.perf_counter()
+            self.tick()
+            if self.af.windows_run > before:
+                host = (time.perf_counter() - t0) * 1e3
+                wall = None
+                if synced:
+                    self.engine.wait_completion()
+                    wall = (time.perf_counter() - w_start) * 1e3
+                out.append((host, wall))
+        return out
+
+    def finish(self) -> None:
+        asyncio.run(self.engine.flush())
+        self.engine.wait_completion()
+
+
+def window_device_ms(run: "FusedRun", reps: int = 5):
+    """Median device time of one fused window (its input copies and graph
+    replay), enqueued while a spin kernel holds the stream.  A sample
+    whose host time (16 ticks) did not stay inside the spin is refused
+    and the spin doubled; a bounded number of refusals fails the run."""
+
+    def spin_ms(cycles: int) -> float:
+        probe = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        probe[0].record()
+        torch.cuda._sleep(cycles)
+        probe[1].record()
+        probe[1].synchronize()
+        return probe[0].elapsed_time(probe[1])
+
+    spin = Timer.SPIN_CYCLES * 4
+    spin_time = spin_ms(spin)
+    refused = 0
+    device, host = [], []
+    W = run.engine.config.auto_fusion_window
+    verify_every = run.engine.config.auto_fusion_verify_windows
+    while len(device) < reps:
+        if run.af._chain_prog is None \
+                or len(run.af._unverified) >= verify_every - 1:
+            # a chain's first window pins the state and its last verifies
+            # (a sync): time only the windows between
+            run.windows(1)
+            continue
+        require(not run.af._buffer and run.af._program is not None,
+                "window timing needs an engaged, empty window")
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        before = run.af.windows_run
+        for _ in range(W):
+            run.tick()
+        h = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        require(run.af.windows_run == before + 1, "timed ticks ran no window")
+        if h < 0.8 * spin_time:
+            device.append(start.elapsed_time(end))
+            host.append(h)
+            continue
+        refused += 1
+        require(refused <= 6, f"window timing: the host took {h:.3f} ms, "
+                f"longer than a {spin_time:.3f} ms spin, {refused} times")
+        spin *= 2
+        spin_time = spin_ms(spin)
+    return float(np.median(device)), float(np.median(host))
+
+
+def drive_fused_path(dev, card: str, unfused_tick_ms: float,
+                     window_bound_ms: float):
+    """Phase 5: the steady state — auto-fused windows as CUDA graphs."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples.presence import presence_inputs
+    from orleans_tpu_torch.tensor.autofuse import pin_copy
+
+    _, games, scores = presence_inputs(PLAYERS, GAMES, seed=0)
+    W = 16
+    _build.reset_launch_counts()
+    out = {}
+
+    # pipelined: 8 windows, checked; throughput over the 7 after the
+    # first (detection and the build are a one-time cost)
+    run = FusedRun(dev, games, scores)
+    first = run.windows(1)
+    ticks0 = run.ticks
+    t0 = time.perf_counter()
+    per_window = run.windows(WINDOWS - 1)
+    run.finish()
+    elapsed = time.perf_counter() - t0
+    af = run.af.snapshot()
+    require(af["windows_run"] == WINDOWS and af["ticks_fused"] == WINDOWS * W
+            and af["windows_rolled_back"] == 0, f"pipelined autofuse {af}")
+    check_presence(run.engine, games, scores, run.ticks, run.ticks,
+                   2 * PLAYERS * run.ticks + PLAYERS * WARM_TICKS)
+    require(run.engine.activation_passes == WARM_TICKS, "activation passes")
+    check_ledger(run.engine, run.ticks, af["ticks_fused"], WARM_TICKS)
+    prog = run.af._program
+    require(prog is not None and prog._graph is not None
+            and prog.replays == WINDOWS, "the windows were not graph replays")
+    measured = run.ticks - ticks0
+    out["pipelined"] = dict(
+        autofuse=af, ticks=measured, seconds=elapsed,
+        messages_per_sec=2 * PLAYERS * measured / elapsed,
+        first_window_host_ms=first[0][0], detection_ticks=ticks0
+        - WARM_TICKS - W,
+        window_host_ms=float(np.median([h for h, _ in per_window])),
+        rebuilds=dict(prog.rebuilds), build_s=prog.build_seconds)
+    counts = _build.launch_counts()
+    report = _build.launch_report()
+    print(f"launches on the fused path: {json.dumps(counts)}; by kind "
+          f"{json.dumps(report)}; one replay = "
+          f"{json.dumps(prog._per_replay)}", flush=True)
+    require_launched(counts, "fused")
+    for name in ("resolve_dense", "row_scatter", "seg_sum", "hist_count"):
+        require(report[name]["replayed"] > 0, f"{name} never replayed")
+    out["counts"], out["report"] = counts, report
+    out["per_replay"] = dict(prog._per_replay)
+    print(f"fused pipelined: {json.dumps(out['pipelined'])}", flush=True)
+
+    # pin_copy: the chain-start copy of every touched arena's columns
+    pins = {n: {c: torch.empty_like(v) for c, v in
+                run.engine.arena_for(n).state.items()} for n in prog._touched}
+
+    def pin_all():
+        for n in prog._touched:
+            pin_copy(run.engine.arena_for(n).state, pins[n])
+
+    timer = Timer(dev)
+    pin_ms = timer(pin_all)
+    pin_bytes = 2 * sum(v.numel() * v.element_size()
+                        for n in prog._touched
+                        for v in run.engine.arena_for(n).state.values())
+    out["pin_copy"] = dict(ms=pin_ms, host_ms=timer.host_ms,
+                           bound_ms=bound(pin_bytes)[0], bytes=pin_bytes)
+    del run, pins
+
+    # synced per window, then the window's device time
+    run = FusedRun(dev, games, scores)
+    synced = run.windows(WINDOWS, synced=True)
+    dev_ms, dev_host_ms = window_device_ms(run)
+    run.finish()
+    check_presence(run.engine, games, scores, run.ticks, run.ticks,
+                   2 * PLAYERS * run.ticks + PLAYERS * WARM_TICKS)
+    check_ledger(run.engine, run.ticks, run.af.ticks_fused, WARM_TICKS)
+    walls = np.asarray([w for _, w in synced])
+    out["synced"] = dict(window_p50_ms=float(np.percentile(walls, 50)),
+                         window_max_ms=float(walls.max()),
+                         autofuse=run.af.snapshot())
+    out["window_device_ms"] = dev_ms
+    out["window_timed_host_ms"] = dev_host_ms
+    del run
+
+    # a forced rollback: with the games a per-tick leaf, one player moves
+    # to a game no one has activated just after a verified chain, so every
+    # tick of the next window sends to the cold key
+    run = FusedRun(dev, games, scores, moving=True)
+    run.windows(4)
+    run.af._settle_chain()
+    require(not run.af._unverified and not run.af._buffer, "chain settled")
+    require(not run.engine._pending_checks
+            and run.engine.config.miss_check_cap == W, "no parked checks")
+    switched_at = run.ticks
+    run.games_d[0] = COLD_GAME
+    run.windows(1)
+    require(run.af.windows_rolled_back == 0, "rolled back too early")
+    run.af._settle_chain()   # verify: the cold key rolls the chain back
+    require(run.af.windows_rolled_back == 1, "the cold key did not roll back")
+    # the unfused replay parked one miss-check per tick, each missing the
+    # cold key; the next tick starts with miss_check_cap of them parked,
+    # drains them and delivers the W dropped updates, the one of replayed
+    # tick k (1..W) W + 1 - k ticks after it was sent
+    require(len(run.engine._pending_checks) == W, "replay's parked checks")
+    run.windows(2)
+    run.finish()
+    af = run.af.snapshot()
+    require(af["windows_rolled_back"] == 1, f"rollback run {af}")
+    check_presence(run.engine, games, scores, run.ticks, run.ticks,
+                   2 * PLAYERS * run.ticks
+                   + PLAYERS * run.engine.activation_passes,
+                   switch=(0, COLD_GAME, run.ticks - switched_at))
+    require(run.engine.activation_passes == WARM_TICKS + W,
+            f"activation passes {run.engine.activation_passes} != "
+            f"{WARM_TICKS + W}: the cold key was not activated at one drain")
+    check_ledger(run.engine, run.ticks, af["ticks_fused"], WARM_TICKS,
+                 late=tuple(W + 1 - k for k in range(1, W + 1)))
+    out["rollback"] = dict(autofuse=af,
+                           activation_passes=run.engine.activation_passes,
+                           rebuilds=dict(run.af._program.rebuilds)
+                           if run.af._program is not None else {})
+    del run
+
+    fused_tick_ms = dev_ms / W
+    out["window_bound_ms"] = window_bound_ms
+    p = out["pipelined"]
+    print(f"fused presence {PLAYERS} players / {GAMES} games, {WINDOWS} "
+          f"windows of {W} ticks after {WARM_TICKS} warm and "
+          f"{p['detection_ticks']} detection ticks: pipelined "
+          f"{p['messages_per_sec']:.1f} messages/s over the {p['ticks']} "
+          f"ticks after the first window; host {p['window_host_ms']:.4f} ms "
+          f"per window for the tick that runs it (median), "
+          f"{out['window_timed_host_ms']:.4f} ms for all {W} ticks of a "
+          f"window; window build (discovery + capture) "
+          f"{p['build_s'] * 1e3:.1f} ms; device "
+          f"{dev_ms:.4f} ms per window (bound {window_bound_ms:.4f} by "
+          f"bytes) = {fused_tick_ms:.4f} ms per fused "
+          f"tick against {unfused_tick_ms:.4f} ms per unfused tick; synced "
+          f"window p50 {out['synced']['window_p50_ms']:.4f} ms, max "
+          f"{out['synced']['window_max_ms']:.4f} ms, device idle share "
+          f"synced {1 - dev_ms / out['synced']['window_p50_ms']:.4f}; "
+          f"pin_copy {out['pin_copy']['ms']:.4f} ms for "
+          f"{out['pin_copy']['bytes']} bytes (bound "
+          f"{out['pin_copy']['bound_ms']:.4f}); on {card}", flush=True)
+    for mode in ("pipelined", "synced", "rollback"):
+        print(f"autofuse {mode}: {json.dumps(out[mode]['autofuse'])}",
+              flush=True)
+    print(f"rollback run: {json.dumps(out['rollback'])}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -505,17 +972,31 @@ def main() -> int:
     dev = torch.device("cuda")
     timer = Timer(dev)
     results = check_kernels(dev, timer, card)
-    counts, _ = drive_main_path(dev, card)
+    t1 = time.perf_counter()
+    unfused_counts, runs = drive_unfused_path(dev, card)
+    t2 = time.perf_counter()
+    fused = drive_fused_path(dev, card, runs["tick_device_ms"],
+                             results["window_bound_ms"])
+    t3 = time.perf_counter()
+    print(f"phase seconds: kernels {t1 - t0:.1f}, unfused {t2 - t1:.1f}, "
+          f"fused {t3 - t2:.1f}", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
+        fused_report = fused["report"][name]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": counts[name],
+                 "replaces": replaces,
+                 # device launches on both paths: eager + graph replays
+                 "launches": unfused_counts[name] + fused["counts"][name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                  "bound_by": r["bound"][1], "library_ms": r["library_ms"],
                  "library": r["library"], "host_ms": r["host_ms"],
+                 "launches_by_path": {
+                     "unfused": unfused_counts[name],
+                     "fused": fused_report,
+                     "fused_per_replay": fused["per_replay"].get(name, 0)},
                  # every comparison above passed, or the run stopped there
                  "matches_plain": True}
         if name in ALSO_REPLACES:

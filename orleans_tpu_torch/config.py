@@ -1,5 +1,7 @@
-"""Engine configuration: the ``TensorEngineConfig`` fields the port reads,
-with the same names and defaults as ``orleans_tpu/config.py``."""
+"""Engine configuration: the ``TensorEngineConfig`` and ``MetricsConfig``
+fields the port reads, with the same names and defaults as
+``orleans_tpu/config.py``.  The workload-attribution fields belong to a
+later slice of the port."""
 
 from __future__ import annotations
 
@@ -23,3 +25,33 @@ class TensorEngineConfig:
     # max parked optimistic miss-checks before a forced (synchronizing)
     # drain — bounds device memory pinned by deferred delivery checks
     miss_check_cap: int = 16
+    # auto-fusion (tensor/autofuse.py): after auto_fusion_ticks
+    # consecutive ticks with an identical injection pattern the engine
+    # runs the steady tick as fused windows of auto_fusion_window ticks —
+    # on the card one replay of a captured CUDA graph per window — and
+    # rolls back (exactly) on any miss.  0 disables detection.
+    auto_fusion_ticks: int = 16
+    auto_fusion_window: int = 16
+    # rollback hysteresis: after this many rolled-back windows for one
+    # signature the pattern is banned (until its generation changes)
+    auto_fusion_max_rollbacks: int = 3
+    # windows per exactness-verification sync: the device miss counter
+    # is read once per this many windows, so a rollback replays up to
+    # verify_windows * window ticks; 1 = verify every window
+    auto_fusion_verify_windows: int = 4
+    # idle grace before the engine loop replays a partially-filled
+    # window unfused
+    auto_fusion_idle_flush: float = 0.02
+
+
+@dataclass
+class MetricsConfig:
+    """Metrics knobs: the on-device latency ledger (tensor/ledger.py)."""
+
+    # per-(type, method) log2 histograms of inject→completion tick
+    # deltas, accumulated on the device; only the small bucket-count
+    # array crosses device→host, at an explicit snapshot
+    ledger_enabled: bool = True
+    # bucket 0 = completed in the inject tick, bucket k = [2**(k-1), 2**k)
+    # ticks, the last bucket absorbs overflow
+    ledger_buckets: int = 16

@@ -1,20 +1,23 @@
-"""Carry an arena's state across from the JAX package.
+"""Carry an engine's state across from the JAX package.
 
-The system has no weights; what a running cluster carries is its arenas:
-the host key→row map and the state columns.  ``arena_state_from_numpy``
-loads them — as numpy arrays, e.g. ``jax_arena._key_of_row`` and
-``{k: np.asarray(v) for k, v in jax_arena.state.items()}`` — into a port
-arena, after which both packages compute the same next tick.
+The system has no weights; what a running cluster carries is its arenas
+— the host key→row map and the state columns — and its latency ledger.
+``arena_state_from_numpy`` loads an arena — as numpy arrays, e.g.
+``jax_arena._key_of_row`` and ``{k: np.asarray(v) for k, v in
+jax_arena.state.items()}`` — into a port arena, after which both packages
+compute the same next tick.  ``ledger_state_from_numpy`` loads a ledger's
+slots and counts, after which both report the same histogram.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from orleans_tpu_torch.tensor.arena import GrainArena
+from orleans_tpu_torch.tensor.ledger import MAX_SLOTS, DeviceLatencyLedger
 
 
 def arena_state_from_numpy(arena: GrainArena, key_of_row: np.ndarray,
@@ -47,7 +50,38 @@ def arena_state_from_numpy(arena: GrainArena, key_of_row: np.ndarray,
     arena.has_wide_keys = bool(len(live)) and \
         int(key_of_row[live].max()) >= 2**31 - 1
     arena.last_use_tick = np.zeros(capacity, dtype=np.int64)
+    arena.fused_use_tick = 0
     arena.last_use_dev = torch.zeros(capacity, dtype=torch.int32,
                                      device=arena.device)
     arena._dirty = True
     arena.generation += 1
+
+
+def ledger_state_from_numpy(ledger: DeviceLatencyLedger,
+                            slot_names: Sequence[Tuple[str, str]],
+                            host_counts: np.ndarray,
+                            device_counts: Optional[np.ndarray]) -> None:
+    """Load a ledger: ``slot_names`` lists the (type, method) of each slot
+    in slot order (the JAX ledger's ``slots.items()`` sorted by slot);
+    ``host_counts`` is its host mirror and ``device_counts`` its device
+    histogram (``np.asarray(jax_ledger._hist)``, or None when it has none),
+    both ``[MAX_SLOTS, n_buckets]``.  The port ledger must have no slots
+    yet and takes the bucket count of the arrays."""
+    if len(ledger.slots):
+        raise ValueError("ledger_state_from_numpy: the ledger has slots "
+                         "already")
+    host = np.asarray(host_counts, dtype=np.int64)
+    if host.ndim != 2 or host.shape[0] != MAX_SLOTS:
+        raise ValueError(f"host counts must be [{MAX_SLOTS}, buckets], "
+                         f"got {host.shape}")
+    ledger.configure(n_buckets=host.shape[1])
+    for type_name, method in slot_names:
+        ledger.slot_for(type_name, method)
+    ledger._host_hist = host.copy()
+    if device_counts is not None:
+        dev = np.array(device_counts, dtype=np.int32)  # writable
+        if dev.shape != host.shape:
+            raise ValueError(f"device counts {dev.shape} != host counts "
+                             f"{host.shape}")
+        ledger.device_hist_in().copy_(torch.from_numpy(dev))
+        ledger.device_hist_out(ledger.device_hist_in())

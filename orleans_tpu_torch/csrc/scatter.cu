@@ -12,7 +12,9 @@
 // random access into the column, which costs a whole 32-byte sector of
 // DRAM traffic.  Design: one thread per (lane, element), coalesced reads
 // of rows and values; a scalar value (the heartbeat's tick) rides as a
-// kernel argument instead of a materialised lane vector; ADD uses
+// kernel argument instead of a materialised lane vector, or, inside a
+// CUDA graph, as ONE device element read by every lane through a pointer
+// (values_step 0), so a replay reads the tick written before it; ADD uses
 // atomicAdd, MAX atomicMax (a CAS loop for float32, NaN-propagating like
 // XLA's max).  SET with duplicate rows keeps one writer, not a chosen
 // one — the JAX package's own contract for scatter_rows.
@@ -44,7 +46,8 @@ template <typename T, int OP>
 __global__ void row_scatter_kernel(T* __restrict__ col, int64_t n,
                                    const int32_t* __restrict__ rows,
                                    int64_t m, int64_t inner,
-                                   const T* __restrict__ values, T scalar) {
+                                   const T* __restrict__ values,
+                                   int64_t values_step, T scalar) {
   const int64_t total = m * inner;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -53,7 +56,7 @@ __global__ void row_scatter_kernel(T* __restrict__ col, int64_t n,
     const int64_t lane = inner == 1 ? i : i / inner;
     const int32_t r = rows[lane];
     if (r < 0 || r >= n) continue;
-    const T v = values != nullptr ? values[i] : scalar;
+    const T v = values != nullptr ? values[i * values_step] : scalar;
     T* dst = col + static_cast<int64_t>(r) * inner + (i - lane * inner);
     if (OP == OP_SET) {
       *dst = v;
@@ -67,21 +70,22 @@ __global__ void row_scatter_kernel(T* __restrict__ col, int64_t n,
 
 template <typename T>
 int launch(T* col, int64_t n, const int32_t* rows, int64_t m, int64_t inner,
-           const T* values, T scalar, int op, void* stream) {
+           const T* values, int64_t values_step, T scalar, int op,
+           void* stream) {
   const unsigned int blocks = ot_blocks(m * inner);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (op) {
     case OP_SET:
       row_scatter_kernel<T, OP_SET><<<blocks, OT_THREADS, 0, s>>>(
-          col, n, rows, m, inner, values, scalar);
+          col, n, rows, m, inner, values, values_step, scalar);
       break;
     case OP_ADD:
       row_scatter_kernel<T, OP_ADD><<<blocks, OT_THREADS, 0, s>>>(
-          col, n, rows, m, inner, values, scalar);
+          col, n, rows, m, inner, values, values_step, scalar);
       break;
     case OP_MAX:
       row_scatter_kernel<T, OP_MAX><<<blocks, OT_THREADS, 0, s>>>(
-          col, n, rows, m, inner, values, scalar);
+          col, n, rows, m, inner, values, values_step, scalar);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -91,16 +95,20 @@ int launch(T* col, int64_t n, const int32_t* rows, int64_t m, int64_t inner,
 
 }  // namespace
 
-// values == nullptr broadcasts `scalar` to every lane
+// values == nullptr broadcasts `scalar` to every lane; values_step 0
+// broadcasts the one element `values` points to, 1 reads values[i]
 OT_EXPORT int row_scatter_i32(int32_t* col, int64_t n, const int32_t* rows,
                               int64_t m, int64_t inner,
-                              const int32_t* values, int32_t scalar, int op,
-                              void* stream) {
-  return launch<int32_t>(col, n, rows, m, inner, values, scalar, op, stream);
+                              const int32_t* values, int64_t values_step,
+                              int32_t scalar, int op, void* stream) {
+  return launch<int32_t>(col, n, rows, m, inner, values, values_step, scalar,
+                         op, stream);
 }
 
 OT_EXPORT int row_scatter_f32(float* col, int64_t n, const int32_t* rows,
                               int64_t m, int64_t inner, const float* values,
-                              float scalar, int op, void* stream) {
-  return launch<float>(col, n, rows, m, inner, values, scalar, op, stream);
+                              int64_t values_step, float scalar, int op,
+                              void* stream) {
+  return launch<float>(col, n, rows, m, inner, values, values_step, scalar,
+                       op, stream);
 }

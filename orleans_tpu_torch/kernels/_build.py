@@ -22,10 +22,12 @@ import tempfile
 from pathlib import Path
 from typing import Callable, Dict, List
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "orleans_tpu_torch"
-SOURCES = ("resolve", "scatter", "segment")
+SOURCES = ("resolve", "scatter", "segment", "hist", "miss")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -36,20 +38,58 @@ _COUNTED: List[Callable] = []
 
 
 def counted(fn: Callable) -> Callable:
-    """Register a kernel wrapper whose ``launches`` attribute counts the
-    times it launched its CUDA kernel (never its plain version)."""
+    """Register a kernel wrapper that counts its launches of its CUDA
+    kernel (never its plain version), in three attributes:
+
+    * ``launches``: launches made eagerly, one per wrapper call;
+    * ``captured``: launches recorded into a CUDA graph during capture —
+      these run only when the graph replays;
+    * ``replayed``: launches made by graph replays, added by
+      ``note_replay`` from the per-capture counts of the replayed graph.
+
+    ``launches + replayed`` is what the device ran."""
     fn.launches = 0
+    fn.captured = 0
+    fn.replayed = 0
     _COUNTED.append(fn)
     return fn
 
 
+def note_launch(fn: Callable) -> None:
+    """Count one launch of ``fn``'s kernel, as captured when the current
+    stream is capturing a CUDA graph, else as an eager launch."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
+
+
+def captured_counts() -> Dict[str, int]:
+    """Captured launches per wrapper, for a capture's before/after diff."""
+    return {fn.__name__: fn.captured for fn in _COUNTED}
+
+
+def note_replay(per_capture: Dict[str, int]) -> None:
+    """One replay of a graph whose capture recorded ``per_capture``."""
+    for fn in _COUNTED:
+        fn.replayed += per_capture.get(fn.__name__, 0)
+
+
 def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    """Launches the device ran per wrapper: eager plus replayed."""
+    return {fn.__name__: fn.launches + fn.replayed for fn in _COUNTED}
+
+
+def launch_report() -> Dict[str, Dict[str, int]]:
+    """Per wrapper: eager launches, launches captured into graphs, and
+    launches those graphs' replays made."""
+    return {fn.__name__: {"eager": fn.launches, "captured": fn.captured,
+                          "replayed": fn.replayed} for fn in _COUNTED}
 
 
 def reset_launch_counts() -> None:
     for fn in _COUNTED:
-        fn.launches = 0
+        fn.launches = fn.captured = fn.replayed = 0
 
 
 def _nvcc() -> str:

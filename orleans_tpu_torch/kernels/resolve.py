@@ -8,6 +8,9 @@ search over the sentinel-padded sorted key mirror).  Both return ``rows``
 (int32, -1 where the key is padding, invalid or not active) and the miss
 count (an int32 scalar tensor: lanes that were valid but did not resolve),
 which stays on the device until the engine's miss-check drain reads it.
+Given ``misses`` (a one-element int32 tensor on the keys' device), the
+count adds into it instead of a fresh zeroed scalar: a fused window sums
+every tick's misses into its one device total that way.
 
 What bounds them on an H100 and what the kernels do about it is in the
 note at the top of ``csrc/resolve.cu``.
@@ -59,6 +62,17 @@ def _check_lanes(keys: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {keys.device}")
 
 
+def _miss_counter(misses, keys: torch.Tensor) -> torch.Tensor:
+    """A fresh zeroed int32 scalar, or the caller's accumulator."""
+    if misses is None:
+        return torch.zeros((), dtype=torch.int32, device=keys.device)
+    if not isinstance(misses, torch.Tensor) or misses.dtype != torch.int32 \
+            or misses.numel() != 1 or misses.device != keys.device:
+        raise TypeError("misses must be a one-element int32 tensor on the "
+                        "keys' device")
+    return misses
+
+
 def _launch(fn_name: str, rows: torch.Tensor, *args) -> None:
     lib = _build.library("resolve", _SIGNATURES)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
@@ -69,7 +83,7 @@ def _launch(fn_name: str, rows: torch.Tensor, *args) -> None:
 # -- K1 ----------------------------------------------------------------------
 
 def resolve_dense_plain(dense: torch.Tensor, keys: torch.Tensor,
-                        valid: torch.Tensor
+                        valid: torch.Tensor, misses=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``resolve_dense``."""
     size = dense.shape[0]
@@ -77,35 +91,39 @@ def resolve_dense_plain(dense: torch.Tensor, keys: torch.Tensor,
     in_range = valid & (keys >= 0) & (keys < size)
     rows = torch.where(in_range, dense[keys.clamp(0, size - 1).long()], -1)
     hit = in_range & (rows >= 0)
-    return rows, (hit ^ valid).sum(dtype=torch.int32)
+    count = _miss_counter(misses, keys)
+    count += (hit ^ valid).sum(dtype=torch.int32)
+    return rows, count
 
 
 @_build.counted
 def resolve_dense(dense: torch.Tensor, keys: torch.Tensor,
-                  valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  valid: torch.Tensor, misses=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``rows = dense[key]`` where the lane is valid, the key is below the
-    sentinel and ``0 <= key < len(dense)``, else -1; plus the miss count."""
+    sentinel and ``0 <= key < len(dense)``, else -1; plus the miss count
+    (added into ``misses`` when given)."""
     _check_lanes(keys, valid)
     _check_vector("dense", dense, torch.int32, keys.device)
     if dense.shape[0] == 0:
         raise ValueError("dense map is empty")
     if keys.device.type == "cpu":
-        return resolve_dense_plain(dense, keys, valid)
+        return resolve_dense_plain(dense, keys, valid, misses)
     m = keys.shape[0]
     rows = torch.empty(m, dtype=torch.int32, device=keys.device)
-    misses = torch.zeros((), dtype=torch.int32, device=keys.device)
+    misses = _miss_counter(misses, keys)
     if m:
         _launch("resolve_dense", rows, dense.data_ptr(), dense.shape[0],
                 keys.data_ptr(), valid.data_ptr(), rows.data_ptr(),
                 misses.data_ptr(), m)
-        resolve_dense.launches += 1
+        _build.note_launch(resolve_dense)
     return rows, misses
 
 
 # -- K2 ----------------------------------------------------------------------
 
 def resolve_sorted_plain(sorted_keys: torch.Tensor, sorted_rows: torch.Tensor,
-                         keys: torch.Tensor, valid: torch.Tensor
+                         keys: torch.Tensor, valid: torch.Tensor, misses=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``resolve_sorted``."""
     n = sorted_keys.shape[0]
@@ -113,17 +131,20 @@ def resolve_sorted_plain(sorted_keys: torch.Tensor, sorted_rows: torch.Tensor,
     idx = torch.searchsorted(sorted_keys, keys, side="left").clamp_(0, n - 1)
     hit = (sorted_keys[idx] == keys) & valid
     rows = torch.where(hit, sorted_rows[idx], -1)
-    return rows, (hit ^ valid).sum(dtype=torch.int32)
+    count = _miss_counter(misses, keys)
+    count += (hit ^ valid).sum(dtype=torch.int32)
+    return rows, count
 
 
 @_build.counted
 def resolve_sorted(sorted_keys: torch.Tensor, sorted_rows: torch.Tensor,
-                   keys: torch.Tensor, valid: torch.Tensor
+                   keys: torch.Tensor, valid: torch.Tensor, misses=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lower-bound search of each key in ``sorted_keys`` (ascending,
     padded with ``KEY_SENTINEL``), clipped to the last index; a lane hits
     when it is valid and the key there equals its own.  Returns
-    ``sorted_rows`` at the hit (else -1) and the miss count."""
+    ``sorted_rows`` at the hit (else -1) and the miss count (added into
+    ``misses`` when given)."""
     _check_lanes(keys, valid)
     _check_vector("sorted_keys", sorted_keys, torch.int32, keys.device)
     _check_vector("sorted_rows", sorted_rows, torch.int32, keys.device)
@@ -131,14 +152,15 @@ def resolve_sorted(sorted_keys: torch.Tensor, sorted_rows: torch.Tensor,
         raise ValueError("sorted_keys/sorted_rows must be equal, non-empty "
                          "vectors")
     if keys.device.type == "cpu":
-        return resolve_sorted_plain(sorted_keys, sorted_rows, keys, valid)
+        return resolve_sorted_plain(sorted_keys, sorted_rows, keys, valid,
+                                    misses)
     m = keys.shape[0]
     rows = torch.empty(m, dtype=torch.int32, device=keys.device)
-    misses = torch.zeros((), dtype=torch.int32, device=keys.device)
+    misses = _miss_counter(misses, keys)
     if m:
         _launch("resolve_sorted", rows, sorted_keys.data_ptr(),
                 sorted_rows.data_ptr(), sorted_keys.shape[0],
                 keys.data_ptr(), valid.data_ptr(), rows.data_ptr(),
                 misses.data_ptr(), m)
-        resolve_sorted.launches += 1
+        _build.note_launch(resolve_sorted)
     return rows, misses

@@ -6,10 +6,14 @@ Replaces ``orleans_tpu/tensor/vector_grain.py`` ``scatter_rows`` /
 A bare ``index_put_`` would wrap row -1 onto the last row and silently
 corrupt whichever grain lives there; both versions here drop it.
 
-``values`` is either a tensor ``[m, *column.shape[1:]]`` of the column's
-dtype or a host scalar (Python or numpy), broadcast to every lane without
-materialising a lane vector (the heartbeat's ``tick``).  SET with
-duplicate rows keeps one of the writers, not a chosen one.
+``values`` is a tensor ``[m, *column.shape[1:]]`` of the column's dtype,
+a 0-d tensor of that dtype on the column's device, or a host scalar
+(Python or numpy).  Both scalars broadcast to every lane without
+materialising a lane vector (the heartbeat's ``tick``): a host scalar
+rides as a kernel argument, a device scalar is read through its pointer,
+which is what a fused window's CUDA graph needs (a replay reads the tick
+copied into the graph's input buffer, not the one baked at capture).
+SET with duplicate rows keeps one of the writers, not a chosen one.
 
 What bounds the kernel on an H100 and what it does about it is in the
 note at the top of ``csrc/scatter.cu``.
@@ -31,9 +35,9 @@ OPS = {"set": 0, "add": 1, "max": 2}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "row_scatter_i32": (_P, _I64, _P, _I64, _I64, _P, ctypes.c_int32,
-                        ctypes.c_int, _P),
-    "row_scatter_f32": (_P, _I64, _P, _I64, _I64, _P, ctypes.c_float,
+    "row_scatter_i32": (_P, _I64, _P, _I64, _I64, _P, _I64,
+                        ctypes.c_int32, ctypes.c_int, _P),
+    "row_scatter_f32": (_P, _I64, _P, _I64, _I64, _P, _I64, ctypes.c_float,
                         ctypes.c_int, _P),
 }
 _FN = {torch.int32: "row_scatter_i32", torch.float32: "row_scatter_f32"}
@@ -112,20 +116,20 @@ def row_scatter(column: torch.Tensor, rows: torch.Tensor, values: Values,
         return column
     inner = column[0].numel()
     if _is_host_scalar(values):
-        ptr = None
+        ptr, step = None, 0
         scalar = int(values) if column.dtype == torch.int32 \
             else float(values)
     else:
-        if values.dim() == 0:  # a device scalar: broadcast it explicitly
-            values = values.expand(m, *column.shape[1:]).contiguous()
-        elif not values.is_contiguous():
+        if values.dim() and not values.is_contiguous():
             raise ValueError("values must be contiguous")
-        ptr, scalar = values.data_ptr(), 0
+        # a device scalar is one element every lane reads (step 0)
+        ptr, step, scalar = values.data_ptr(), int(values.dim() > 0), 0
     fn_name = _FN[column.dtype]
     lib = _build.library("scatter", _SIGNATURES)
     err = getattr(lib, fn_name)(
         column.data_ptr(), column.shape[0], rows.data_ptr(), m, inner, ptr,
-        scalar, OPS[op], torch.cuda.current_stream(column.device).cuda_stream)
+        step, scalar, OPS[op],
+        torch.cuda.current_stream(column.device).cuda_stream)
     _build.check(lib, err, fn_name)
-    row_scatter.launches += 1
+    _build.note_launch(row_scatter)
     return column

@@ -73,5 +73,5 @@ def seg_sum(values: torch.Tensor, rows: torch.Tensor,
         out.data_ptr(), n_rows,
         torch.cuda.current_stream(values.device).cuda_stream)
     _build.check(lib, err, fn_name)
-    seg_sum.launches += 1
+    _build.note_launch(seg_sum)
     return out

@@ -58,8 +58,18 @@ class GrainArena:
         self._sorted_rows = np.empty(0, dtype=np.int32)
         self._dirty = False
         self.live_count = 0
+        # eviction (free-list deactivation) belongs to a later slice of
+        # the port: the epoch it bumps stays 0, and the fused window and
+        # the auto-fuser check it as the JAX package does
+        self.eviction_epoch = 0
         # host-side last use: updated by host-key resolution
         self.last_use_tick = np.zeros(self.capacity, dtype=np.int64)
+        # end tick of the latest fused window over this arena: every row
+        # live then was used then (see ``last_use``), stamped in O(1)
+        self.fused_use_tick = 0
+        # weakref to the owning engine: row moves settle its auto-fusion
+        # chain first (``_settle_owner_chain``)
+        self._owner_engine: Optional[Any] = None
         # device-side last use: a scatter-max by the engine for
         # device-routed batches, which never cross to the host (int32, as
         # in the JAX package: a tick counter)
@@ -73,6 +83,22 @@ class GrainArena:
         self._dev_dense_stale = True
         # True once an activated key does not fit the int32 device keys
         self.has_wide_keys = False
+
+    def _settle_owner_chain(self) -> None:
+        """Rows are about to move (growth): settle the owning engine's
+        auto-fusion verification chain FIRST, while its pre-move state
+        pin is still restorable — the chain verifies exact, or rolls back
+        and replays now, against the current layout."""
+        ref = self._owner_engine
+        engine = ref() if ref is not None else None
+        if engine is not None and engine.autofuser._unverified:
+            engine.autofuser._settle_chain()
+
+    def last_use(self, rows: np.ndarray) -> np.ndarray:
+        """Host last-use tick of live ``rows``: the later of the host
+        stamp and the latest fused window (which counts every live row
+        as used; no eviction frees rows in this slice)."""
+        return np.maximum(self.last_use_tick[rows], self.fused_use_tick)
 
     # -- state columns ------------------------------------------------------
 
@@ -236,6 +262,7 @@ class GrainArena:
         """Double the capacity.  With one shard block every row keeps its
         index, so the old columns copy into the front of the new ones;
         the generation bumps because every column tensor is new."""
+        self._settle_owner_chain()
         old = self.capacity
         new_capacity = old * 2
         new_state: Dict[str, torch.Tensor] = {}

@@ -24,15 +24,22 @@ Data movement:
 
 Each step runs its handler eagerly (PyTorch has no trace to cache) and
 records a ``torch.cuda.Event`` after it as the step's completion fence.
-The latency ledger, workload attribution, auto-fusion, timers, the
-profiler, checkpoints, collection, fan-outs, streams, the cross-shard
-exchange and the cluster router belong to later slices of the port.
+
+Every batch is stamped with its injection tick, and the latency ledger
+(``tensor/ledger.py``) records each applied batch's tick delta.  At
+steady state the auto-fuser (``tensor/autofuse.py``), offered every tick
+first, runs whole windows of ticks as one program (``tensor/fused.py``;
+on the card one replay of a captured CUDA graph).  Workload attribution,
+timers, the profiler, checkpoints, collection, fan-outs, streams, the
+cross-shard exchange and the cluster router belong to later slices of the
+port.
 """
 
 from __future__ import annotations
 
 import asyncio
 import time
+import weakref
 from collections import defaultdict, deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -40,14 +47,16 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from orleans_tpu_torch.config import TensorEngineConfig
+from orleans_tpu_torch.config import MetricsConfig, TensorEngineConfig
 from orleans_tpu_torch.device import resolve_device
+from orleans_tpu_torch.kernels.miss import miss_keys
 from orleans_tpu_torch.kernels.resolve import (
     KEY_SENTINEL,
     resolve_dense,
     resolve_sorted,
 )
 from orleans_tpu_torch.tensor.arena import GrainArena
+from orleans_tpu_torch.tensor.ledger import DeviceLatencyLedger, SlotRegistry
 from orleans_tpu_torch.tensor.vector_grain import (
     Batch,
     Emit,
@@ -59,6 +68,10 @@ from orleans_tpu_torch.tensor.vector_grain import (
 # unique unseen keys activated per miss-check pass (same bound as the JAX
 # package: a cold start of more unseen keys converges over several passes)
 MISS_BUF = 1 << 17
+
+# seconds the engine loop (``TensorEngine.start``) yields between ticks
+# (the JAX package's default ``tick_interval``)
+LOOP_TICK_SECONDS = 0.001
 
 # JAX runs without x64: 64-bit host arrays enter the device as 32-bit
 _X32 = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32,
@@ -136,6 +149,10 @@ class PendingBatch:
     mask: Optional[torch.Tensor] = None         # bool[m] device (None = all)
     future: Optional[asyncio.Future] = None     # resolves to results[m]
     generation: int = -1                        # arena generation of rows
+    # latency ledger: the engine tick at which this batch was injected or
+    # emitted (-1 = unstamped, not counted).  Miss redeliveries carry the
+    # ORIGINAL stamp, so their latency includes the redelivery wait.
+    inject_tick: int = -1
 
     def __len__(self) -> int:
         for c in (self.rows, self.keys_host, self.keys_dev):
@@ -156,38 +173,34 @@ class _MissCheck:
     rows: torch.Tensor
     miss_count: torch.Tensor
     args: Any
+    inject_tick: int = -1
 
 
 def resolve_rows_on_device(arena: GrainArena, keys: torch.Tensor,
-                           valid: torch.Tensor
+                           valid: torch.Tensor,
+                           misses: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resolve int32 grain keys to rows on the device: one gather from the
     dense direct map when the key space affords it (K1), else a binary
-    search of the sorted mirror (K2).  Returns (rows, miss count)."""
+    search of the sorted mirror (K2).  Returns (rows, miss count); the
+    count adds into ``misses`` when given (a fused window's total)."""
     if isinstance(keys, tuple) or arena.has_wide_keys:
         raise NotImplementedError(
             "wide-key device resolution belongs to a later slice of the "
             "port (orleans_tpu/tensor/engine.py _resolve_rows_wide_kernel)")
     dense = arena.dense_index()
     if dense is not None:
-        return resolve_dense(dense, keys, valid)
+        return resolve_dense(dense, keys, valid, misses)
     sorted_keys, sorted_rows = arena.device_index()
-    return resolve_sorted(sorted_keys, sorted_rows, keys, valid)
+    return resolve_sorted(sorted_keys, sorted_rows, keys, valid, misses)
 
 
 def _miss_keys(keys: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
                miss_buf: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sorted unique unseen keys, padded with the sentinel to
     ``miss_buf`` (the smallest ``miss_buf`` when there are more), and the
-    lane mask of the dropped messages (cold path only)."""
-    missing = (rows < 0) & valid & (keys < KEY_SENTINEL)
-    uniq = torch.unique(torch.where(missing, keys, KEY_SENTINEL),
-                        sorted=True)
-    out = torch.full((miss_buf,), KEY_SENTINEL, dtype=keys.dtype,
-                     device=keys.device)
-    n = min(uniq.shape[0], miss_buf)
-    out[:n] = uniq[:n]
-    return out, missing
+    lane mask of the dropped messages (cold path only; K6)."""
+    return miss_keys(keys, rows, valid, miss_buf)
 
 
 def _stack_counts(*xs: torch.Tensor) -> torch.Tensor:
@@ -200,9 +213,20 @@ class TensorEngine:
 
     def __init__(self, config: Optional[TensorEngineConfig] = None,
                  initial_capacity: int = 1024,
-                 device: Optional[Any] = None) -> None:
+                 device: Optional[Any] = None,
+                 metrics: Optional[MetricsConfig] = None) -> None:
+        from orleans_tpu_torch.tensor.autofuse import AutoFuser
+
         self.device = resolve_device(device)
         self.config = config or TensorEngineConfig()
+        self.metrics_config = metrics or MetricsConfig()
+        # on-device latency ledger: per-(type, method) log2 histograms of
+        # inject→completion tick deltas
+        self.slot_registry = SlotRegistry()
+        self.ledger = DeviceLatencyLedger(
+            self.device, n_buckets=self.metrics_config.ledger_buckets,
+            enabled=self.metrics_config.ledger_enabled,
+            slots=self.slot_registry)
         self.initial_capacity = initial_capacity
         self.arenas: Dict[str, GrainArena] = {}
         self.queues: Dict[Tuple[str, str], List[PendingBatch]] = \
@@ -216,8 +240,15 @@ class TensorEngine:
         self._step_cache: Dict[Tuple[str, str], Callable] = {}
         self._masks: Dict[int, torch.Tensor] = {}
         self._pending_checks: List[_MissCheck] = []
-        # completion fence of the latest step (a CUDA event; None on CPU)
+        # completion fence of the latest step or fused window (a CUDA
+        # event; None on CPU)
         self._tick_fence: Optional[torch.cuda.Event] = None
+        # steady-state detection → fused windows
+        self.autofuser = AutoFuser(self)
+        # the engine loop (start/stop)
+        self._running = False
+        self._wake: Optional[asyncio.Event] = None
+        self._task: Optional[asyncio.Task] = None
 
     # ================= arenas =============================================
 
@@ -229,6 +260,8 @@ class TensorEngine:
                 raise KeyError(f"{type_name!r} is not a @vector_grain type")
             arena = GrainArena(info, self.device,
                                capacity=self.initial_capacity)
+            # row moves settle the auto-fuser's chain first
+            arena._owner_engine = weakref.ref(self)
             self.arenas[type_name] = arena
         return arena
 
@@ -250,13 +283,16 @@ class TensorEngine:
             # device keys resolve optimistically (unseen keys re-delivered
             # later), which cannot fix an already-resolved result future,
             # so want_results forces the host path
-            batch = PendingBatch(args=args, keys_dev=keys.to(self.device))
+            batch = PendingBatch(args=args, keys_dev=keys.to(self.device),
+                                 inject_tick=self.tick_number)
         else:
             if isinstance(keys, torch.Tensor):
                 keys = keys.cpu().numpy()
             batch = PendingBatch(args=args, future=future,
-                                 keys_host=np.asarray(keys, dtype=np.int64))
+                                 keys_host=np.asarray(keys, dtype=np.int64),
+                                 inject_tick=self.tick_number)
         self.queues[(self._type_name(interface), method)].append(batch)
+        self._wake_up()
         return future
 
     def make_injector(self, interface, method: str,
@@ -265,6 +301,66 @@ class TensorEngine:
         reuse the device row vector (the steady-state client edge)."""
         return BatchInjector(self, self._type_name(interface), method,
                              np.asarray(keys, dtype=np.int64))
+
+    def fuse_ticks(self, interface, method: str, keys: np.ndarray):
+        """The steady-state tick of (interface, method) over a fixed key
+        set as one multi-tick program (``tensor/fused.py``): its
+        ``run(stacked_args, static_args)`` executes a whole [T, ...]
+        window, and ``verify()`` must report 0 misses for it to be
+        exact."""
+        from orleans_tpu_torch.tensor.fused import FusedTickProgram
+
+        return FusedTickProgram(self, self._type_name(interface), method,
+                                np.asarray(keys, dtype=np.int64))
+
+    # ================= tick loop ==========================================
+
+    def start(self) -> None:
+        """Run ticks in a task of the current event loop whenever work is
+        queued (``stop`` ends it)."""
+        self._running = True
+        self._wake = asyncio.Event()
+        self._task = asyncio.get_running_loop().create_task(self._loop())
+
+    async def stop(self, drain: bool = True) -> None:
+        if drain and self._running:
+            await self.flush()
+        self._running = False
+        if self._wake is not None:
+            self._wake.set()
+        if self._task is not None:
+            await self._task
+            self._task = None
+
+    def _wake_up(self) -> None:
+        if self._wake is not None:
+            self._wake.set()
+
+    async def _loop(self) -> None:
+        while self._running:
+            await self._wake.wait()
+            self._wake.clear()
+            while self._running:
+                while self._running and any(self.queues.values()):
+                    self.run_tick()
+                    await asyncio.sleep(LOOP_TICK_SECONDS)
+                if self._drain_checks():
+                    continue
+                if self._running and self.autofuser.has_buffer():
+                    # a partially filled fused window and no new work:
+                    # give the producer one grace period to continue the
+                    # pattern, then replay the buffer unfused so buffered
+                    # ticks never strand awaiting an explicit flush()
+                    try:
+                        await asyncio.wait_for(
+                            self._wake.wait(),
+                            timeout=self.config.auto_fusion_idle_flush)
+                        self._wake.clear()
+                        continue
+                    except asyncio.TimeoutError:
+                        self.autofuser.idle_flush()
+                        continue
+                break
 
     # ================= tick execution =====================================
 
@@ -277,10 +373,14 @@ class TensorEngine:
 
     async def flush(self) -> None:
         """Run ticks until every queue drains AND every optimistic
-        miss-check has settled (full delivery)."""
+        miss-check has settled (full delivery).  A partially filled fused
+        window replays unfused here, one buffered tick at a time."""
         while True:
             await self.drain_queues()
-            if not self._drain_checks():
+            requeued = self._drain_checks()
+            if self.autofuser.flush_partial():
+                requeued = True
+            if not requeued:
                 break
 
     def wait_completion(self) -> None:
@@ -289,6 +389,10 @@ class TensorEngine:
             self._tick_fence.synchronize()
 
     def run_tick(self) -> None:
+        if self.autofuser.offer():
+            # the tick was consumed into (or ran as part of) a fused
+            # window — counters and latency are accounted by the window
+            return
         t0 = time.perf_counter()
         self.tick_number += 1
         if len(self._pending_checks) >= self.config.miss_check_cap:
@@ -305,6 +409,22 @@ class TensorEngine:
             rounds += 1
             self.rounds_run += 1
         self.tick_durations.append(time.perf_counter() - t0)
+
+    def stats(self) -> Dict[str, Any]:
+        """Engine counters: the keys of ``orleans_tpu``'s
+        ``TensorEngine.snapshot()`` that the port has.  Host-side only —
+        the ledger's bucket counts come from ``ledger.snapshot()``, which
+        pays its one device→host copy explicitly."""
+        return {
+            "ticks": self.tick_number,
+            "rounds": self.rounds_run,
+            "messages": self.messages_processed,
+            "activation_passes": self.activation_passes,
+            "tick_latency": self.latency_stats(),
+            "autofuse": self.autofuser.snapshot(),
+            "arenas": {name: a.live_count for name, a in self.arenas.items()},
+            "latency_ledger": self.ledger.stats(),
+        }
 
     def latency_stats(self) -> Dict[str, float]:
         """True percentiles over the recent per-tick duration window."""
@@ -352,7 +472,8 @@ class TensorEngine:
         self._pending_checks.append(
             _MissCheck(arena=arena, type_name=arena.info.name, method=method,
                        keys=keys, valid=valid, rows=rows,
-                       miss_count=miss_count, args=b.args))
+                       miss_count=miss_count, args=b.args,
+                       inject_tick=b.inject_tick))
         return rows, b.args
 
     def _drain_checks(self) -> bool:
@@ -378,7 +499,8 @@ class TensorEngine:
             # re-deliver only the dropped messages; converges over passes
             # when the unique misses exceed MISS_BUF
             self.queues[(c.type_name, c.method)].append(PendingBatch(
-                args=c.args, keys_dev=c.keys, mask=missing))
+                args=c.args, keys_dev=c.keys, mask=missing,
+                inject_tick=c.inject_tick))
             requeued = True
         return requeued
 
@@ -455,6 +577,18 @@ class TensorEngine:
         the use clock, route the emits."""
         info = vector_type(type_name)
         arena = self.arena_for(type_name)
+        ledger = self.ledger
+        if ledger.enabled:
+            # latency ledger, host-resolved side: injector and host-key
+            # batches always fully deliver (host resolution activates),
+            # so each is one numpy scalar add — recorded BEFORE
+            # coalescing, which drops the per-batch stamps
+            for b in batches:
+                if b.inject_tick >= 0 and (b.keys_host is not None
+                                           or b.rows is not None):
+                    ledger.record_host(type_name, method,
+                                       self.tick_number - b.inject_tick,
+                                       len(b))
         batches = self._coalesce_host_batches(batches)
         # re-resolve if a batch's own resolution grew the arena
         while True:
@@ -463,6 +597,19 @@ class TensorEngine:
                         for b in batches]
             if arena.generation == gen0:
                 break
+        if ledger.enabled:
+            # device side: count exactly the lanes the step applies (mask
+            # ∧ resolved, one K5 launch per batch); unresolved lanes count
+            # when their redelivery applies, never twice
+            for b, (rows, _a) in zip(batches, resolved):
+                if b.inject_tick < 0 or b.keys_host is not None \
+                        or b.rows is not None:
+                    continue
+                base = b.mask if b.mask is not None \
+                    else self._mask_for(len(b))
+                ledger.record_rows(type_name, method,
+                                   self.tick_number - b.inject_tick,
+                                   rows, base)
         if len(resolved) == 1:
             rows, args = resolved[0]
             mask = batches[0].mask
@@ -535,7 +682,8 @@ class TensorEngine:
                 keys = torch.as_tensor(np.asarray(keys, dtype=np.int32),
                                        device=self.device)
             self.queues[(emit.interface, emit.method)].append(PendingBatch(
-                args=emit.args, keys_dev=keys, mask=emit.mask))
+                args=emit.args, keys_dev=keys, mask=emit.mask,
+                inject_tick=self.tick_number))
 
     # ================= steps ==============================================
 
@@ -612,9 +760,12 @@ class BatchInjector:
                ) -> Optional[asyncio.Future]:
         if self.generation != self._arena.generation:
             self._refresh()  # rows moved with a growth: re-resolve
+        engine = self.engine
         future = asyncio.get_running_loop().create_future() \
             if want_results else None
-        self.engine.queues[(self.type_name, self.method)].append(
+        engine.queues[(self.type_name, self.method)].append(
             PendingBatch(args=args, rows=self.rows, keys_host=self.keys,
-                         future=future, generation=self.generation))
+                         future=future, generation=self.generation,
+                         inject_tick=engine.tick_number))
+        engine._wake_up()
         return future

@@ -1,0 +1,645 @@
+"""Tick fusion: run a steady-state window of ticks as ONE device program.
+
+The port of ``orleans_tpu/tensor/fused.py``.  At steady state the tick is
+structurally constant: the same (type, method) arrives every tick, its
+emits go to the same destination types, and the directory does not
+change.  The JAX package traces one tick — source step → device-mirror
+resolve → destination steps, recursively to the round cap — and scans it
+over a window of T ticks in one XLA program.  The port runs the same
+Python tick function:
+
+* on the card, captured ONCE into a ``torch.cuda.CUDAGraph`` over all T
+  ticks and replayed per window.  Per-tick leaves (the tick counter, a
+  per-tick payload) ride in the graph's fixed ``[T, ...]`` input buffers,
+  filled before each replay; tick ``t`` reads row ``t`` through a device
+  pointer (K3's device-scalar mode for a 0-d leaf).  Static leaves, the
+  source rows and the directory mirrors are baked in by address.  A
+  capture or replay failure raises: nothing falls back to eager or
+  unfused execution on the card;
+* on the CPU, eagerly, tick by tick (the kernels' plain versions).
+
+Steady-state contract (checked, not assumed):
+
+* the injected key set is fixed for the window;
+* every emit destination resolves in the directory mirror the window was
+  built against — misses (and round-cap spills) add into a device total
+  the window never reads; ``verify()`` reads it once, and a nonzero count
+  means the window was not exact and the caller replays it unfused;
+* the state columns the window updates stay where they were built
+  (graphs bake addresses): an arena growth (generation), an eviction
+  epoch, a directory-mirror rebuild, a ledger reconfiguration or a new
+  window shape rebuilds the program first.
+
+Inside a window every tick's messages complete in their own tick, so the
+latency ledger records each applied lane at delta 0 (bucket 0), as the
+JAX window does.  Exchange, fan-out, stream routes and wide keys are not
+on this slice's path: the port's engine has none of them, and a wide emit
+key raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import Counter
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from orleans_tpu_torch.kernels import _build
+from orleans_tpu_torch.kernels.hist import hist_count
+from orleans_tpu_torch.kernels.scatter import _is_host_scalar
+from orleans_tpu_torch.tensor.engine import (
+    _host_array,
+    _leaf_to_device,
+    _map_tree,
+    resolve_rows_on_device,
+)
+from orleans_tpu_torch.tensor.vector_grain import Batch, ones_mask, vector_type
+
+# why a program rebuilt (the causes of orleans_tpu/tensor/profiler.py's
+# compile-churn taxonomy that this slice can meet, plus the port's own:
+# a graph bakes the directory mirror's and the static leaves' addresses)
+CAUSE_NEW_WINDOW = "new_window"
+CAUSE_GENERATION_REPACK = "generation_repack"
+CAUSE_EPOCH_MISMATCH = "epoch_mismatch"
+CAUSE_CONFIG_TOGGLE = "config_toggle"
+CAUSE_SHAPE_CHANGE = "shape_change"
+CAUSE_MIRROR_REBUILD = "mirror_rebuild"
+CAUSE_STATIC_CHANGE = "static_change"
+
+
+def plan_windows(window: int, n_ticks: int) -> Tuple[int, int, int]:
+    """Uniform-window schedule of the fused load loops: one window shape
+    for the whole run, ticks rounded UP to whole windows.  Returns
+    (window, n_windows, total_ticks)."""
+    window = max(1, min(window, n_ticks))
+    n_windows = -(-n_ticks // window)
+    return window, n_windows, n_windows * window
+
+
+def _normalize(out):
+    if isinstance(out, dict):
+        return out, None, ()
+    out = tuple(out)
+    state = out[0]
+    results = out[1] if len(out) > 1 else None
+    emits = out[2] if len(out) > 2 else ()
+    return state, results, emits
+
+
+def _mirror_of(arena) -> Tuple[torch.Tensor, ...]:
+    """The directory mirror a window resolves against (built if stale)."""
+    dense = arena.dense_index()
+    return (dense,) if dense is not None else arena.device_index()
+
+
+class _Source:
+    """One injection pattern of a fused window.
+
+    STATIC (the auto-fuser's mode): one key set, identical every tick —
+    rows resolve once and are baked into the window.  STACKED
+    (``_Source.stacked``, journal fold-replay): a per-tick ``[T, m]`` key
+    matrix with a ``[T, m]`` presence mask; the caller passes each tick's
+    rows and mask as the reserved per-tick leaves ``__rows__`` and
+    ``__mask__`` (absent lanes: row -1, mask False — exact no-ops)."""
+
+    def __init__(self, engine, type_name: str, method: str,
+                 keys: np.ndarray) -> None:
+        if vector_type(type_name) is None:
+            raise KeyError(f"{type_name!r} is not a @vector_grain type")
+        self.engine = engine
+        self.type_name = type_name
+        self.method = method
+        self.arena = engine.arena_for(type_name)
+        self.stacked_rows = False
+        self.keys = np.asarray(keys, dtype=np.int64)
+        self.refresh_rows()
+
+    @classmethod
+    def stacked(cls, engine, type_name: str, method: str,
+                keys2d: np.ndarray, mask2d: np.ndarray) -> "_Source":
+        if vector_type(type_name) is None:
+            raise KeyError(f"{type_name!r} is not a @vector_grain type")
+        self = cls.__new__(cls)
+        self.engine = engine
+        self.type_name = type_name
+        self.method = method
+        self.arena = engine.arena_for(type_name)
+        self.stacked_rows = True
+        self.keys2d = np.asarray(keys2d, dtype=np.int64)
+        self.mask2d = np.asarray(mask2d, dtype=bool)
+        self.lanes = int(self.keys2d.shape[1])
+        # the flat unique key set (activation + re-resolution domain)
+        self.keys = (np.unique(self.keys2d[self.mask2d])
+                     if self.mask2d.any()
+                     else np.empty(0, dtype=np.int64))
+        self.refresh_rows()
+        return self
+
+    def refresh_rows(self) -> None:
+        """(Re-)resolve keys → rows against the arena's current layout
+        (activates missing keys — may grow the arena, so rollback
+        snapshots come after; the ``prepare()`` contract)."""
+        device = self.engine.device
+        if not self.stacked_rows:
+            rows = self.arena.resolve_rows(self.keys)
+            self.rows = torch.from_numpy(rows.astype(np.int32)).to(device)
+            self.mask = ones_mask(len(self.keys), device)
+            return
+        if len(self.keys):
+            self.arena.resolve_rows(self.keys)
+        flat = self.keys2d.reshape(-1).copy()
+        flat[~self.mask2d.reshape(-1)] = -1
+        rows, found = self.arena.lookup_rows(flat)
+        rows = np.where(found, rows.astype(np.int64), np.int64(-1))
+        self.rows2d = rows.reshape(self.keys2d.shape)
+
+
+def _stage(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Per-tick leaves ``[T, ...]`` as tensors: numpy narrowed to 32 bits
+    as JAX without x64 does, tensors as given."""
+    if not isinstance(tree, dict):
+        raise TypeError("per-tick args must be a dict of [T, ...] leaves")
+    out = {}
+    for k, v in tree.items():
+        if not isinstance(v, torch.Tensor):
+            v = np.asarray(v)
+            if v.ndim == 0:
+                raise ValueError(f"per-tick leaf {k!r} needs a leading "
+                                 f"[T] axis")
+            v = torch.from_numpy(np.ascontiguousarray(_host_array(v)))
+        out[k] = v
+    return out
+
+
+def _copy_in(buf: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy a window's input into a graph buffer without stalling the
+    host: a host tensor goes through pinned memory, asynchronously (a
+    copy from pageable memory would wait for the stream to drain)."""
+    if src.device.type == "cpu" and buf.device.type == "cuda":
+        src = src.pin_memory()
+        buf.copy_(src, non_blocking=True)
+    else:
+        buf.copy_(src)
+
+
+class FusedTickProgram:
+    """One multi-tick program for one or more stable injection patterns.
+
+    Built by ``TensorEngine.fuse_ticks`` (one pattern — ``run`` takes one
+    per-tick/static dict pair), ``FusedTickProgram.multi`` (several
+    concurrent patterns — ``run`` takes LISTS aligned with the sources,
+    applied per tick in source order) or ``FusedTickProgram.replay``
+    (stacked per-tick key sets).  ``run`` executes T ticks and updates
+    the arenas' states; ``verify()`` returns the misses since the last
+    verify (0 = every window was exact)."""
+
+    def __init__(self, engine, type_name: str, method: str,
+                 keys: np.ndarray) -> None:
+        self.engine = engine
+        self.sources = [_Source(engine, type_name, method, keys)]
+        self._finish_init()
+
+    @classmethod
+    def multi(cls, engine, sources: List[Tuple[str, str, np.ndarray]]
+              ) -> "FusedTickProgram":
+        self = cls.__new__(cls)
+        self.engine = engine
+        self.sources = [_Source(engine, t, m, k) for t, m, k in sources]
+        self._finish_init()
+        return self
+
+    @classmethod
+    def replay(cls, engine,
+               sites: List[Tuple[str, str, np.ndarray, np.ndarray]]
+               ) -> "FusedTickProgram":
+        """Stacked-rows window: each site is (type_name, method, keys2d
+        [T, m], mask2d [T, m]), applied in site order each tick."""
+        self = cls.__new__(cls)
+        self.engine = engine
+        self.sources = [_Source.stacked(engine, t, m, k2, mk)
+                        for t, m, k2, mk in sites]
+        self._finish_init()
+        return self
+
+    def _finish_init(self) -> None:
+        self.n_msgs = sum(s.lanes if s.stacked_rows else len(s.keys)
+                          for s in self.sources)
+        self._built = False
+        self._generations: Dict[str, int] = {}
+        self._epochs: Dict[str, int] = {}
+        self._touched: List[str] = []
+        # arenas whose directory mirror the window resolves against, and
+        # the mirror tensors it was built with (identity-compared)
+        self._resolved: List[str] = []
+        self._mirrors: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        self._discovering = False
+        # device [1, 2] int32: (misses, delivered) since the last verify,
+        # added into in place by every window (one address for graphs)
+        self._totals = torch.zeros((1, 2), dtype=torch.int32,
+                                   device=self.engine.device)
+        self._unread = False
+        # latency ledger: baked at build time, like the JAX window
+        self._ledger_on = False
+        self._hist: Optional[torch.Tensor] = None
+        self._built_donate: Optional[bool] = None
+        # the card's form: the captured graph and everything it baked
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._in: List[Dict[str, torch.Tensor]] = []     # [T, ...] inputs
+        self._static_keys: List[Dict[str, Any]] = []     # see _static_key
+        self._static_bufs: List[Dict[str, torch.Tensor]] = []
+        self._graph_statics: List[Dict[str, Any]] = []
+        self._state_bufs: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._per_replay: Dict[str, int] = {}  # launches one replay makes
+        self.rebuilds: Counter = Counter()      # cause → count
+        self.build_seconds = 0.0                # the latest build's
+        self.replays = 0
+
+    @property
+    def on_card(self) -> bool:
+        return self.engine.device.type == "cuda"
+
+    def _is_multi(self) -> bool:
+        return len(self.sources) > 1
+
+    def _as_lists(self, stacked_args: Any, static_args: Any
+                  ) -> Tuple[List[Any], List[Any]]:
+        if self._is_multi():
+            return list(stacked_args), list(static_args or
+                                            [{}] * len(self.sources))
+        return [stacked_args], [static_args or {}]
+
+    # -- the tick -------------------------------------------------------------
+
+    def _apply_group(self, states: Dict[str, Dict[str, torch.Tensor]],
+                     type_name: str, method: str, rows: torch.Tensor,
+                     args: Any, mask: torch.Tensor, depth: int,
+                     acc: Tuple[torch.Tensor, Optional[torch.Tensor]]
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Apply one (type, method) batch and recurse into its emits — the
+        unrolled multi-round tick.  ``acc`` is (totals [1, 2], ledger
+        hist or None), both added into in place: K1/K2 add each resolve's
+        misses into totals[0, 0], K5 the delivered lanes into
+        totals[0, 1], round-cap spills into totals[0, 0] and the applied
+        lanes into hist[slot, 0]."""
+        engine = self.engine
+        info = vector_type(type_name)
+        handler = info.handlers[method]
+        if type_name not in states:
+            states[type_name] = self._discover_state(type_name)
+        n_rows = next(iter(states[type_name].values())).shape[0]
+        state2, _results, emits = _normalize(handler(
+            states[type_name], Batch(rows=rows, args=args, mask=mask),
+            n_rows))
+        states[type_name] = state2
+        totals, hist = acc
+        if hist is not None:
+            # every applied lane completes in its own (virtual) tick:
+            # delta 0, bucket 0
+            hist_count(hist, engine.ledger.slot_for(type_name, method), 0,
+                       mask)
+        at_cap = depth >= engine.config.max_rounds_per_tick
+
+        out_batches = []
+        for e in (emits if isinstance(emits, (tuple, list)) else (emits,)):
+            if e is None:
+                continue
+            if isinstance(e.keys, tuple):
+                raise NotImplementedError(
+                    "wide (hi, lo) emit keys in a fused window belong to a "
+                    "later slice of the port (orleans_tpu/tensor/engine.py "
+                    "_resolve_rows_wide_kernel)")
+            ekeys = e.keys.to(device=engine.device, dtype=torch.int32) \
+                if isinstance(e.keys, torch.Tensor) \
+                else _leaf_to_device(np.asarray(e.keys, np.int32),
+                                     engine.device)
+            m = ekeys.shape[0]
+            emask = e.mask if e.mask is not None \
+                else ones_mask(m, engine.device)
+            eargs = _map_tree(lambda a: _leaf_to_device(a, engine.device),
+                              e.args)
+            out_batches.append((e.interface, e.method, ekeys, eargs, emask))
+
+        if at_cap:
+            # the unfused engine SPILLS round-cap emits to the next tick;
+            # a window cannot, so they count as misses: verify() then
+            # says the chain is too deep to fuse
+            for _t, _m, _k, _a, emask in out_batches:
+                hist_count(totals, 0, 0, emask)
+            return states
+
+        for dst_type, dst_method, ekeys, eargs, emask in out_batches:
+            dst_arena = engine.arena_for(dst_type)
+            self._note_arena(dst_type, dst_arena)
+            if dst_type not in self._resolved:
+                self._resolved.append(dst_type)
+            drows, _ = resolve_rows_on_device(dst_arena, ekeys, emask,
+                                              misses=totals[0, 0])
+            hist_count(totals, 0, 1, emask)
+            states = self._apply_group(states, dst_type, dst_method, drows,
+                                       eargs, drows >= 0, depth + 1, acc)
+        return states
+
+    def _apply_all(self, states, statics: List[Dict[str, Any]],
+                   per_tick: List[Dict[str, torch.Tensor]], acc):
+        for i, src in enumerate(self.sources):
+            args_i = {**statics[i], **per_tick[i]}
+            if src.stacked_rows:
+                rows_i = args_i.pop("__rows__")
+                mask_i = args_i.pop("__mask__")
+            else:
+                rows_i, mask_i = src.rows, src.mask
+            states = self._apply_group(states, src.type_name, src.method,
+                                       rows_i, args_i, mask_i, 1, acc)
+        return states
+
+    def _run_ticks(self, states, statics, stackeds, n_ticks: int, acc):
+        for t in range(n_ticks):
+            per_tick = [{k: v[t] for k, v in st.items()} for st in stackeds]
+            states = self._apply_all(states, statics, per_tick, acc)
+        return states
+
+    def _note_arena(self, name: str, arena) -> None:
+        if name not in self._generations:
+            self._generations[name] = arena.generation
+            self._epochs[name] = arena.eviction_epoch
+            self._touched.append(name)
+
+    def _discover_state(self, type_name: str) -> Dict[str, torch.Tensor]:
+        """Discovery pass only: a destination arena met for the first time
+        joins the window (created if need be) with a scratch copy of its
+        columns; after discovery every touched arena is known."""
+        if not self._discovering:
+            raise RuntimeError(
+                f"fused window reached {type_name!r}, which its discovery "
+                f"pass did not: the emit graph changed without a rebuild")
+        arena = self.engine.arena_for(type_name)
+        self._note_arena(type_name, arena)
+        return {k: v.clone() for k, v in arena.state.items()}
+
+    # -- build ----------------------------------------------------------------
+
+    def _baked(self, v: Any) -> bool:
+        """A static leaf a graph bakes as it is: a tensor already on the
+        card (by address) or a host scalar (by value).  Any other leaf is
+        copied into a fixed device buffer before every replay."""
+        if _is_host_scalar(v):
+            return True
+        return isinstance(v, torch.Tensor) \
+            and v.device.type == self.engine.device.type
+
+    def _static_key(self, v: Any) -> Any:
+        """What a graph depends on of a static leaf: a baked tensor's
+        identity (the graph keeps it alive, so the id stays unique), a
+        host scalar's type and value, a copied leaf's shape and dtype."""
+        if isinstance(v, torch.Tensor):
+            return ("tensor", id(v)) if self._baked(v) \
+                else ("copied", tuple(v.shape), v.dtype)
+        if _is_host_scalar(v):
+            return ("scalar", type(v), v.item() if hasattr(v, "item") else v)
+        a = _host_array(np.asarray(v))
+        return ("copied", a.shape, a.dtype)
+
+    def _statics_for_run(self, statics: List[Dict[str, Any]]
+                         ) -> List[Dict[str, Any]]:
+        """Static leaves as the window reads them: tensors on the device,
+        host scalars as they are, other leaves moved to the device — on
+        the card into the graph's fixed buffers."""
+        dev = self.engine.device
+        out = []
+        for i, st in enumerate(statics):
+            d = {}
+            for k, v in st.items():
+                if self._graph is not None and k in self._static_bufs[i]:
+                    buf = self._static_bufs[i][k]
+                    _copy_in(buf, v if isinstance(v, torch.Tensor) else
+                             torch.from_numpy(np.ascontiguousarray(
+                                 _host_array(np.asarray(v)))))
+                    d[k] = buf
+                elif isinstance(v, torch.Tensor):
+                    d[k] = v.to(dev)
+                else:
+                    d[k] = _leaf_to_device(v, dev)
+            out.append(d)
+        return out
+
+    def _rebuild_cause(self, stackeds: List[Dict[str, torch.Tensor]],
+                       statics: List[Dict[str, Any]]) -> Optional[str]:
+        engine = self.engine
+        if not self._built:
+            return CAUSE_NEW_WINDOW
+        if any(engine.arena_for(n).generation != g
+               for n, g in self._generations.items()):
+            return CAUSE_GENERATION_REPACK
+        if any(engine.arena_for(n).eviction_epoch != e
+               for n, e in self._epochs.items()):
+            return CAUSE_EPOCH_MISMATCH
+        ledger = engine.ledger
+        if self._ledger_on != ledger.enabled or (
+                self._ledger_on and self._hist is not ledger.device_hist_in()
+        ) or self._built_donate != engine.config.donate_state:
+            return CAUSE_CONFIG_TOGGLE
+        for n, mirror in self._mirrors.items():
+            now = _mirror_of(engine.arena_for(n))
+            if len(now) != len(mirror) or any(
+                    a is not b for a, b in zip(now, mirror)):
+                return CAUSE_MIRROR_REBUILD
+        if self._graph is None:
+            return None
+        for buf, st in zip(self._in, stackeds):
+            if set(buf) != set(st) or any(
+                    buf[k].shape != v.shape or buf[k].dtype != v.dtype
+                    for k, v in st.items()):
+                return CAUSE_SHAPE_CHANGE
+        for keys, st in zip(self._static_keys, statics):
+            if keys != {k: self._static_key(v) for k, v in st.items()}:
+                return CAUSE_STATIC_CHANGE
+        return None
+
+    def prepare(self, stacked_args: Any, static_args: Any = None) -> None:
+        """Re-resolve the source rows and rebuild when anything the window
+        was built against moved.  Idempotent; ``run`` calls it first.
+        Callers that snapshot arena state for rollback (the auto-fuser)
+        call it BEFORE the snapshot: re-resolution can activate keys and
+        grow an arena."""
+        stackeds, statics = self._as_lists(stacked_args, static_args)
+        self._prepare([_stage(s) for s in stackeds], statics)
+
+    def _prepare(self, stackeds: List[Dict[str, torch.Tensor]],
+                 statics: List[Dict[str, Any]]) -> int:
+        """``prepare`` on staged per-tick leaves; returns the window's
+        tick count."""
+        leaves = [v for st in stackeds for v in st.values()]
+        if not leaves:
+            raise ValueError(
+                "stacked_args needs at least one [T, ...] leaf (e.g. a "
+                "tick counter) — it sets the window length")
+        n_ticks = leaves[0].shape[0]
+        cause = self._rebuild_cause(stackeds, statics)
+        if cause is not None:
+            self.rebuilds[cause] += 1
+            for s in self.sources:
+                s.refresh_rows()
+            t0 = time.perf_counter()
+            self._build(stackeds, statics, n_ticks)
+            self.build_seconds = time.perf_counter() - t0
+        return n_ticks
+
+    def _build(self, stackeds: List[Dict[str, torch.Tensor]],
+               statics: List[Dict[str, Any]], n_ticks: int) -> None:
+        engine = self.engine
+        dev = engine.device
+        self._graph = None
+        self._ledger_on = engine.ledger.enabled
+        self._hist = engine.ledger.device_hist_in() if self._ledger_on \
+            else None
+        self._built_donate = engine.config.donate_state
+        # discovery: one tick on scratch copies of every arena it touches
+        # (and of the accumulators) — finds the destination arenas,
+        # builds their directory mirrors, and on the card launches every
+        # kernel once before capture
+        self._generations, self._epochs = {}, {}
+        self._touched, self._resolved = [], []
+        for s in self.sources:
+            self._note_arena(s.type_name, s.arena)
+        states = {s.type_name: {k: v.clone() for k, v in
+                                s.arena.state.items()}
+                  for s in self.sources}
+        hist = self._hist.clone() if self._hist is not None else None
+        first = [{k: v[0].to(dev) for k, v in st.items()} for st in stackeds]
+        self._discovering = True
+        try:
+            self._apply_all(states, self._statics_for_run(statics), first,
+                            (self._totals.clone(), hist))
+        finally:
+            self._discovering = False
+        del states
+        self._mirrors = {n: _mirror_of(engine.arena_for(n))
+                         for n in self._resolved}
+        self._built = True
+        if self.on_card:
+            self._capture(stackeds, statics, n_ticks)
+
+    def _capture(self, stackeds: List[Dict[str, torch.Tensor]],
+                 statics: List[Dict[str, Any]], n_ticks: int) -> None:
+        """Capture the T ticks into one CUDA graph.  Its state buffers are
+        the arenas' live columns (private copies when state is not
+        donated); the window ends by copying any column a handler
+        replaced back into its buffer, so every replay reads and writes
+        the same addresses."""
+        engine = self.engine
+        dev = engine.device
+        self._in = [{k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                     for k, v in st.items()} for st in stackeds]
+        self._static_bufs = [
+            {k: (v.to(dev) if isinstance(v, torch.Tensor)
+                 else _leaf_to_device(v, dev)).clone()
+             for k, v in st.items() if not self._baked(v)}
+            for st in statics]
+        self._static_keys = [{k: self._static_key(v) for k, v in st.items()}
+                             for st in statics]
+        # the leaves the graph reads; holding them keeps every baked
+        # address (and id) alive as long as the graph
+        self._graph_statics = [
+            {k: self._static_bufs[i].get(k, v) for k, v in st.items()}
+            for i, st in enumerate(statics)]
+        donate = engine.config.donate_state
+        self._state_bufs = {
+            n: (dict(engine.arena_for(n).state) if donate else
+                {k: v.clone() for k, v in engine.arena_for(n).state.items()})
+            for n in self._touched}
+        graph = torch.cuda.CUDAGraph()
+        before = _build.captured_counts()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            states = {n: dict(bufs) for n, bufs in self._state_bufs.items()}
+            states = self._run_ticks(states, self._graph_statics, self._in,
+                                     n_ticks, (self._totals, self._hist))
+            for n, bufs in self._state_bufs.items():
+                self._copy_back(n, bufs, states[n])
+        after = _build.captured_counts()
+        self._per_replay = {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]}
+        self._graph = graph
+
+    def _copy_back(self, name: str, bufs: Dict[str, torch.Tensor],
+                   cols: Dict[str, torch.Tensor]) -> None:
+        for c, buf in bufs.items():
+            col = cols.get(c)
+            if col is None or col.shape != buf.shape \
+                    or col.dtype != buf.dtype:
+                raise ValueError(f"fused window: {name}.{c} lost its "
+                                 f"column or changed shape or dtype")
+            if col is not buf:
+                buf.copy_(col)
+
+    # -- run ------------------------------------------------------------------
+
+    def run(self, stacked_args: Any, static_args: Any = None) -> None:
+        """Execute T fused ticks.
+
+        ``stacked_args``: dict of genuinely per-tick leaves with a leading
+        [T, ...] axis (e.g. the tick counter).  ``static_args``: leaves
+        identical every tick, at their natural [m, ...] shape.  Multi-
+        source programs take LISTS of both, aligned with ``sources``."""
+        engine = self.engine
+        stackeds, statics = self._as_lists(stacked_args, static_args)
+        staged = [_stage(s) for s in stackeds]
+        n_ticks = self._prepare(staged, statics)
+        donate = engine.config.donate_state
+        if self.on_card:
+            for bufs, st in zip(self._in, staged):
+                for k, v in st.items():
+                    _copy_in(bufs[k], v)
+            self._statics_for_run(statics)  # host arrays into their buffers
+            for n, bufs in self._state_bufs.items():
+                live = engine.arena_for(n).state
+                for c, buf in bufs.items():
+                    if live[c] is not buf:  # unfused ticks replaced it
+                        buf.copy_(live[c])
+            self._graph.replay()
+            self.replays += 1
+            _build.note_replay(self._per_replay)
+            fence = torch.cuda.Event()
+            fence.record(torch.cuda.current_stream(engine.device))
+            engine._tick_fence = fence
+            for n, bufs in self._state_bufs.items():
+                engine.arena_for(n).adopt_state(
+                    dict(bufs) if donate
+                    else {k: v.clone() for k, v in bufs.items()})
+        else:
+            states = {n: (dict(engine.arena_for(n).state) if donate else
+                          {k: v.clone() for k, v in
+                           engine.arena_for(n).state.items()})
+                      for n in self._touched}
+            states = self._run_ticks(
+                states, self._statics_for_run(statics),
+                [{k: v.to(engine.device) for k, v in st.items()}
+                 for st in staged],
+                n_ticks, (self._totals, self._hist))
+            for n in self._touched:
+                engine.arena_for(n).adopt_state(states[n])
+        if self._ledger_on:
+            engine.ledger.device_hist_out(self._hist)
+        self._unread = True
+        engine.tick_number += n_ticks
+        engine.messages_processed += n_ticks * self.n_msgs
+        # the window advanced the tick clock without the engine's touch
+        # path: every live row of a fused arena counts as used now
+        for n in self._touched:
+            engine.arena_for(n).fused_use_tick = engine.tick_number
+
+    def verify(self) -> int:
+        """Sync point: misses (cold destinations, round-cap spills) across
+        ``run`` calls since the last verify — nonzero means the windows
+        were NOT exact and their ticks must re-run unfused.  Folds the
+        windows' delivered emit count into the engine's
+        messages_processed.  ONE two-element device read however many
+        windows ran."""
+        if not self._unread:
+            return 0
+        misses, delivered = self._totals[0].tolist()
+        self._totals.zero_()
+        self._unread = False
+        self.engine.messages_processed += delivered
+        return misses

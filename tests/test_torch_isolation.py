@@ -50,6 +50,9 @@ def test_port_imports_neither_jax_nor_orleans_tpu():
         "orleans_tpu_torch.kernels.resolve",
         "orleans_tpu_torch.kernels.scatter",
         "orleans_tpu_torch.kernels.segment",
+        "orleans_tpu_torch.kernels.hist", "orleans_tpu_torch.kernels.miss",
+        "orleans_tpu_torch.tensor.ledger", "orleans_tpu_torch.tensor.fused",
+        "orleans_tpu_torch.tensor.autofuse",
         "orleans_tpu_torch.tensor.vector_grain",
         "orleans_tpu_torch.tensor.arena", "orleans_tpu_torch.tensor.engine",
         "orleans_tpu_torch.samples.presence", "orleans_tpu_torch.convert"}

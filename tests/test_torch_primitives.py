@@ -32,6 +32,11 @@ from orleans_tpu.tensor.engine import (
     _resolve_rows_dense_kernel,
     _resolve_rows_kernel,
 )
+from orleans_tpu.tensor.ledger import (
+    MAX_SLOTS,
+    _count_rows_kernel,
+    accumulate as jax_accumulate,
+)
 
 from orleans_tpu_torch import hashing
 from orleans_tpu_torch.core.grain import method_id_of
@@ -41,7 +46,10 @@ from orleans_tpu_torch.kernels.resolve import (
     resolve_dense,
     resolve_sorted,
 )
+from orleans_tpu_torch.kernels.hist import hist_count
+from orleans_tpu_torch.kernels.miss import miss_keys
 from orleans_tpu_torch.kernels.scatter import row_scatter
+from orleans_tpu_torch.tensor.ledger import accumulate
 from orleans_tpu_torch.tensor.vector_grain import (
     scatter_add_rows,
     scatter_rows,
@@ -151,6 +159,25 @@ def test_scatter_broadcasts_host_scalar(op):
                           jnp.int32(7)))
     got = row_scatter(_t(col), _t(rows), np.int32(7), op)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("op", ["set", "add", "max"])
+def test_scatter_broadcasts_device_scalar(op):
+    """A 0-d tensor broadcasts like a host scalar — on the card it is read
+    through its pointer (the fused window's per-tick ``tick``)."""
+    rng = np.random.default_rng(14)
+    col = rng.integers(0, 10, (N_ROWS, 2)).astype(np.int32)
+    rows = _lane_rows(rng, N_ROWS, N_ROWS // 2, unique=True)
+    want = row_scatter(_t(col), _t(rows), np.int32(8), op)
+    got = row_scatter(_t(col), _t(rows), torch.tensor(8, dtype=torch.int32),
+                      op)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    ref = {"set": jax_scatter_rows, "add": jax_scatter_add_rows,
+           "max": lambda c, r, v: _touch_kernel(c, r, v)}[op]
+    if op != "max":  # _touch_kernel takes a 1-D use clock
+        jwant = ref(jnp.asarray(col), jnp.asarray(rows),
+                    jnp.broadcast_to(jnp.int32(8), (len(rows), 2)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jwant))
 
 
 def test_scatter_helpers_drop_padding_rows():
@@ -263,6 +290,47 @@ def test_resolve_sorted_matches_jax(live):
     assert int(miss) == int(want_miss)
 
 
+def _miss_case(kind, rng):
+    """(keys, rows, valid) for K6's adversarial cases."""
+    m = M
+    if kind == "many_unique":   # every lane a distinct unseen key
+        keys = rng.permutation(10 * m)[:m].astype(np.int32)
+        rows = np.full(m, -1, np.int32)
+        valid = np.ones(m, bool)
+    elif kind == "all_duplicate":
+        keys = np.full(m, 41, np.int32)
+        rows = np.where(rng.random(m) < 0.7, -1, 2).astype(np.int32)
+        valid = rng.random(m) < 0.9
+    elif kind == "sentinel_lanes":  # sentinel, negative and hit lanes
+        keys, valid = _resolve_lanes(rng, m, 60)
+        rows = np.where(rng.random(m) < 0.6, -1, 9).astype(np.int32)
+    else:  # "none_missing"
+        keys = rng.integers(0, 50, m).astype(np.int32)
+        rows = rng.integers(0, 50, m).astype(np.int32)
+        valid = np.ones(m, bool)
+    return keys, rows, valid
+
+
+@pytest.mark.parametrize("miss_buf", [1, 16, 512])
+@pytest.mark.parametrize("kind", ["many_unique", "all_duplicate",
+                                  "sentinel_lanes", "none_missing"])
+def test_miss_keys_kernel_plain_matches_jax(kind, miss_buf):
+    """K6 on the CPU (its plain version) against ``_miss_keys_kernel``:
+    more unique misses than ``miss_buf`` keep the smallest, duplicates
+    collapse, sentinel/negative/hit lanes sort or drop as JAX's do."""
+    rng = np.random.default_rng(len(kind) * miss_buf)
+    keys, rows, valid = _miss_case(kind, rng)
+    want_keys, want_missing = _miss_keys_kernel(
+        jnp.asarray(keys), jnp.asarray(rows), jnp.asarray(valid),
+        miss_buf=miss_buf)
+    got_keys, got_missing = miss_keys(_t(keys), _t(rows), _t(valid),
+                                      miss_buf)
+    assert got_keys.dtype == torch.int32 and got_keys.shape == (miss_buf,)
+    np.testing.assert_array_equal(got_keys.numpy(), np.asarray(want_keys))
+    np.testing.assert_array_equal(got_missing.numpy(),
+                                  np.asarray(want_missing))
+
+
 @pytest.mark.parametrize("miss_buf", [8, 256])
 def test_miss_keys_matches_jax(miss_buf):
     """``miss_buf=8`` holds fewer than the unique misses: both keep the
@@ -300,3 +368,45 @@ def test_float_max_scatter_matches_jax():
     want = np.asarray(jnp.asarray(col).at[safe].max(vals, mode="drop"))
     got = row_scatter(_t(col), _t(rows), _t(vals), "max")
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -- K5 hist_count and the ledger's accumulate ---------------------------------
+
+@pytest.mark.parametrize("with_rows", [True, False])
+@pytest.mark.parametrize("slot,bucket", [(0, 0), (3, 5), (MAX_SLOTS - 1, 15)])
+def test_hist_count_matches_jax(slot, bucket, with_rows):
+    """K5 with rows against ``_count_rows_kernel``; without rows against
+    the fused window's ``hist.at[slot, 0].add(sum(mask))`` at any cell."""
+    rng = np.random.default_rng(slot * 16 + bucket)
+    hist = rng.integers(0, 50, (MAX_SLOTS, 16)).astype(np.int32)
+    base = rng.random(M) < 0.7
+    rows = _lane_rows(rng, N_ROWS, M)
+    if with_rows:
+        want = _count_rows_kernel(jnp.asarray(hist), jnp.int32(slot),
+                                  jnp.int32(bucket), jnp.asarray(rows),
+                                  jnp.asarray(base))
+        got = hist_count(_t(hist), slot, bucket, _t(base), _t(rows))
+    else:
+        want = jnp.asarray(hist).at[jnp.int32(slot), bucket].add(
+            jnp.sum(jnp.asarray(base, jnp.int32)))
+        got = hist_count(_t(hist), slot, bucket, _t(base))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_hist_count_rejects_cell_outside():
+    hist = torch.zeros((4, 4), dtype=torch.int32)
+    with pytest.raises(IndexError):
+        hist_count(hist, 4, 0, torch.ones(3, dtype=torch.bool))
+
+
+def test_accumulate_matches_jax():
+    """The ledger's per-lane-delta update (plain torch; no engine path
+    calls it) against ``ledger.accumulate``."""
+    rng = np.random.default_rng(30)
+    hist = rng.integers(0, 9, (MAX_SLOTS, 16)).astype(np.int32)
+    deltas = rng.integers(-3, 70000, M).astype(np.int32)
+    valid = rng.random(M) < 0.8
+    want = jax_accumulate(jnp.asarray(hist), 5, jnp.asarray(deltas),
+                          jnp.asarray(valid))
+    got = accumulate(_t(hist), 5, _t(deltas), _t(valid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
