@@ -14,26 +14,33 @@ Phases, each of which fails loudly (exit code other than 0):
    shapes of Presence with 1,000,000 players and 10,000 games, on the
    main path's inputs and on adversarial inputs (padding rows -1, rows
    past the end, sentinel, negative, out-of-range and unseen keys, more
-   unique misses than the drain's buffer).  Integers must match exactly;
-   float32 sums within Higham's bound for recursive summation (see
-   ``_fan_in_tol``).  Each kernel is timed (median of CUDA-event times
-   over 25 launches, L2 flushed before each) beside its plain version,
-   one PyTorch library call as a yardstick, and its bound: the larger of
-   the bytes it must move over 3.35 TB/s and its operations over the
-   card's peak rate.
+   unique misses than the drain's buffer); the attribution kernels K7–K9
+   in every mode the plane uses (``check_attr_kernels``).  Integers must
+   match exactly; float32 sums within Higham's bound for recursive
+   summation (see ``_fan_in_tol``).  Each kernel is timed (median of
+   CUDA-event times over 25 launches, L2 flushed before each) beside its
+   plain version, one PyTorch library call as a yardstick, and its
+   bound: the larger of the bytes it must move over 3.35 TB/s and its
+   operations over the card's peak rate.  The two programs kept as plain
+   PyTorch (``accumulate``, ``_stack_counts``) are timed too.
 4. The unfused path: ``run_presence_load`` on ``TensorEngine(device=
    "cuda")`` with auto-fusion off, at 1M players / 10k games, a pipelined
-   run and a ``measure_latency`` run, each checked exactly against a
-   numpy oracle of the seeded load.
-5. The fused path, at the default config (auto-fusion and the latency
-   ledger on): 3 warm ticks, the detection ticks, then 8 windows of 16
-   ticks, each window one CUDA graph replay — once pipelined, once synced
-   per window — and a run that forces one rollback with a cold game key
-   inside a window.  Each is checked against the oracle, and the ledger
-   histogram against the counts the run implies.
-   Launch counters are zeroed just before each path and read just after;
-   every kernel must have launched on each path (graph replays count the
-   launches their capture recorded).
+   run, a ``measure_latency`` run and a loader that hands over a fresh
+   copy of the games every tick, each checked exactly against a numpy
+   oracle of the seeded load, the attribution plane included
+   (``check_attribution``).
+5. The fused path, at the default config (auto-fusion, the latency
+   ledger and the attribution plane on): 3 warm ticks, the detection
+   ticks, then 8 windows of 16 ticks, each window one CUDA graph replay —
+   once pipelined, once synced per window — and a run that forces one
+   rollback with a cold game key inside a window.  Each is checked against the oracle, and the ledger
+   histogram and the attribution plane against the counts the run
+   implies.  The plane's device cost per tick is timed against engines
+   without it, unfused and fused; so is the parked miss-check's copy.
+   Launch counters are zeroed just before each path and read just after
+   (the fused path: the pipelined run and the rollback run); every kernel
+   must have launched on each path (graph replays count the launches
+   their capture recorded).
 6. One JSON line of the kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -71,10 +78,23 @@ SOURCES = {
                    "orleans_tpu/tensor/ledger.py:98"),
     "miss_keys": ("orleans_tpu_torch/csrc/miss.cu",
                   "orleans_tpu/tensor/engine.py:333"),
+    "attr_fold": ("orleans_tpu_torch/csrc/attr_fold.cu",
+                  "orleans_tpu/tensor/attribution.py:113"),
+    "attr_apply": ("orleans_tpu_torch/csrc/attr_apply.cu",
+                   "orleans_tpu/tensor/attribution.py:192"),
+    "attr_match": ("orleans_tpu_torch/csrc/attr_apply.cu",
+                   "orleans_tpu/tensor/attribution.py:205"),
+    "attr_snapshot": ("orleans_tpu_torch/csrc/attr_snapshot.cu",
+                      "orleans_tpu/tensor/attribution.py:257"),
 }
 ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
                                  "orleans_tpu/tensor/arena.py:34"],
-                 "hist_count": ["orleans_tpu/tensor/fused.py:384"]}
+                 "hist_count": ["orleans_tpu/tensor/fused.py:384"],
+                 "attr_fold": ["orleans_tpu/tensor/attribution.py:133",
+                               "orleans_tpu/tensor/attribution.py:161",
+                               "orleans_tpu/tensor/attribution.py:174",
+                               "orleans_tpu/tensor/fused.py:387",
+                               "orleans_tpu/tensor/fused.py:739"]}
 
 
 def require(ok: bool, what: str) -> None:
@@ -139,11 +159,12 @@ class Timer:
 
 def measure(timer, kernel, plain, library) -> dict:
     """Device times of the kernel's wrapper, its plain version and the
-    library yardstick, plus the host time the wrapper takes to enqueue."""
+    library yardstick (None where no one PyTorch call computes the same
+    function), plus the host time the wrapper takes to enqueue."""
     ms = timer(kernel)
     host_ms = timer.host_ms
     return dict(ms=ms, host_ms=host_ms, plain_ms=timer(plain),
-                library_ms=timer(library))
+                library_ms=timer(library) if library is not None else None)
 
 
 def bound(bytes_moved: float, int_ops: float = 0.0):
@@ -517,8 +538,329 @@ def check_kernels(dev, timer, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the attribution kernels (K7, K8, K9) against their plain versions
+# ---------------------------------------------------------------------------
+
+def np_cms_hash(rows: np.ndarray, seeds, width: int) -> np.ndarray:
+    """The sketch buckets of non-negative ``rows`` in numpy uint32, which
+    wraps mod 2**32 (the oracle's own copy of the hash)."""
+    u0 = rows.astype(np.uint32)
+    out = []
+    for seed in seeds:
+        u = u0 * np.uint32(seed)
+        u ^= u >> np.uint32(15)
+        u = u * np.uint32(0x27D4EB2F)
+        u ^= u >> np.uint32(13)
+        out.append((u & np.uint32(width - 1)).astype(np.int64))
+    return np.stack(out)
+
+
+def check_attr_kernels(dev, timer, card: str) -> dict:
+    """K7 ``attr_fold`` in its four modes (and gated), K8 ``attr_apply``
+    (host k and device k) and ``attr_match`` (entries that match and
+    entries that do not), K9 ``attr_snapshot`` (the main path's columns
+    and adversarial ones), each against its plain version on the card at
+    the shapes of Presence 1M/10k: PresenceGrain 2,097,152 rows,
+    GameGrain 32,768, 1,048,576 lanes, a 4x8192 sketch, 64 slots.
+    Integers must match exactly; K9's float32 Gini within a relative
+    2**-20 (the kernel and the plain version sum its float64 terms in
+    different orders), its mean exactly."""
+    from orleans_tpu_torch.kernels import attr
+    from orleans_tpu_torch.samples.presence import presence_inputs
+    from orleans_tpu_torch.tensor.attribution import CMS_SEEDS
+
+    seeds = CMS_SEEDS[:4]
+    depth, width = 4, 8192
+    cap_p, cap_g = 1 << 21, 1 << 15
+    m = PLAYERS
+    _, games, _ = presence_inputs(PLAYERS, GAMES, seed=0)
+    rng = np.random.default_rng(4321)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    def base(*shape):
+        return t(rng.integers(0, 50, shape).astype(np.int32))
+
+    prow = torch.arange(m, dtype=torch.int32, device=dev)
+    grow = t(games)
+    valid = torch.ones(m, dtype=torch.bool, device=dev)
+    adv = rng.integers(-5, cap_g + 50, m).astype(np.int32)
+    odd = rng.random(m)
+    adv[odd < 0.01] = -2**31
+    adv[(odd >= 0.01) & (odd < 0.02)] = 2**31 - 1
+    adv_rows, adv_valid = t(adv), t(rng.random(m) < 0.8)
+    touched_p, touched_g = m, int(np.count_nonzero(np.bincount(games)))
+    g_counts = np.bincount(games, minlength=cap_g).astype(np.int32)
+
+    def buckets(weights_rows: np.ndarray) -> int:
+        """Distinct sketch buckets the given rows touch, over the depths."""
+        h = np_cms_hash(weights_rows, seeds, width)
+        return sum(len(np.unique(h[d])) for d in range(depth))
+
+    b_p = buckets(np.arange(m))
+    b_g = buckets(np.nonzero(g_counts)[0])
+
+    def fold_check(name, counts, cms, rows=None, valid_=None, **kw):
+        """K7 and its plain version on clones of the same accumulators."""
+        outs = []
+        for fn in (attr.attr_fold, attr.attr_fold_plain):
+            c = counts.clone() if counts is not None else None
+            s = cms.clone() if cms is not None else None
+            kwc = {k: v.clone() if k in ("total", "stale") else v
+                   for k, v in kw.items()}
+            fn(c, s, seeds, rows, valid_, **kwc)
+            outs.append([x for x in (c, s, kwc.get("total"),
+                                     kwc.get("stale")) if x is not None])
+        for x, y in zip(*outs):
+            require(torch.equal(x, y), f"attr_fold != plain ({name})")
+
+    slots = base(64)
+    w_p = torch.zeros(cap_p, dtype=torch.int32, device=dev)
+    w_p[:m] = 16
+    w_g = t(16 * g_counts)
+    shut = torch.zeros(1, dtype=torch.int32, device=dev)
+    open_ = torch.ones(1, dtype=torch.int32, device=dev)
+    stale = torch.zeros(1, dtype=torch.int32, device=dev)
+    # (name, counts, cms, rows, valid, kwargs, bytes, library, on the
+    # fused tick's path)
+    fold_cases = [
+        ("plan, PresenceGrain (a novel batch's delta plan)", zeros(cap_p),
+         zeros(depth, width), prow, valid, dict(total=zeros(1)),
+         5 * m + 8 * touched_p + 8 * b_p + 8, None, False),
+        ("full fold, GameGrain (a mismatched checked entry)", base(cap_g),
+         base(depth, width), grow, valid, dict(total=slots, slot=1),
+         5 * m + 8 * touched_g + 8 * b_g + 8, None, False),
+        ("counts only, PresenceGrain delta (every fused tick)", zeros(cap_p),
+         None, prow, valid, dict(total=slots, slot=0),
+         5 * m + 8 * touched_p + 8, "p", True),
+        ("counts only, GameGrain delta (every fused tick)", zeros(cap_g),
+         None, grow, valid, dict(total=slots, slot=1),
+         5 * m + 8 * touched_g + 8, "g", True),
+        ("weighted, PresenceGrain (once per window)", base(cap_p),
+         base(depth, width), None, None, dict(weight=w_p),
+         4 * cap_p + 8 * touched_p + 8 * b_p, "wp", False),
+        ("weighted, GameGrain (once per window)", base(cap_g),
+         base(depth, width), None, None, dict(weight=w_g),
+         4 * cap_g + 8 * touched_g + 8 * b_g, "wg", False),
+    ]
+    for name, counts, cms, rows, valid_, kw, *_ in fold_cases:
+        fold_check(name, counts, cms, rows, valid_, **kw)
+    fold_check("adversarial lanes", base(cap_g), base(depth, width),
+               adv_rows, adv_valid, total=slots, slot=5)
+    fold_check("gate shut", base(cap_g), base(depth, width), grow, valid,
+               total=slots, slot=1, gate=shut, stale=stale)
+    fold_check("gate open", base(cap_g), base(depth, width), grow, valid,
+               total=slots, slot=1, gate=open_, stale=stale)
+    ones = torch.ones(m, dtype=torch.int32, device=dev)
+    library_of = {
+        "p": lambda c: c.index_add_(0, prow, ones),
+        "g": lambda c: c.index_add_(0, grow, ones),
+        "wp": lambda c: c.add_(w_p), "wg": lambda c: c.add_(w_g)}
+    variants = []
+    fold_sum = dict(ms=0.0, host_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                    bound_ms=0.0)
+    for name, counts, cms, rows, valid_, kw, nbytes, lib, on_tick \
+            in fold_cases:
+        lib_fn = library_of.get(lib)
+        times = measure(
+            timer,
+            lambda: attr.attr_fold(counts, cms, seeds, rows, valid_, **kw),
+            lambda: attr.attr_fold_plain(counts, cms, seeds, rows, valid_,
+                                         **kw),
+            (lambda: lib_fn(counts)) if lib_fn is not None else None)
+        # per lane or row: the hash's ~12 integer operations per depth
+        times["bound_ms"] = bound(
+            nbytes, int_ops=(m if rows is not None else counts.shape[0])
+            * (12 * depth if cms is not None else 2))[0]
+        variants.append(dict(name=name, on_fused_tick=on_tick, **times))
+        if on_tick:
+            for key in fold_sum:
+                fold_sum[key] += times[key]
+    results = {"attr_fold": dict(
+        max_abs_err=0, ms=fold_sum["ms"], host_ms=fold_sum["host_ms"],
+        plain_ms=fold_sum["plain_ms"], library_ms=fold_sum["library_ms"],
+        library="index_add_ of the lanes into the counts (no sketch, no "
+                "slot)", bound=(fold_sum["bound_ms"], "bytes"),
+        per="sum of the 2 launches of one fused tick (counts only)",
+        variants=variants)}
+
+    # -- K8 attr_apply: the flush of 16 host-proven heartbeat folds --------
+    cdelta_p, sdelta_p, n_p = zeros(cap_p), zeros(depth, width), zeros(1)
+    attr.attr_fold(cdelta_p, sdelta_p, seeds, prow, valid, total=n_p)
+    sdelta_g, n_g = zeros(depth, width), zeros(1)
+    cdelta_g = zeros(cap_g)
+    attr.attr_fold(cdelta_g, sdelta_g, seeds, grow, valid, total=n_g)
+    k_dev = torch.tensor([13], dtype=torch.int32, device=dev)
+    for name, cnt, cd, cms, sd, k, n in (
+            ("PresenceGrain, k = 16 on the host", base(cap_p), cdelta_p,
+             base(depth, width), sdelta_p, 16, n_p),
+            ("GameGrain, k read on the device", base(cap_g), cdelta_g,
+             base(depth, width), sdelta_g, k_dev, n_g)):
+        a = [cnt.clone(), cms.clone(), slots.clone()]
+        b = [cnt.clone(), cms.clone(), slots.clone()]
+        attr.attr_apply(a[0], cd, a[1], sd, k, total=a[2], slot=3, n=n)
+        attr.attr_apply_plain(b[0], cd, b[1], sd, k, total=b[2], slot=3, n=n)
+        require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"attr_apply != plain ({name})")
+    counts_p, cms_p = base(cap_p), base(depth, width)
+    nnz_sd = int((sdelta_p != 0).sum())
+    results["attr_apply"] = dict(
+        max_abs_err=0, library="add_(cdelta, alpha=k) (the counts only)",
+        bound=bound(4 * cap_p + 4 * depth * width + 8 * m + 8 * nnz_sd + 12),
+        per="one launch: a flush of 16 folds of the PresenceGrain plan",
+        **measure(timer,
+                  lambda: attr.attr_apply(counts_p, cdelta_p, cms_p,
+                                          sdelta_p, 16, total=slots, slot=3,
+                                          n=n_p),
+                  lambda: attr.attr_apply_plain(counts_p, cdelta_p, cms_p,
+                                                sdelta_p, 16, total=slots,
+                                                slot=3, n=n_p),
+                  lambda: counts_p.add_(cdelta_p, alpha=16)))
+
+    # -- K8 attr_match: 16 stacked GameGrain entries, two of them stale ----
+    k = 16
+    rows_l = [grow.clone() for _ in range(k)]
+    valid_l = [valid.clone() for _ in range(k)]
+    rows_l[3][12345] += 1
+    valid_l[11][m - 1] = False
+    outs = []
+    for fn in (attr.attr_match, attr.attr_match_plain):
+        flags = torch.full((k,), 7, dtype=torch.int32, device=dev)
+        km = zeros(1)
+        fn(rows_l, valid_l, grow, valid, flags, km)
+        outs.append((flags.tolist(), int(km[0])))
+    require(outs[0] == outs[1] and outs[0][1] == k - 2,
+            f"attr_match != plain: {outs}")
+    flags, km = zeros(k), zeros(1)
+    results["attr_match"] = dict(
+        max_abs_err=0, library=None,
+        bound=bound((k + 1) * 5 * m + 4 * k + 4),
+        per=f"one launch: {k} stacked GameGrain entries of {m} lanes",
+        **measure(timer,
+                  lambda: attr.attr_match(rows_l, valid_l, grow, valid,
+                                          flags, km),
+                  lambda: attr.attr_match_plain(rows_l, valid_l, grow,
+                                                valid, flags, km), None))
+
+    # -- K9 attr_snapshot ----------------------------------------------------
+    snap_p = torch.zeros(cap_p, dtype=torch.int32, device=dev)
+    snap_p[:m] = 23
+    snap_g = t(23 * g_counts)
+    cms_s = base(depth, width)
+    p = 1.0 / np.arange(1, cap_p + 1) ** 1.1
+    zipf = np.bincount(np.searchsorted(np.cumsum(p / p.sum()),
+                                       rng.random(4 * m)),
+                       minlength=cap_p)[:cap_p].astype(np.int32)
+    sparse = np.where(rng.random(cap_p) < 0.001,
+                      rng.integers(1, 9, cap_p), 0).astype(np.int32)
+    snap_err = 0.0
+    for name, col, n_shards in (
+            ("PresenceGrain (every row tied)", snap_p, 1),
+            ("GameGrain", snap_g, 1),
+            ("zipf, shuffled", t(rng.permutation(zipf)), 1),
+            ("zipf, 4 shards", t(zipf), 4),
+            ("sparse", t(sparse), 1),
+            ("all zero", zeros(cap_p), 1)):
+        got = attr.decode_snapshot(attr.attr_snapshot(
+            col, cms_s, seeds, 16, n_shards).cpu().numpy(), 16, n_shards)
+        want = attr.decode_snapshot(attr.attr_snapshot_plain(
+            col, cms_s, seeds, 16, n_shards).cpu().numpy(), 16, n_shards)
+        for key in ("vals", "rows", "est", "shard"):
+            require(np.array_equal(got[key], want[key]),
+                    f"attr_snapshot {key} != plain ({name})")
+        for key in ("total", "nnz", "p99", "mean_nz"):
+            require(got[key] == want[key],
+                    f"attr_snapshot {key} != plain ({name})")
+        err = abs(float(got["gini"]) - float(want["gini"]))
+        require(err <= 2.0**-20 * max(abs(float(want["gini"])), 2.0**-10),
+                f"attr_snapshot gini {got['gini']} vs {want['gini']} "
+                f"({name})")
+        snap_err = max(snap_err, err)
+    require(attr.decode_snapshot(attr.attr_snapshot(
+        snap_p, cms_s, seeds, 16).cpu().numpy(), 16, 1)["rows"].tolist()
+        == list(range(16)), "attr_snapshot: ties must order by row")
+    results["attr_snapshot"] = dict(
+        max_abs_err=snap_err,
+        library="torch.sort(descending=True, stable=True) of the counts "
+                "(the order only)",
+        bound=bound(4 * (cap_p + cap_g) + 2 * 8 * (3 * 16 + 6)),
+        per="one snapshot: both arenas (PresenceGrain 2M rows, GameGrain "
+            "32K)",
+        **measure(timer,
+                  lambda: (attr.attr_snapshot(snap_p, cms_s, seeds, 16),
+                           attr.attr_snapshot(snap_g, cms_s, seeds, 16)),
+                  lambda: (attr.attr_snapshot_plain(snap_p, cms_s, seeds,
+                                                    16, 1),
+                           attr.attr_snapshot_plain(snap_g, cms_s, seeds,
+                                                    16, 1)),
+                  lambda: (torch.sort(snap_p, descending=True, stable=True),
+                           torch.sort(snap_g, descending=True,
+                                      stable=True))))
+    results["attr_window_bound_ms"] = 16 * sum(
+        v["bound_ms"] for v in variants if v["on_fused_tick"]) + sum(
+        v["bound_ms"] for v in variants if v["name"].startswith("weighted"))
+
+    for name in ("attr_fold", "attr_apply", "attr_match", "attr_snapshot"):
+        r = results[name]
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} [{r['library']}]"
+        print(f"kernel {name}: {r['ms']:.4f} ms on the device, "
+              f"{r['host_ms']:.4f} ms host enqueue (plain "
+              f"{r['plain_ms']:.4f}, library {lib}, bound "
+              f"{r['bound'][0]:.4f} by {r['bound'][1]}) max_abs_err "
+              f"{r['max_abs_err']:.3g}; {r['per']}; on {card}", flush=True)
+    for v in variants:
+        lib = "null" if v["library_ms"] is None else \
+            f"{v['library_ms']:.4f}"
+        print(f"  attr_fold {v['name']}: {v['ms']:.4f} ms, host "
+              f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
+              f"{lib}, bound {v['bound_ms']:.4f})", flush=True)
+    return results
+
+
+def time_plain_programs(dev, timer, card: str) -> None:
+    """The two device programs the port keeps as plain PyTorch (no path
+    runs ``accumulate``; ``_stack_counts`` gathers a drain's parked miss
+    counters), timed beside their bounds at the main path's shapes."""
+    from orleans_tpu_torch.tensor.engine import _stack_counts
+    from orleans_tpu_torch.tensor.ledger import accumulate
+
+    rng = np.random.default_rng(99)
+    hist = torch.zeros((64, 16), dtype=torch.int32, device=dev)
+    deltas = torch.from_numpy(rng.integers(0, 5000, PLAYERS).astype(
+        np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(PLAYERS) < 0.9).to(dev)
+    acc_ms = timer(lambda: accumulate(hist, 3, deltas, valid))
+    # a log2 bucket per lane (~10 integer operations), a count per bucket
+    acc_bound = bound(PLAYERS * (4 + 1) + 2 * 16 * 4, int_ops=PLAYERS * 10)
+    counters = [torch.tensor(i, dtype=torch.int32, device=dev)
+                for i in range(16)]
+    stack_ms = timer(lambda: _stack_counts(*counters))
+    stack_bound = bound(2 * 16 * 4)
+    print(f"plain program accumulate (ledger.py, no caller): {acc_ms:.4f} ms "
+          f"on the device for {PLAYERS} lanes (bound {acc_bound[0]:.4f} by "
+          f"{acc_bound[1]}); _stack_counts of 16 parked counters: "
+          f"{stack_ms:.4f} ms (bound {stack_bound[0]:.6f} by "
+          f"{stack_bound[1]}); on {card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
+
+def game_updates(games, hb_ticks, switch=None) -> np.ndarray:
+    """Updates per game key of the load (see ``check_presence``)."""
+    per_game = np.bincount(games, minlength=COLD_GAME + 1) * hb_ticks
+    if switch is not None:
+        p, g, n = switch
+        per_game[games[p]] -= n
+        per_game[g] += n
+    return per_game
+
 
 def check_presence(engine, games, scores, hb_ticks, last_tick, want_msgs,
                    switch=None) -> None:
@@ -530,14 +872,13 @@ def check_presence(engine, games, scores, hb_ticks, last_tick, want_msgs,
     require(engine.messages_processed == want_msgs,
             f"messages_processed {engine.messages_processed} != {want_msgs}")
     final_games = games.copy()
-    per_game = np.bincount(games, minlength=COLD_GAME + 1) * hb_ticks
+    per_game = game_updates(games, hb_ticks, switch)
     score_sum = np.bincount(games, weights=scores.astype(np.float64),
                             minlength=COLD_GAME + 1) * hb_ticks
     if switch is not None:
         p, g, n = switch
         final_games[p] = g
         for key, sign in ((games[p], -1), (g, 1)):
-            per_game[key] += sign * n
             score_sum[key] += sign * n * float(scores[p])
 
     pa = engine.arena_for("PresenceGrain")
@@ -600,6 +941,149 @@ def check_ledger(engine, hb_ticks: int, fused_ticks: int, warm: int,
     require(up == want_up, f"ledger game updates {up} != {want_up}")
 
 
+def check_attribution(engine, games, hb_ticks, switch=None) -> dict:
+    """The attribution plane at the default config against the numpy
+    oracle of the load (the arguments as ``check_presence``'s): exactly,
+    per arena, ``per_key_totals``, the counts column, the sketch
+    (recomputed in numpy from the per-row totals with the oracle's own
+    hash), the snapshot's top-k keys and counts in stable order (ties by
+    row), ``hot_rows``, ``total_msgs`` and ``p99_to_mean`` (the float32
+    mean total/nnz, as K9 computes it, so the 4-decimal quotient is
+    exact); the per-method slot counts; and the Gini gauge within 2e-6 of
+    the float64 oracle (the snapshot rounds it to 6 decimals; K9's
+    float32 quotient adds at most one ulp)."""
+    from orleans_tpu_torch.tensor.attribution import CMS_SEEDS
+
+    att = engine.attribution
+    snap = att.snapshot()
+    msgs = PLAYERS * hb_ticks
+    require(snap["methods"] == {"PresenceGrain.heartbeat": msgs,
+                                "GameGrain.update_game_status": msgs},
+            f"attribution slots {snap['methods']}")
+    per_game = game_updates(games, hb_ticks, switch)
+    oracles = {"PresenceGrain": (np.arange(PLAYERS, dtype=np.int64),
+                                 np.full(PLAYERS, hb_ticks, np.int64)),
+               "GameGrain": (np.nonzero(per_game)[0].astype(np.int64),
+                             per_game[per_game > 0].astype(np.int64))}
+    seeds = CMS_SEEDS[:att.cms_depth]
+    out = {}
+    for name, (keys, counts) in oracles.items():
+        require(att.per_key_totals(name) == dict(zip(keys.tolist(),
+                                                     counts.tolist())),
+                f"attribution per-key totals of {name}")
+        arena = engine.arena_for(name)
+        rows, found = arena.lookup_rows(keys)
+        require(bool(found.all()), f"{name}: attributed keys live")
+        per_row = np.zeros(arena.capacity, np.int64)
+        per_row[rows] = counts
+        require(np.array_equal(att.counts_for(name).cpu().numpy(), per_row),
+                f"attribution counts column of {name}")
+        h = np_cms_hash(np.arange(arena.capacity), seeds, att.cms_width)
+        want_cms = np.stack([np.bincount(h[d], weights=per_row,
+                                         minlength=att.cms_width)
+                             for d in range(att.cms_depth)]).astype(np.int64)
+        require(np.array_equal(att.cms_for(name).cpu().numpy(), want_cms),
+                f"attribution sketch of {name}")
+        a = snap["arenas"][name]
+        order = np.argsort(-per_row, kind="stable")[:att.top_k]
+        want_hot = [(int(arena._key_of_row[r]), int(per_row[r]))
+                    for r in order if per_row[r] > 0]
+        require([(x["key"], x["msgs"]) for x in a["hot"]] == want_hot,
+                f"attribution top-k of {name}")
+        require(all(x["sketch_est"] >= x["msgs"] for x in a["hot"]),
+                f"attribution sketch estimate of {name} undercounts")
+        srt = np.sort(per_row)
+        cap, nnz, total = len(srt), int((srt > 0).sum()), int(srt.sum())
+        pos = min(max(cap - nnz + ((nnz - 1) * 99) // 100, 0), cap - 1)
+        mean = np.float32(max(total, 1)) / np.float32(max(nnz, 1))
+        rank = np.arange(1, nnz + 1, dtype=np.float64)
+        gini = float(((2 * rank - nnz - 1) * srt[cap - nnz:]).sum()) \
+            / (max(nnz, 1) * max(total, 1))
+        require(a["total_msgs"] == total and a["skew"]["hot_rows"] == nnz
+                and a["skew"]["p99_to_mean"]
+                == round(float(srt[pos]) / float(mean), 4),
+                f"attribution gauges of {name}: {a['skew']}")
+        require(abs(a["skew"]["gini"] - gini) <= 2e-6,
+                f"attribution gini of {name} {a['skew']['gini']} vs {gini}")
+        out[name] = dict(total=total, hot_rows=nnz, gini=a["skew"]["gini"],
+                         gini_oracle=gini, top=a["hot"][0])
+    return out
+
+
+def held_device_ms(fn, reps: int = 5, prepare=None):
+    """Median device time of ``fn``'s work, enqueued while a spin kernel
+    holds the stream; ``prepare`` runs before each sample, untimed.  A
+    sample whose host time did not stay inside the spin is refused and the
+    spin doubled; a bounded number of refusals fails the run."""
+    spin = Timer.SPIN_CYCLES * 4
+    refused = 0
+    device, host = [], []
+    while len(device) < reps:
+        if prepare is not None:
+            prepare()
+        probe = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        probe[0].record()
+        torch.cuda._sleep(spin)
+        probe[1].record()
+        t0 = time.perf_counter()
+        fn()
+        h = (time.perf_counter() - t0) * 1e3
+        probe[2].record()
+        probe[2].synchronize()
+        spin_time = probe[0].elapsed_time(probe[1])
+        if h < 0.8 * spin_time:
+            device.append(probe[1].elapsed_time(probe[2]))
+            host.append(h)
+            continue
+        refused += 1
+        require(refused <= 6, f"held timing: the host took {h:.3f} ms, "
+                f"longer than a {spin_time:.3f} ms spin, {refused} times")
+        spin *= 2
+    return float(np.median(device)), float(np.median(host))
+
+
+def unfused_plane_ms(engines: dict, games_d, scores_d, n_ticks: int = 16,
+                     reps: int = 3) -> dict:
+    """Device time per tick of blocks of ``n_ticks`` steady unfused ticks
+    (one attribution flush of 32 folds among them) on engines keyed by
+    what they show: ``off`` (the plane off), ``proven`` (the plane on, its
+    plans anchored on the block's own injector rows and game tensor, so
+    every fold is host-proven) and ``checked`` (the plane on, its plans
+    anchored on an earlier loader's tensors, so every fold is checked on
+    the device).  Samples go in turns, the order reversed every other
+    time; returns the medians."""
+    players = np.arange(PLAYERS, dtype=np.int64)
+    clock = {k: 5000 for k in engines}
+    injectors = {k: e.make_injector("PresenceGrain", "heartbeat", players)
+                 for k, e in engines.items()}
+
+    def block(key):
+        def run():
+            for _ in range(n_ticks):
+                clock[key] += 1
+                injectors[key].inject({"game": games_d, "score": scores_d,
+                                       "tick": np.int32(clock[key])})
+                engines[key].run_tick()
+        return run
+
+    for key, e in engines.items():  # settle the plans and parked checks
+        block(key)()
+        e._drain_checks()
+        if key == "proven":
+            e.attribution._plans.clear()  # re-anchor on this injector
+            block(key)()
+            e._drain_checks()
+    times = {k: [] for k in engines}
+    order = list(engines)
+    for _ in range(reps):
+        for key in order + order[::-1]:
+            # parked miss-checks drain (a sync) before each sample
+            times[key].append(held_device_ms(
+                block(key), reps=1, prepare=engines[key]._drain_checks)[0])
+    return {k: float(np.median(v)) / n_ticks for k, v in times.items()}
+
+
 def tick_device_ms(engine, games_d, scores_d, reps: int = 10):
     """Median device time of one steady tick, enqueued while a spin kernel
     holds the stream (so host overhead is out of the window), and the
@@ -632,7 +1116,9 @@ def require_launched(counts: dict, path: str) -> None:
 
 
 def drive_unfused_path(dev, card: str):
-    """Phase 4: the unfused tick (auto-fusion off), pipelined and synced."""
+    """Phase 4: the unfused tick (auto-fusion off), pipelined and synced,
+    with the latency ledger and the attribution plane at the default
+    config."""
     from orleans_tpu_torch.config import TensorEngineConfig
     from orleans_tpu_torch.kernels import _build
     from orleans_tpu_torch.samples.presence import (
@@ -644,6 +1130,7 @@ def drive_unfused_path(dev, card: str):
     _, games, scores = presence_inputs(PLAYERS, GAMES, seed=0)
     _build.reset_launch_counts()
     runs = {}
+    attribution = {}
     for mode in ("pipelined", "latency"):
         engine = TensorEngine(device=dev, config=TensorEngineConfig(
             auto_fusion_ticks=0))
@@ -657,13 +1144,52 @@ def drive_unfused_path(dev, card: str):
         check_presence(engine, games, scores, hb, TICKS,
                        2 * PLAYERS * hb + PLAYERS * WARM_TICKS)
         check_ledger(engine, hb, 0, WARM_TICKS)
+        attribution[mode] = check_attribution(engine, games, hb)
         runs[mode] = stats
+    # a loader that hands the engine a fresh copy of the games every tick:
+    # the game emits' keys are a new tensor each tick, so their folds are
+    # device-checked against the plan (K8 match, gated K7), as every emit
+    # fold of the JAX engine is
+    moving = FusedRun(dev, games, scores, moving=True, fuse=False)
+    for _ in range(8):
+        moving.tick()
+    moving.finish()
+    check_presence(moving.engine, games, scores, moving.ticks, moving.ticks,
+                   2 * PLAYERS * moving.ticks + PLAYERS * WARM_TICKS)
+    check_ledger(moving.engine, moving.ticks, 0, WARM_TICKS)
+    attribution["moving"] = check_attribution(moving.engine, games,
+                                              moving.ticks)
+    moving_plans = moving.engine.attribution.stats()
+    require(moving_plans["plan_checked"] >= 8, f"checked folds {moving_plans}")
+    del moving
     counts = _build.launch_counts()
     print(f"launches on the unfused path: {json.dumps(counts)}", flush=True)
     require_launched(counts, "unfused")
+    print(f"attribution, unfused: {json.dumps(attribution)}; plan counts "
+          f"{json.dumps(engine.attribution.stats())}, moving loader "
+          f"{json.dumps(moving_plans)}", flush=True)
+    games_d = torch.from_numpy(games).to(dev)
+    scores_d = torch.from_numpy(scores).to(dev)
     runs["tick_device_ms"], runs["tick_host_ms"] = tick_device_ms(
-        engine, torch.from_numpy(games).to(dev),
-        torch.from_numpy(scores).to(dev))
+        engine, games_d, scores_d)
+    # the plane's cost on the unfused tick: against an engine without it
+    from orleans_tpu_torch.config import MetricsConfig
+    engines = {}
+    for key, on in (("off", False), ("proven", True)):
+        engines[key] = TensorEngine(device=dev, config=TensorEngineConfig(
+            auto_fusion_ticks=0), metrics=MetricsConfig(
+            attribution_enabled=on))
+        asyncio.run(run_presence_load(engines[key], n_players=PLAYERS,
+                                      n_games=GAMES, n_ticks=2, seed=0,
+                                      warm_ticks=1))
+    engines["checked"] = engine
+    runs["plane_ms"] = unfused_plane_ms(engines, games_d, scores_d)
+    # the parked miss-check's copies of the emit's keys, mask and payload
+    from orleans_tpu_torch.tensor.engine import _map_tree, _park_copy
+    emit = {"score": scores_d, "count": torch.ones_like(games_d)}
+    valid_mask = torch.ones(PLAYERS, dtype=torch.bool, device=dev)
+    runs["park_copy_ms"] = Timer(dev)(lambda: (
+        games_d.clone(), valid_mask.clone(), _map_tree(_park_copy, emit)))
     lat = runs["latency"]
     print(f"unfused presence {PLAYERS} players / {GAMES} games, {TICKS} "
           f"ticks after {WARM_TICKS} warm: "
@@ -682,12 +1208,19 @@ class FusedRun:
     one tick at a time: warm ticks and a flush, then ticks until a number
     of windows ran.  ``moving``: the loader hands the engine a fresh copy
     of the players' games every tick (players may move), so ``game`` is a
-    per-tick leaf of the window, not a static one."""
+    per-tick leaf of the window, not a static one.  ``attribution``: the
+    plane on (the default config) or off (to time what it adds).
+    ``fuse=False`` turns auto-fusion off."""
 
-    def __init__(self, dev, games, scores, moving: bool = False):
+    def __init__(self, dev, games, scores, moving: bool = False,
+                 attribution: bool = True, fuse: bool = True):
+        from orleans_tpu_torch.config import MetricsConfig, TensorEngineConfig
         from orleans_tpu_torch.tensor.engine import TensorEngine
 
-        self.engine = TensorEngine(device=dev)
+        self.engine = TensorEngine(
+            device=dev, metrics=MetricsConfig(
+                attribution_enabled=attribution),
+            config=TensorEngineConfig(auto_fusion_ticks=16 if fuse else 0))
         self.af = self.engine.autofuser
         self.engine.arena_for("PresenceGrain").reserve(PLAYERS)
         self.engine.arena_for("GameGrain").reserve(GAMES)
@@ -828,6 +1361,8 @@ def drive_fused_path(dev, card: str, unfused_tick_ms: float,
                    2 * PLAYERS * run.ticks + PLAYERS * WARM_TICKS)
     require(run.engine.activation_passes == WARM_TICKS, "activation passes")
     check_ledger(run.engine, run.ticks, af["ticks_fused"], WARM_TICKS)
+    out["attribution"] = {"pipelined": check_attribution(
+        run.engine, games, run.ticks)}
     prog = run.af._program
     require(prog is not None and prog._graph is not None
             and prog.replays == WINDOWS, "the windows were not graph replays")
@@ -839,15 +1374,12 @@ def drive_fused_path(dev, card: str, unfused_tick_ms: float,
         - WARM_TICKS - W,
         window_host_ms=float(np.median([h for h, _ in per_window])),
         rebuilds=dict(prog.rebuilds), build_s=prog.build_seconds)
+    # the fused path's launches: this run's and the rollback run's below
     counts = _build.launch_counts()
     report = _build.launch_report()
-    print(f"launches on the fused path: {json.dumps(counts)}; by kind "
-          f"{json.dumps(report)}; one replay = "
-          f"{json.dumps(prog._per_replay)}", flush=True)
-    require_launched(counts, "fused")
-    for name in ("resolve_dense", "row_scatter", "seg_sum", "hist_count"):
+    for name in ("resolve_dense", "row_scatter", "seg_sum", "hist_count",
+                 "attr_fold"):
         require(report[name]["replayed"] > 0, f"{name} never replayed")
-    out["counts"], out["report"] = counts, report
     out["per_replay"] = dict(prog._per_replay)
     print(f"fused pipelined: {json.dumps(out['pipelined'])}", flush=True)
 
@@ -871,11 +1403,24 @@ def drive_fused_path(dev, card: str, unfused_tick_ms: float,
     # synced per window, then the window's device time
     run = FusedRun(dev, games, scores)
     synced = run.windows(WINDOWS, synced=True)
-    dev_ms, dev_host_ms = window_device_ms(run)
+    # the window with the attribution plane (the default) and without it,
+    # in turns on, off, off, on
+    run_off = FusedRun(dev, games, scores, attribution=False)
+    run_off.windows(2)
+    on, off = [], []
+    for r, acc in ((run, on), (run_off, off), (run_off, off), (run, on)):
+        acc.append(window_device_ms(r, reps=3))
+    run_off.finish()
+    del run_off
+    dev_ms = float(np.median([d for d, _ in on]))
+    dev_host_ms = float(np.median([h for _, h in on]))
+    out["window_off_device_ms"] = float(np.median([d for d, _ in off]))
     run.finish()
     check_presence(run.engine, games, scores, run.ticks, run.ticks,
                    2 * PLAYERS * run.ticks + PLAYERS * WARM_TICKS)
     check_ledger(run.engine, run.ticks, run.af.ticks_fused, WARM_TICKS)
+    out["attribution"]["synced"] = check_attribution(run.engine, games,
+                                                     run.ticks)
     walls = np.asarray([w for _, w in synced])
     out["synced"] = dict(window_p50_ms=float(np.percentile(walls, 50)),
                          window_max_ms=float(walls.max()),
@@ -886,7 +1431,10 @@ def drive_fused_path(dev, card: str, unfused_tick_ms: float,
 
     # a forced rollback: with the games a per-tick leaf, one player moves
     # to a game no one has activated just after a verified chain, so every
-    # tick of the next window sends to the cold key
+    # tick of the next window sends to the cold key.  Its unfused ticks
+    # fold the game emits device-checked (their keys are a new tensor
+    # every tick).  The second half of the fused path's launch count.
+    _build.reset_launch_counts()
     run = FusedRun(dev, games, scores, moving=True)
     run.windows(4)
     run.af._settle_chain()
@@ -917,6 +1465,21 @@ def drive_fused_path(dev, card: str, unfused_tick_ms: float,
             f"{WARM_TICKS + W}: the cold key was not activated at one drain")
     check_ledger(run.engine, run.ticks, af["ticks_fused"], WARM_TICKS,
                  late=tuple(W + 1 - k for k in range(1, W + 1)))
+    # exactly: the rolled-back window's folds are undone, each replayed
+    # tick counts once
+    out["attribution"]["rollback"] = check_attribution(
+        run.engine, games, run.ticks,
+        switch=(0, COLD_GAME, run.ticks - switched_at))
+    more = _build.launch_counts()
+    counts = {k: counts[k] + more[k] for k in counts}
+    more = _build.launch_report()
+    report = {k: {kind: v + more[k][kind] for kind, v in kinds.items()}
+              for k, kinds in report.items()}
+    print(f"launches on the fused path (the pipelined and the rollback "
+          f"runs): {json.dumps(counts)}; by kind {json.dumps(report)}; one "
+          f"replay = {json.dumps(out['per_replay'])}", flush=True)
+    require_launched(counts, "fused")
+    out["counts"], out["report"] = counts, report
     out["rollback"] = dict(autofuse=af,
                            activation_passes=run.engine.activation_passes,
                            rebuilds=dict(run.af._program.rebuilds)
@@ -948,6 +1511,8 @@ def drive_fused_path(dev, card: str, unfused_tick_ms: float,
         print(f"autofuse {mode}: {json.dumps(out[mode]['autofuse'])}",
               flush=True)
     print(f"rollback run: {json.dumps(out['rollback'])}", flush=True)
+    print(f"attribution, fused: {json.dumps(out['attribution'])}",
+          flush=True)
     return out
 
 
@@ -972,6 +1537,9 @@ def main() -> int:
     dev = torch.device("cuda")
     timer = Timer(dev)
     results = check_kernels(dev, timer, card)
+    results.update(check_attr_kernels(dev, timer, card))
+    time_plain_programs(dev, timer, card)
+    results["window_bound_ms"] += results["attr_window_bound_ms"]
     t1 = time.perf_counter()
     unfused_counts, runs = drive_unfused_path(dev, card)
     t2 = time.perf_counter()
@@ -980,6 +1548,19 @@ def main() -> int:
     t3 = time.perf_counter()
     print(f"phase seconds: kernels {t1 - t0:.1f}, unfused {t2 - t1:.1f}, "
           f"fused {t3 - t2:.1f}", flush=True)
+    plane = runs["plane_ms"]
+    fused_added = (fused["window_device_ms"]
+                   - fused["window_off_device_ms"]) / 16
+    print(f"attribution plane on the device: unfused "
+          f"+{plane['proven'] - plane['off']:.4f} ms per tick with its folds "
+          f"host-proven, +{plane['checked'] - plane['off']:.4f} with them "
+          f"checked on the device ({plane['proven']:.4f}, "
+          f"{plane['checked']:.4f} and {plane['off']:.4f} without it, per "
+          f"tick over blocks of 16 ticks holding one flush); fused "
+          f"+{fused_added:.4f} ms per fused tick ({fused['window_device_ms']:.4f} ms per "
+          f"window with it, {fused['window_off_device_ms']:.4f} without); "
+          f"the parked miss-check copies {runs['park_copy_ms']:.4f} ms per "
+          f"unfused tick; on {card}", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -1,7 +1,6 @@
 """Engine configuration: the ``TensorEngineConfig`` and ``MetricsConfig``
 fields the port reads, with the same names and defaults as
-``orleans_tpu/config.py``.  The workload-attribution fields belong to a
-later slice of the port."""
+``orleans_tpu/config.py``."""
 
 from __future__ import annotations
 
@@ -46,7 +45,8 @@ class TensorEngineConfig:
 
 @dataclass
 class MetricsConfig:
-    """Metrics knobs: the on-device latency ledger (tensor/ledger.py)."""
+    """Metrics knobs: the on-device latency ledger (tensor/ledger.py) and
+    the workload-attribution plane (tensor/attribution.py)."""
 
     # per-(type, method) log2 histograms of inject→completion tick
     # deltas, accumulated on the device; only the small bucket-count
@@ -55,3 +55,13 @@ class MetricsConfig:
     # bucket 0 = completed in the inject tick, bucket k = [2**(k-1), 2**k)
     # ticks, the last bucket absorbs overflow
     ledger_buckets: int = 16
+    # workload attribution plane (tensor/attribution.py): per-row traffic
+    # counts + count-min sketch + per-method slots accumulated on the
+    # device; a toggle or sketch-layout change rebuilds fused windows
+    attribution_enabled: bool = True
+    # hot grains published per snapshot (the device top-K of the counts)
+    attribution_top_k: int = 16
+    # count-min sketch layout: est - true <= (e/width)*N with probability
+    # >= 1 - exp(-depth); 4x8192 int32 = 128KB per arena
+    attribution_cms_depth: int = 4
+    attribution_cms_width: int = 8192

@@ -1,22 +1,27 @@
 """Carry an engine's state across from the JAX package.
 
 The system has no weights; what a running cluster carries is its arenas
-— the host key→row map and the state columns — and its latency ledger.
+— the host key→row map and the state columns — its latency ledger and its
+workload-attribution plane.
 ``arena_state_from_numpy`` loads an arena — as numpy arrays, e.g.
 ``jax_arena._key_of_row`` and ``{k: np.asarray(v) for k, v in
 jax_arena.state.items()}`` — into a port arena, after which both packages
 compute the same next tick.  ``ledger_state_from_numpy`` loads a ledger's
 slots and counts, after which both report the same histogram.
+``attribution_state_from_numpy`` loads an attribution plane's counts,
+sketches, slot counts and retired mirror, after which both report the same
+snapshot and per-key totals.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from orleans_tpu_torch.tensor.arena import GrainArena
+from orleans_tpu_torch.tensor.attribution import WorkloadAttribution
 from orleans_tpu_torch.tensor.ledger import MAX_SLOTS, DeviceLatencyLedger
 
 
@@ -85,3 +90,55 @@ def ledger_state_from_numpy(ledger: DeviceLatencyLedger,
                              f"{host.shape}")
         ledger.device_hist_in().copy_(torch.from_numpy(dev))
         ledger.device_hist_out(ledger.device_hist_in())
+
+
+def attribution_state_from_numpy(
+        att: WorkloadAttribution, slot_names: Sequence[Tuple[str, str]],
+        counts: Mapping[str, np.ndarray], cms: Mapping[str, np.ndarray],
+        slot_counts: Optional[np.ndarray],
+        retired: Optional[Mapping[str, Mapping[int, int]]] = None,
+        retired_rows: int = 0) -> None:
+    """Load an attribution plane: ``slot_names`` lists the (type, method)
+    of each slot in slot order (the JAX plane's ``slots.items()`` sorted
+    by slot; slots the port already holds must agree); ``counts`` maps a
+    type to its int32 ``[capacity]`` column (``np.asarray(jax_att.
+    _counts[t])``, after ``flush_folds()``), ``cms`` to its ``[depth,
+    width]`` sketch; ``slot_counts`` is the ``[MAX_SLOTS]`` counter array
+    or None; ``retired`` the host mirror {type: {key: messages}}.  The
+    arenas must be carried across first: each counts column must match
+    its arena's capacity.  The plane takes the sketches' layout."""
+    for i, (type_name, method) in enumerate(slot_names):
+        if att.slots.slot_for(type_name, method) != i:
+            raise ValueError(f"slot {i} is not ({type_name}, {method}) in "
+                             f"the port's registry")
+    shapes = {np.shape(s) for s in cms.values()}
+    if len(shapes) > 1:
+        raise ValueError(f"sketches of several layouts: {sorted(shapes)}")
+    if shapes:
+        depth, width = shapes.pop()
+        att.configure(cms_depth=depth, cms_width=width)
+        if (att.cms_depth, att.cms_width) != (depth, width):
+            raise ValueError(f"sketch layout {depth}x{width} is not one the "
+                             f"plane takes")
+    att.reset()
+    att._plans = {}
+
+    def load(a, shape=None) -> torch.Tensor:
+        a = np.array(a, dtype=np.int32)  # writable
+        if shape is not None and a.shape != shape:
+            raise ValueError(f"got {a.shape}, want {shape}")
+        return torch.from_numpy(a).to(att.device)
+
+    for type_name, col in counts.items():
+        arena = att.engine.arenas.get(type_name)
+        if arena is None or arena.capacity != len(col):
+            raise ValueError(f"counts of {type_name!r} need its arena at "
+                             f"capacity {len(col)} first")
+        att._counts[type_name] = load(col, (arena.capacity,))
+    for type_name, sk in cms.items():
+        att._cms[type_name] = load(sk)
+    if slot_counts is not None:
+        att._slot_counts = load(slot_counts, (MAX_SLOTS,))
+    att._retired = {t: {int(k): int(v) for k, v in d.items()}
+                    for t, d in (retired or {}).items()}
+    att.retired_rows = int(retired_rows)

@@ -27,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "orleans_tpu_torch"
-SOURCES = ("resolve", "scatter", "segment", "hist", "miss")
+SOURCES = ("resolve", "scatter", "segment", "hist", "miss", "attr_fold",
+           "attr_apply", "attr_snapshot")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

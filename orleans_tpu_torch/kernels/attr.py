@@ -1,0 +1,450 @@
+"""The workload-attribution kernels and their plain PyTorch versions.
+
+* K7 ``attr_fold`` (``csrc/attr_fold.cu``): one fold of lanes (or of a
+  dense per-row weight) into the per-row counts, the count-min sketch and
+  one int32 total, optionally gated on a device flag.  Replaces
+  ``fold_batch``, ``fold_counts``, ``fold_cms_dense`` and
+  ``_plan_kernel`` of ``orleans_tpu/tensor/attribution.py``.
+* K8 ``attr_apply`` / ``attr_match`` (``csrc/attr_apply.cu``): the flush
+  of buffered folds against one delta plan — a k-fold multiply-add with
+  k on the host or on the device (``_apply_coalesced``), and the exact
+  compare of up to 32 entries against the plan that
+  ``_apply_checked_stack`` starts with.
+* K9 ``attr_snapshot`` (``csrc/attr_snapshot.cu``): the device half of a
+  snapshot (``_snapshot_kernel``): total, top-k (ties lower row first),
+  per-shard sums, nonzero rows, p99, Gini, mean and the sketch estimate
+  of the top rows, packed into one int64 vector (``decode_snapshot``).
+
+Every wrapper takes its plain version for CPU tensors and launches its
+kernel for CUDA tensors.  ``cms_hash`` is the sketch hash the kernels
+compute inline, in int64 arithmetic masked to 32 bits (the JAX package
+computes it in uint32).  What bounds each kernel on an H100 and what its
+design does about it is in the note at the top of its source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from orleans_tpu_torch.kernels import _build
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+_SIG_FOLD = {"attr_fold": (_P, _I64, _P, _INT, _I64, _P, _P, _P, _P, _P,
+                           _I64, _P, _P, _P)}
+_SIG_APPLY = {"attr_apply": (_P, _P, _I64, _P, _P, _I64, _P, _P,
+                             ctypes.c_int32, _P, _P),
+              "attr_match": (_P, _P, _INT, _P, _P, _I64, _P, _P, _P)}
+_SIG_SNAPSHOT = {"attr_snapshot": (_P, _I64, _I64, _P, _INT, _I64, _P, _INT,
+                                   _INT, _P, _P, _P, _P),
+                 "attr_snapshot_partials": ()}
+
+#: entries one ``attr_match`` launch compares (the flush buffer's cap)
+MAX_STACK = 32
+_MAX_DEPTH = 8
+_M32 = 0xFFFFFFFF
+
+
+# -- the sketch hash ----------------------------------------------------------
+
+def _mul32(u: torch.Tensor, c: int) -> torch.Tensor:
+    """``u * c mod 2**32`` for int64 ``u`` in ``[0, 2**32)``, without an
+    int64 overflow: the constant splits into 16-bit halves."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (u * lo + (((u * hi) & 0xFFFF) << 16)) & _M32
+
+
+def cms_hash(rows: torch.Tensor, seeds: Sequence[int],
+             width: int) -> torch.Tensor:
+    """``[len(seeds), m]`` int32 sketch buckets of int32 ``rows``:
+    ``orleans_tpu/tensor/attribution.py`` ``cms_hash`` in int64 masked to
+    32 bits (a negative row enters as its two's-complement bits)."""
+    u0 = rows.to(torch.int64) & _M32
+    out = []
+    for seed in seeds:
+        u = _mul32(u0, int(seed))
+        u = u ^ (u >> 15)
+        u = _mul32(u, 0x27D4EB2F)
+        u = u ^ (u >> 13)
+        out.append(u & (width - 1))
+    return torch.stack(out).to(torch.int32)
+
+
+# -- argument checks ----------------------------------------------------------
+
+def _vec(name: str, t: Optional[torch.Tensor], dtype: torch.dtype,
+         device: torch.device, dim: int = 1) -> None:
+    if t is None:
+        return
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype \
+            or t.dim() != dim or not t.is_contiguous():
+        raise TypeError(f"{name} must be a contiguous {dim}-D {dtype} "
+                        f"tensor")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+
+
+def _device_of(*ts: Optional[torch.Tensor]) -> torch.device:
+    for t in ts:
+        if isinstance(t, torch.Tensor):
+            if t.device.type not in ("cpu", "cuda"):
+                raise ValueError(f"unsupported device {t.device}")
+            return t.device
+    raise ValueError("no tensor given")
+
+
+def _check_sketch(cms: Optional[torch.Tensor], seeds: Sequence[int],
+                  device: torch.device) -> None:
+    if cms is None:
+        return
+    _vec("cms", cms, torch.int32, device, dim=2)
+    depth, width = cms.shape
+    if not 1 <= depth <= min(_MAX_DEPTH, len(seeds)):
+        raise ValueError(f"sketch depth {depth} needs 1..{_MAX_DEPTH} "
+                         f"seeds, got {len(seeds)}")
+    if width < 1 or width & (width - 1):
+        raise ValueError(f"sketch width {width} is not a power of two")
+
+
+def _check_total(total: Optional[torch.Tensor], slot: int,
+                 device: torch.device) -> None:
+    if total is None:
+        return
+    _vec("total", total, torch.int32, device)
+    if not 0 <= slot < total.shape[0]:
+        raise IndexError(f"slot {slot} outside total of {total.shape[0]}")
+
+
+def _seed_array(seeds: Sequence[int]):
+    arr = (ctypes.c_uint32 * _MAX_DEPTH)()
+    for d, s in enumerate(list(seeds)[:_MAX_DEPTH]):
+        arr[d] = int(s) & _M32
+    return arr
+
+
+def _ptr(t: Optional[torch.Tensor], offset: int = 0) -> Optional[int]:
+    return None if t is None else t.data_ptr() + 4 * offset
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# -- K7 attr_fold -------------------------------------------------------------
+
+def _check_fold(counts, cms, seeds, rows, valid, total, slot, weight, gate,
+                stale) -> torch.device:
+    dev = _device_of(counts, cms, weight, rows)
+    _vec("counts", counts, torch.int32, dev)
+    _check_sketch(cms, seeds, dev)
+    _check_total(total, slot, dev)
+    _vec("gate", gate, torch.int32, dev)
+    _vec("stale", stale, torch.int32, dev)
+    if gate is not None and gate.shape[0] != 1:
+        raise ValueError("gate must hold one element")
+    if weight is not None:
+        if rows is not None or valid is not None:
+            raise ValueError("weighted mode takes no rows or valid")
+        _vec("weight", weight, torch.int32, dev)
+        if counts is not None and counts.shape != weight.shape:
+            raise ValueError("counts and weight must share their length")
+    else:
+        if counts is None:
+            raise ValueError("lane mode needs counts (its length bounds "
+                             "the rows)")
+        _vec("rows", rows, torch.int32, dev)
+        _vec("valid", valid, torch.bool, dev)
+        if rows is None or valid is None or rows.shape != valid.shape:
+            raise ValueError("lane mode needs rows and valid of one shape")
+    return dev
+
+
+def attr_fold_plain(counts: Optional[torch.Tensor],
+                    cms: Optional[torch.Tensor], seeds: Sequence[int],
+                    rows: Optional[torch.Tensor] = None,
+                    valid: Optional[torch.Tensor] = None, *,
+                    total: Optional[torch.Tensor] = None, slot: int = 0,
+                    weight: Optional[torch.Tensor] = None,
+                    gate: Optional[torch.Tensor] = None,
+                    stale: Optional[torch.Tensor] = None) -> None:
+    """Plain PyTorch version of ``attr_fold`` (same in-place contract)."""
+    if gate is not None and int(gate[0]) == 0:
+        return
+    if weight is not None:
+        inc = weight
+        r = torch.arange(weight.shape[0], dtype=torch.int32,
+                         device=weight.device)
+    else:
+        ok = valid & (rows >= 0) & (rows < counts.shape[0])
+        inc = ok.to(torch.int32)
+        r = torch.where(ok, rows, torch.zeros_like(rows))
+    if inc.shape[0]:
+        if counts is not None:
+            counts.index_add_(0, r.long(), inc)
+        if cms is not None:
+            h = cms_hash(r, list(seeds)[:cms.shape[0]], cms.shape[1]).long()
+            for d in range(cms.shape[0]):
+                cms[d].index_add_(0, h[d], inc)
+    if total is not None:
+        total[slot] += inc.sum(dtype=torch.int32)
+    if gate is not None and stale is not None:
+        stale += 1
+
+
+@_build.counted
+def attr_fold(counts: Optional[torch.Tensor], cms: Optional[torch.Tensor],
+              seeds: Sequence[int], rows: Optional[torch.Tensor] = None,
+              valid: Optional[torch.Tensor] = None, *,
+              total: Optional[torch.Tensor] = None, slot: int = 0,
+              weight: Optional[torch.Tensor] = None,
+              gate: Optional[torch.Tensor] = None,
+              stale: Optional[torch.Tensor] = None) -> None:
+    """Fold in place.  Lane mode (``rows``, ``valid``): every valid lane
+    with ``0 <= row < len(counts)`` adds 1 into ``counts[row]`` and into
+    its bucket at each depth of ``cms``.  Weighted mode (``weight``, one
+    int32 per row): row ``i`` adds ``weight[i]``.  The sum of the
+    increments adds into ``total[slot]``.  ``counts``, ``cms`` and
+    ``total`` may each be None (weighted mode needs no counts).  With a
+    one-element ``gate``, nothing happens while ``gate[0] == 0``;
+    otherwise ``stale`` also gains 1."""
+    dev = _check_fold(counts, cms, seeds, rows, valid, total, slot, weight,
+                      gate, stale)
+    if dev.type == "cpu":
+        return attr_fold_plain(counts, cms, seeds, rows, valid, total=total,
+                               slot=slot, weight=weight, gate=gate,
+                               stale=stale)
+    m = (weight if weight is not None else rows).shape[0]
+    depth, width = cms.shape if cms is not None else (0, 1)
+    cap = counts.shape[0] if counts is not None else m
+    seeds_arr = _seed_array(seeds)
+    lib = _build.library("attr_fold", _SIG_FOLD)
+    err = lib.attr_fold(
+        _ptr(counts), cap, _ptr(cms), depth, width,
+        ctypes.addressof(seeds_arr), _ptr(total, slot), _ptr(rows),
+        _ptr(valid), _ptr(weight), m, _ptr(gate), _ptr(stale),
+        _stream(dev))
+    _build.check(lib, err, "attr_fold")
+    _build.note_launch(attr_fold)
+
+
+# -- K8 attr_apply / attr_match -----------------------------------------------
+
+def _check_apply(counts, cdelta, cms, sdelta, k, total, slot, n
+                 ) -> torch.device:
+    dev = _device_of(counts)
+    _vec("counts", counts, torch.int32, dev)
+    _vec("cdelta", cdelta, torch.int32, dev)
+    _vec("cms", cms, torch.int32, dev, dim=2)
+    _vec("sdelta", sdelta, torch.int32, dev, dim=2)
+    if counts.shape != cdelta.shape or cms.shape != sdelta.shape:
+        raise ValueError("accumulators and deltas must share their shapes")
+    _check_total(total, slot, dev)
+    if total is not None:
+        _vec("n", n, torch.int32, dev)
+        if n is None or n.shape[0] != 1:
+            raise ValueError("a total needs the plan's one-element lane "
+                             "total n")
+    if isinstance(k, torch.Tensor):
+        _vec("k", k, torch.int32, dev)
+        if k.shape[0] != 1:
+            raise ValueError("a device k holds one element")
+    elif not isinstance(k, (int, np.integer)):
+        raise TypeError(f"k must be an int or a device scalar, got {type(k)}")
+    return dev
+
+
+def attr_apply_plain(counts: torch.Tensor, cdelta: torch.Tensor,
+                     cms: torch.Tensor, sdelta: torch.Tensor,
+                     k: Union[int, torch.Tensor], *,
+                     total: Optional[torch.Tensor] = None, slot: int = 0,
+                     n: Optional[torch.Tensor] = None) -> None:
+    """Plain PyTorch version of ``attr_apply`` (same in-place contract)."""
+    kk = k if isinstance(k, torch.Tensor) else int(k)
+    counts += kk * cdelta
+    cms += kk * sdelta
+    if total is not None:
+        total[slot:slot + 1] += kk * n
+
+
+@_build.counted
+def attr_apply(counts: torch.Tensor, cdelta: torch.Tensor, cms: torch.Tensor,
+               sdelta: torch.Tensor, k: Union[int, torch.Tensor], *,
+               total: Optional[torch.Tensor] = None, slot: int = 0,
+               n: Optional[torch.Tensor] = None) -> None:
+    """In place: ``counts += k·cdelta``, ``cms += k·sdelta`` and
+    ``total[slot] += k·n[0]``; ``k`` a host int or a one-element int32
+    device tensor (read on the device)."""
+    dev = _check_apply(counts, cdelta, cms, sdelta, k, total, slot, n)
+    if dev.type == "cpu":
+        return attr_apply_plain(counts, cdelta, cms, sdelta, k, total=total,
+                                slot=slot, n=n)
+    k_dev = k if isinstance(k, torch.Tensor) else None
+    k_host = 0 if k_dev is not None else int(k)
+    lib = _build.library("attr_apply", _SIG_APPLY)
+    err = lib.attr_apply(
+        counts.data_ptr(), cdelta.data_ptr(), counts.shape[0],
+        cms.data_ptr(), sdelta.data_ptr(), cms.numel(), _ptr(total, slot),
+        _ptr(n), k_host, _ptr(k_dev), _stream(dev))
+    _build.check(lib, err, "attr_apply")
+    _build.note_launch(attr_apply)
+
+
+def _check_match(rows_list, valid_list, plan_rows, plan_valid, flags, km
+                 ) -> torch.device:
+    dev = _device_of(plan_rows)
+    _vec("plan_rows", plan_rows, torch.int32, dev)
+    _vec("plan_valid", plan_valid, torch.bool, dev)
+    k = len(rows_list)
+    if not 1 <= k <= MAX_STACK or len(valid_list) != k:
+        raise ValueError(f"1..{MAX_STACK} entries of rows and valid, got "
+                         f"{k} and {len(valid_list)}")
+    for r, v in zip(rows_list, valid_list):
+        _vec("rows", r, torch.int32, dev)
+        _vec("valid", v, torch.bool, dev)
+        if r.shape != plan_rows.shape or v.shape != plan_valid.shape:
+            raise ValueError("every entry must have the plan's shape")
+    _vec("flags", flags, torch.int32, dev)
+    _vec("km", km, torch.int32, dev)
+    if flags.shape[0] < k or km.shape[0] != 1:
+        raise ValueError("flags needs a slot per entry, km one element")
+    return dev
+
+
+def attr_match_plain(rows_list: Sequence[torch.Tensor],
+                     valid_list: Sequence[torch.Tensor],
+                     plan_rows: torch.Tensor, plan_valid: torch.Tensor,
+                     flags: torch.Tensor, km: torch.Tensor) -> None:
+    """Plain PyTorch version of ``attr_match``."""
+    for e, (r, v) in enumerate(zip(rows_list, valid_list)):
+        same = torch.equal(r, plan_rows) and torch.equal(v, plan_valid)
+        flags[e] = 0 if same else 1
+    km[0] = len(rows_list) - flags[:len(rows_list)].sum()
+
+
+@_build.counted
+def attr_match(rows_list: Sequence[torch.Tensor],
+               valid_list: Sequence[torch.Tensor], plan_rows: torch.Tensor,
+               plan_valid: torch.Tensor, flags: torch.Tensor,
+               km: torch.Tensor) -> None:
+    """For each of the k entries (k <= ``MAX_STACK``): ``flags[e] = 0``
+    when its rows and valid equal the plan's at every lane, else 1; and
+    ``km[0]`` = the number of matching entries.  Nothing is stacked: the
+    entries' addresses ride in the kernel's parameters."""
+    dev = _check_match(rows_list, valid_list, plan_rows, plan_valid, flags,
+                       km)
+    if dev.type == "cpu":
+        return attr_match_plain(rows_list, valid_list, plan_rows,
+                                plan_valid, flags, km)
+    k = len(rows_list)
+    rows_ptrs = (ctypes.c_int64 * k)(*[r.data_ptr() for r in rows_list])
+    valid_ptrs = (ctypes.c_int64 * k)(*[v.data_ptr() for v in valid_list])
+    lib = _build.library("attr_apply", _SIG_APPLY)
+    err = lib.attr_match(ctypes.addressof(rows_ptrs),
+                         ctypes.addressof(valid_ptrs), k,
+                         plan_rows.data_ptr(), plan_valid.data_ptr(),
+                         plan_rows.shape[0], flags.data_ptr(), km.data_ptr(),
+                         _stream(dev))
+    _build.check(lib, err, "attr_match")
+    _build.note_launch(attr_match)
+
+
+# -- K9 attr_snapshot ---------------------------------------------------------
+
+def snapshot_size(k: int, n_shards: int) -> int:
+    """Length of the int64 vector ``attr_snapshot`` returns."""
+    return 3 * k + n_shards + 5
+
+
+def decode_snapshot(out: np.ndarray, k: int, n_shards: int
+                    ) -> Dict[str, object]:
+    """The named outputs of an ``attr_snapshot`` vector read back to the
+    host: vals, rows, est (int64 [k]), shard (int64 [n_shards]), total,
+    nnz, p99 (int) and gini, mean_nz (float32)."""
+    out = np.asarray(out, dtype=np.int64)
+    tail = out[3 * k + n_shards:]
+    return {
+        "vals": out[:k], "rows": out[k:2 * k], "est": out[2 * k:3 * k],
+        "shard": out[3 * k:3 * k + n_shards],
+        "total": int(tail[0]), "nnz": int(tail[1]), "p99": int(tail[2]),
+        "gini": np.uint32(tail[3]).view(np.float32),
+        "mean_nz": np.uint32(tail[4]).view(np.float32),
+    }
+
+
+def _check_snapshot(counts, cms, seeds, k, n_shards) -> torch.device:
+    dev = _device_of(counts)
+    _vec("counts", counts, torch.int32, dev)
+    _check_sketch(cms, seeds, dev)
+    cap = counts.shape[0]
+    if not 1 <= k <= cap:
+        raise ValueError(f"k must be in 1..{cap}, got {k}")
+    if n_shards < 1 or cap % n_shards:
+        raise ValueError(f"{n_shards} shards do not divide {cap} rows")
+    if cap >= 2**31:
+        raise ValueError("rows must fit in int32")
+    return dev
+
+
+def attr_snapshot_plain(counts: torch.Tensor, cms: torch.Tensor,
+                        seeds: Sequence[int], k: int,
+                        n_shards: int) -> torch.Tensor:
+    """Plain PyTorch version of ``attr_snapshot`` (a stable descending
+    sort; the Gini sum in float64, the gauges in float32)."""
+    cap = counts.shape[0]
+    dev = counts.device
+    c = counts.to(torch.int64)
+    order = torch.sort(counts, descending=True, stable=True).indices
+    desc = c[order]
+    top = order[:k].to(torch.int32)
+    h = cms_hash(top, list(seeds)[:cms.shape[0]], cms.shape[1]).long()
+    depth_idx = torch.arange(cms.shape[0], device=dev)[:, None]
+    est = cms[depth_idx, h].min(dim=0).values.to(torch.int64)
+    total = int(c.sum())
+    nnz = int((c > 0).sum())
+    j = torch.arange(nnz, dtype=torch.float64, device=dev)
+    gsum = float(((nnz - 2.0 * j - 1.0) * desc[:nnz].double()).sum())
+    pos = min(max(cap - nnz + ((nnz - 1) * 99) // 100, 0), cap - 1)
+    nnz_f = np.float32(max(nnz, 1))
+    total_f = np.float32(max(total, 1))
+    gini = np.float32(gsum) / (nnz_f * total_f)
+    mean = total_f / nnz_f
+    tail = torch.tensor(
+        [total, nnz, int(desc[cap - 1 - pos]),
+         int(np.float32(gini).view(np.uint32)),
+         int(np.float32(mean).view(np.uint32))], dtype=torch.int64,
+        device=dev)
+    return torch.cat([desc[:k], top.to(torch.int64), est,
+                      c.view(n_shards, -1).sum(dim=1), tail])
+
+
+@_build.counted
+def attr_snapshot(counts: torch.Tensor, cms: torch.Tensor,
+                  seeds: Sequence[int], k: int,
+                  n_shards: int = 1) -> torch.Tensor:
+    """The snapshot of one counts column and its sketch as one int64
+    vector of ``snapshot_size(k, n_shards)`` (see ``decode_snapshot``)."""
+    dev = _check_snapshot(counts, cms, seeds, k, n_shards)
+    if dev.type == "cpu":
+        return attr_snapshot_plain(counts, cms, seeds, k, n_shards)
+    cap = counts.shape[0]
+    n2 = 1 << max(0, cap - 1).bit_length()
+    lib = _build.library("attr_snapshot", _SIG_SNAPSHOT)
+    keys = torch.empty(n2, dtype=torch.int64, device=dev)  # uint64 bits
+    partials = torch.empty(lib.attr_snapshot_partials(),
+                           dtype=torch.float64, device=dev)
+    out = torch.empty(snapshot_size(k, n_shards), dtype=torch.int64,
+                      device=dev)
+    seeds_arr = _seed_array(seeds)
+    err = lib.attr_snapshot(
+        counts.data_ptr(), cap, n2, cms.data_ptr(), cms.shape[0],
+        cms.shape[1], ctypes.addressof(seeds_arr), k, n_shards,
+        keys.data_ptr(), partials.data_ptr(), out.data_ptr(), _stream(dev))
+    _build.check(lib, err, "attr_snapshot")
+    _build.note_launch(attr_snapshot)
+    return out
+

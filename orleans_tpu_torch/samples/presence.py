@@ -115,7 +115,9 @@ async def run_presence_load(engine, n_players: int = 100_000,
     and records each tick's inject→completion wall time, so
     ``tick_p99_seconds`` is a true 99th percentile of turn latency; read
     throughput from a pipelined run (``measure_latency=False``).  The
-    ``autofuse`` entry says how much of the run the auto-fuser took.
+    ``autofuse`` entry says how much of the run the auto-fuser took;
+    ``ledger`` and ``attribution`` are the latency ledger's and the
+    attribution plane's snapshots, taken after the timed run.
     """
     n_games = n_games or max(1, n_players // 100)
     players, games, scores = presence_inputs(n_players, n_games, seed)
@@ -177,6 +179,8 @@ async def run_presence_load(engine, n_players: int = 100_000,
         "messages_per_sec": messages / elapsed,
         "mean_tick_seconds": elapsed / n_ticks,
         "autofuse": engine.autofuser.snapshot(),
+        "ledger": engine.ledger.snapshot(),
+        "attribution": engine.attribution.snapshot(),
     }
     if tick_durations:
         d = np.asarray(tick_durations)

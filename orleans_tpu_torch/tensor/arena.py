@@ -94,6 +94,16 @@ class GrainArena:
         if engine is not None and engine.autofuser._unverified:
             engine.autofuser._settle_chain()
 
+    def _attribution(self):
+        """The owning engine's workload-attribution plane when it holds
+        counts for this arena: a row move must move them too."""
+        ref = self._owner_engine
+        engine = ref() if ref is not None else None
+        att = getattr(engine, "attribution", None) \
+            if engine is not None else None
+        return att if att is not None and att.has_state(self.info.name) \
+            else None
+
     def last_use(self, rows: np.ndarray) -> np.ndarray:
         """Host last-use tick of live ``rows``: the later of the host
         stamp and the latest fused window (which counts every live row
@@ -277,6 +287,11 @@ class GrainArena:
         key_of_row[:old] = self._key_of_row
         last_use_tick = np.zeros(new_capacity, dtype=np.int64)
         last_use_tick[:old] = self.last_use_tick
+        att = self._attribution()
+        if att is not None:
+            # traffic counts move with their rows (which keep their index)
+            live = np.nonzero(self._key_of_row >= 0)[0]
+            att.remap_rows(self, live, live, new_capacity)
 
         self.state = new_state
         self.last_use_dev = last_use

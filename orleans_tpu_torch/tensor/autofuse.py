@@ -21,8 +21,10 @@ but ``injector.inject(args)`` per tick, and the engine
 4. **disengages** on any pattern break, replaying buffered ticks unfused
    one at a time, so per-tick application order holds.
 
-The cluster ring, checkpoint cadence and workload attribution that the
-JAX fuser also consults belong to later slices of the port.
+The latency ledger and the workload-attribution plane accumulate inside
+the windows; a rollback restores both from the chain's pin.  The cluster
+ring and checkpoint cadence that the JAX fuser also consults belong to
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -125,6 +127,7 @@ class AutoFuser:
         self._chain_generations: Dict[str, int] = {}
         self._chain_epochs: Dict[str, int] = {}
         self._chain_ledger: Optional[Tuple] = None
+        self._chain_attr: Optional[Tuple] = None
         # caches / stats
         self._programs: Dict[Tuple, FusedTickProgram] = {}
         # pin buffers per program: arena → column → copy
@@ -409,9 +412,12 @@ class AutoFuser:
             self._chain_epochs = {
                 n: engine.arena_for(n).eviction_epoch
                 for n in prog._touched}
-            # the ledger accumulates INSIDE the windows: a rollback undoes
-            # those counts too (the unfused replay records every message)
+            # the ledger and the attribution plane accumulate INSIDE the
+            # windows: a rollback undoes those counts too (the unfused
+            # replay records every message).  The attribution pin is a
+            # copy into preallocated buffers, as pin_copy's.
             self._chain_ledger = engine.ledger.snapshot_state()
+            self._chain_attr = engine.attribution.snapshot_state()
         prog.run(_per_source(prog, stackeds), _per_source(prog, statics))
         self._unverified.append(window)
         dt = time.perf_counter() - t0
@@ -438,11 +444,13 @@ class AutoFuser:
         generations = self._chain_generations
         epochs = self._chain_epochs
         ledger_state = self._chain_ledger
+        attr_state = self._chain_attr
         self._chain_prog = None
         self._chain_counters = None
         self._chain_generations = {}
         self._chain_epochs = {}
         self._chain_ledger = None
+        self._chain_attr = None
         misses = prog.verify()
         n_ticks = sum(len(w) for w in windows)
         if misses == 0:
@@ -469,6 +477,8 @@ class AutoFuser:
                 live[c].copy_(pin)
         engine.tick_number, engine.messages_processed = counters
         engine.ledger.restore_state(ledger_state)
+        # in place: the window's graph keeps the accumulators' addresses
+        engine.attribution.restore_state(attr_state)
         sig = self._sig
         strikes = self._rollback_counts.get(sig, 0) + 1
         self._rollback_counts[sig] = strikes

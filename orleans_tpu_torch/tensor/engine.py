@@ -29,10 +29,11 @@ Every batch is stamped with its injection tick, and the latency ledger
 (``tensor/ledger.py``) records each applied batch's tick delta.  At
 steady state the auto-fuser (``tensor/autofuse.py``), offered every tick
 first, runs whole windows of ticks as one program (``tensor/fused.py``;
-on the card one replay of a captured CUDA graph).  Workload attribution,
-timers, the profiler, checkpoints, collection, fan-outs, streams, the
-cross-shard exchange and the cluster router belong to later slices of the
-port.
+on the card one replay of a captured CUDA graph).  The workload-
+attribution plane (``tensor/attribution.py``) folds every executing
+group's destination rows.  Timers, the profiler, checkpoints, collection,
+fan-outs, streams, the cross-shard exchange and the cluster router belong
+to later slices of the port.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from orleans_tpu_torch.kernels.resolve import (
     resolve_sorted,
 )
 from orleans_tpu_torch.tensor.arena import GrainArena
+from orleans_tpu_torch.tensor.attribution import WorkloadAttribution
 from orleans_tpu_torch.tensor.ledger import DeviceLatencyLedger, SlotRegistry
 from orleans_tpu_torch.tensor.vector_grain import (
     Batch,
@@ -163,7 +165,9 @@ class PendingBatch:
 
 @dataclass
 class _MissCheck:
-    """A parked optimistic-resolution check (see _resolve_batch)."""
+    """A parked optimistic-resolution check (see _resolve_batch).  Its
+    keys, valid mask and tensor payload leaves are copies taken when it
+    was parked."""
 
     arena: GrainArena
     type_name: str
@@ -203,6 +207,15 @@ def _miss_keys(keys: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
     return miss_keys(keys, rows, valid, miss_buf)
 
 
+def _park_copy(a: Any) -> Any:
+    """A parked miss-check's copy of a payload leaf: a tensor is cloned
+    on its stream (no sync), since the caller may rewrite it in place
+    before the drain redelivers it; a JAX array cannot change, so the
+    JAX package redelivers the emit-time values.  Host leaves are kept as
+    they are, as the JAX package keeps them."""
+    return a.clone() if isinstance(a, torch.Tensor) else a
+
+
 def _stack_counts(*xs: torch.Tensor) -> torch.Tensor:
     """Gather parked miss counters into one tensor, so the drain reads
     them all with one device→host copy."""
@@ -227,6 +240,14 @@ class TensorEngine:
             self.device, n_buckets=self.metrics_config.ledger_buckets,
             enabled=self.metrics_config.ledger_enabled,
             slots=self.slot_registry)
+        # workload attribution: per-row traffic counts + count-min sketch
+        # + per-method slots, folded in the dispatch phase and inside
+        # fused windows; its slots index like the ledger's
+        mc = self.metrics_config
+        self.attribution = WorkloadAttribution(
+            self, enabled=mc.attribution_enabled,
+            top_k=mc.attribution_top_k, cms_depth=mc.attribution_cms_depth,
+            cms_width=mc.attribution_cms_width, slots=self.slot_registry)
         self.initial_capacity = initial_capacity
         self.arenas: Dict[str, GrainArena] = {}
         self.queues: Dict[Tuple[str, str], List[PendingBatch]] = \
@@ -424,6 +445,7 @@ class TensorEngine:
             "autofuse": self.autofuser.snapshot(),
             "arenas": {name: a.live_count for name, a in self.arenas.items()},
             "latency_ledger": self.ledger.stats(),
+            "attribution": self.attribution.stats(),
         }
 
     def latency_stats(self) -> Dict[str, float]:
@@ -471,8 +493,9 @@ class TensorEngine:
         rows, miss_count = resolve_rows_on_device(arena, keys, valid)
         self._pending_checks.append(
             _MissCheck(arena=arena, type_name=arena.info.name, method=method,
-                       keys=keys, valid=valid, rows=rows,
-                       miss_count=miss_count, args=b.args,
+                       keys=keys.clone(), valid=valid.clone(), rows=rows,
+                       miss_count=miss_count,
+                       args=_map_tree(_park_copy, b.args),
                        inject_tick=b.inject_tick))
         return rows, b.args
 
@@ -636,6 +659,15 @@ class TensorEngine:
         self.messages_processed += m_total
         if mask is None:
             mask = self._mask_for(rows.shape[0])
+        if self.attribution.enabled:
+            # fold the group's final rows (masked miss lanes count at
+            # their redelivery).  A single batch's emit keys are the
+            # delta-plan memo's stable identity: its rows re-resolve to a
+            # fresh tensor every tick.
+            ident = batches[0].keys_dev if len(batches) == 1 else None
+            self.attribution.record_group(arena, type_name, method, rows,
+                                          mask, ident=ident,
+                                          host_rows=host_rows)
 
         step = self._get_step(info, method)
         new_state, results, emits, fence = step(arena.state, rows, args,

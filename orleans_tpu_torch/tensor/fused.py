@@ -32,9 +32,14 @@ Steady-state contract (checked, not assumed):
 
 Inside a window every tick's messages complete in their own tick, so the
 latency ledger records each applied lane at delta 0 (bucket 0), as the
-JAX window does.  Exchange, fan-out, stream routes and wide keys are not
-on this slice's path: the port's engine has none of them, and a wide emit
-key raises ``NotImplementedError``.
+JAX window does.  The workload-attribution plane folds each applied
+group's rows into a per-window delta column and its slot counter (K7);
+after the window's last tick one K7 adds each arena's delta into its
+counts and its hashed buckets into its sketch, and the delta is zeroed —
+the JAX window's scan carry plus its once-per-window sketch fold, equal
+bit for bit because integer adds commute.  Exchange, fan-out, stream
+routes and wide keys are not on this slice's path: the port's engine has
+none of them, and a wide emit key raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 from orleans_tpu_torch.kernels import _build
 from orleans_tpu_torch.kernels.hist import hist_count
 from orleans_tpu_torch.kernels.scatter import _is_host_scalar
+from orleans_tpu_torch.tensor.attribution import fold_cms_dense, fold_counts
 from orleans_tpu_torch.tensor.engine import (
     _host_array,
     _leaf_to_device,
@@ -243,6 +249,12 @@ class FusedTickProgram:
         # latency ledger: baked at build time, like the JAX window
         self._ledger_on = False
         self._hist: Optional[torch.Tensor] = None
+        # workload attribution: baked at build time too — the live
+        # accumulators the window adds into (identity-compared) and the
+        # program's per-window delta column per touched arena
+        self._attr_sig: Optional[Tuple] = None
+        self._attr: Dict[str, Any] = {}
+        self._attr_delta: Dict[str, torch.Tensor] = {}
         self._built_donate: Optional[bool] = None
         # the card's form: the captured graph and everything it baked
         self._graph: Optional[torch.cuda.CUDAGraph] = None
@@ -275,14 +287,17 @@ class FusedTickProgram:
     def _apply_group(self, states: Dict[str, Dict[str, torch.Tensor]],
                      type_name: str, method: str, rows: torch.Tensor,
                      args: Any, mask: torch.Tensor, depth: int,
-                     acc: Tuple[torch.Tensor, Optional[torch.Tensor]]
+                     acc: Tuple[torch.Tensor, Optional[torch.Tensor],
+                                Optional[Dict[str, Any]]]
                      ) -> Dict[str, Dict[str, torch.Tensor]]:
         """Apply one (type, method) batch and recurse into its emits — the
         unrolled multi-round tick.  ``acc`` is (totals [1, 2], ledger
-        hist or None), both added into in place: K1/K2 add each resolve's
-        misses into totals[0, 0], K5 the delivered lanes into
-        totals[0, 1], round-cap spills into totals[0, 0] and the applied
-        lanes into hist[slot, 0]."""
+        hist or None, attribution {"delta": {type: column}, "slots"} or
+        None), all added into in place: K1/K2 add each resolve's misses
+        into totals[0, 0], K5 the delivered lanes into totals[0, 1],
+        round-cap spills into totals[0, 0] and the applied lanes into
+        hist[slot, 0]; K7 folds the applied rows into the type's delta
+        column and the lanes into the attribution slot."""
         engine = self.engine
         info = vector_type(type_name)
         handler = info.handlers[method]
@@ -293,12 +308,23 @@ class FusedTickProgram:
             states[type_name], Batch(rows=rows, args=args, mask=mask),
             n_rows))
         states[type_name] = state2
-        totals, hist = acc
+        totals, hist, attr = acc
         if hist is not None:
             # every applied lane completes in its own (virtual) tick:
             # delta 0, bucket 0
             hist_count(hist, engine.ledger.slot_for(type_name, method), 0,
                        mask)
+        if attr is not None:
+            delta = attr["delta"].get(type_name)
+            if delta is None:
+                if not self._discovering:
+                    raise RuntimeError(f"fused window: no attribution delta "
+                                       f"for {type_name!r}")
+                delta = attr["delta"][type_name] = torch.zeros(
+                    n_rows, dtype=torch.int32, device=engine.device)
+            fold_counts(delta, attr["slots"],
+                        engine.attribution.slots.slot_for(type_name, method),
+                        rows, mask)
         at_cap = depth >= engine.config.max_rounds_per_tick
 
         out_batches = []
@@ -358,7 +384,22 @@ class FusedTickProgram:
         for t in range(n_ticks):
             per_tick = [{k: v[t] for k, v in st.items()} for st in stackeds]
             states = self._apply_all(states, statics, per_tick, acc)
+        if acc[2] is not None:
+            # once per window: each arena's delta into its counts and its
+            # sketch (K7 weighted), then a zeroed delta for the next window
+            seeds = self.engine.attribution.seeds
+            for n in self._touched:
+                delta = acc[2]["delta"][n]
+                fold_cms_dense(self._attr["cms"][n], delta, seeds,
+                               counts=self._attr["counts"][n])
+                delta.zero_()
         return states
+
+    def _attr_acc(self) -> Optional[Dict[str, Any]]:
+        """The attribution part of a run's accumulators."""
+        if not self._attr:
+            return None
+        return {"delta": self._attr_delta, "slots": self._attr["slots"]}
 
     def _note_arena(self, name: str, arena) -> None:
         if name not in self._generations:
@@ -438,7 +479,9 @@ class FusedTickProgram:
         ledger = engine.ledger
         if self._ledger_on != ledger.enabled or (
                 self._ledger_on and self._hist is not ledger.device_hist_in()
-        ) or self._built_donate != engine.config.donate_state:
+        ) or self._built_donate != engine.config.donate_state \
+                or self._attr_sig != engine.attribution.build_signature() \
+                or not self._attr_live():
             return CAUSE_CONFIG_TOGGLE
         for n, mirror in self._mirrors.items():
             now = _mirror_of(engine.arena_for(n))
@@ -456,6 +499,16 @@ class FusedTickProgram:
             if keys != {k: self._static_key(v) for k, v in st.items()}:
                 return CAUSE_STATIC_CHANGE
         return None
+
+    def _attr_live(self) -> bool:
+        """Whether the accumulators the window adds into are still the
+        plane's live tensors (flushing the plane's buffered folds)."""
+        live = self.engine.attribution.device_state_in(self._touched)
+        if not live or not self._attr:
+            return not live and not self._attr
+        return live["slots"] is self._attr["slots"] and all(
+            live[kind][n] is self._attr[kind][n]
+            for kind in ("counts", "cms") for n in self._touched)
 
     def prepare(self, stacked_args: Any, static_args: Any = None) -> None:
         """Re-resolve the source rows and rebuild when anything the window
@@ -495,6 +548,9 @@ class FusedTickProgram:
         self._hist = engine.ledger.device_hist_in() if self._ledger_on \
             else None
         self._built_donate = engine.config.donate_state
+        att = engine.attribution
+        self._attr_sig = att.build_signature()
+        self._attr, self._attr_delta = {}, {}
         # discovery: one tick on scratch copies of every arena it touches
         # (and of the accumulators) — finds the destination arenas,
         # builds their directory mirrors, and on the card launches every
@@ -507,14 +563,23 @@ class FusedTickProgram:
                                 s.arena.state.items()}
                   for s in self.sources}
         hist = self._hist.clone() if self._hist is not None else None
+        scratch_attr = {"delta": {}, "slots": att.device_state_in(
+            [])["slots"].clone()} if att.enabled else None
         first = [{k: v[0].to(dev) for k, v in st.items()} for st in stackeds]
         self._discovering = True
         try:
             self._apply_all(states, self._statics_for_run(statics), first,
-                            (self._totals.clone(), hist))
+                            (self._totals.clone(), hist, scratch_attr))
         finally:
             self._discovering = False
-        del states
+        del states, scratch_attr
+        if att.enabled:
+            # every touched arena's live accumulators (flushed) and a
+            # zeroed delta column the window's ticks fold into
+            self._attr = att.device_state_in(self._touched)
+            self._attr_delta = {
+                n: torch.zeros_like(self._attr["counts"][n])
+                for n in self._touched}
         self._mirrors = {n: _mirror_of(engine.arena_for(n))
                          for n in self._resolved}
         self._built = True
@@ -554,7 +619,8 @@ class FusedTickProgram:
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             states = {n: dict(bufs) for n, bufs in self._state_bufs.items()}
             states = self._run_ticks(states, self._graph_statics, self._in,
-                                     n_ticks, (self._totals, self._hist))
+                                     n_ticks, (self._totals, self._hist,
+                                               self._attr_acc()))
             for n, bufs in self._state_bufs.items():
                 self._copy_back(n, bufs, states[n])
         after = _build.captured_counts()
@@ -616,11 +682,12 @@ class FusedTickProgram:
                 states, self._statics_for_run(statics),
                 [{k: v.to(engine.device) for k, v in st.items()}
                  for st in staged],
-                n_ticks, (self._totals, self._hist))
+                n_ticks, (self._totals, self._hist, self._attr_acc()))
             for n in self._touched:
                 engine.arena_for(n).adopt_state(states[n])
         if self._ledger_on:
             engine.ledger.device_hist_out(self._hist)
+        engine.attribution.device_state_out(self._attr)
         self._unread = True
         engine.tick_number += n_ticks
         engine.messages_processed += n_ticks * self.n_msgs

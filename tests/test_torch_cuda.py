@@ -269,6 +269,24 @@ def test_fused_window_on_card_matches_cpu(cuda_device):
     assert _build.launch_report()["hist_count"]["replayed"] > 0
     _assert_presence_arenas_match(gpu, cpu)
     assert gpu.ledger.snapshot() == cpu.ledger.snapshot()
+    # the attribution plane, folded inside the graph windows (K7) and by
+    # the unfused ticks (K7/K8), snapshotted by K9
+    assert _build.launch_report()["attr_fold"]["replayed"] > 0
+    _assert_attribution_matches(gpu, cpu)
+
+
+def _assert_attribution_matches(gpu, cpu):
+    """Per-key totals exactly; snapshots equal but for the Gini gauge,
+    which K9 sums in float64 in another order than the plain version
+    (relative 2**-20)."""
+    for name in ("PresenceGrain", "GameGrain"):
+        assert gpu.attribution.per_key_totals(name) == \
+            cpu.attribution.per_key_totals(name), name
+    gs, cs = gpu.attribution.snapshot(), cpu.attribution.snapshot()
+    for snap in (gs, cs):
+        for a in snap["arenas"].values():
+            a["skew"]["gini"] = round(a["skew"]["gini"], 5)
+    assert gs == cs
 
 
 def _assert_presence_arenas_match(gpu, cpu):
@@ -359,3 +377,233 @@ def test_fused_window_rebuilds_after_growth_on_card(cuda_device):
     assert (arena.state["last_heartbeat"].cpu().numpy()[rows] == 4).all()
     game = engine.arena_for("GameGrain")
     assert int(game.read_row(0)["updates"]) == 4 * 32
+
+
+# -- the workload-attribution kernels (K7, K8, K9) ---------------------------
+
+_SEEDS = (0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
+
+
+def _attr_inputs(rng, dev, cap=N_ROWS, m=M, width=1024):
+    rows = _rows(rng, cap, m)
+    rows[rng.random(m) < 0.02] = -2**31
+    return (torch.from_numpy(rng.integers(0, 9, cap).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.integers(0, 9, (4, width)).astype(
+                np.int32)).to(dev),
+            torch.from_numpy(rng.integers(0, 9, 64).astype(np.int32)).to(dev),
+            torch.from_numpy(rows).to(dev),
+            torch.from_numpy(rng.random(m) < 0.9).to(dev))
+
+
+@pytest.mark.parametrize("mode", ["full", "counts_only", "weighted",
+                                  "plan", "gate_open", "gate_shut"])
+def test_attr_fold_matches_plain(cuda_device, mode):
+    from orleans_tpu_torch.kernels import attr
+
+    counts, cms, slots, rows, valid = _attr_inputs(
+        np.random.default_rng(40), cuda_device)
+    gate = stale = None
+    if mode.startswith("gate"):
+        gate = torch.tensor([int(mode == "gate_open")], dtype=torch.int32,
+                            device=cuda_device)
+        stale = torch.tensor([3], dtype=torch.int32, device=cuda_device)
+    if mode == "plan":
+        counts, cms = torch.zeros_like(counts), torch.zeros_like(cms)
+        slots = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    if mode == "weighted":
+        weight = torch.randint(0, 5, counts.shape, dtype=torch.int32,
+                               device=cuda_device)
+        kw = dict(weight=weight)
+        args = (counts, cms, _SEEDS)
+    else:
+        kw = dict(total=slots, slot=0 if mode == "plan" else 7, gate=gate,
+                  stale=stale)
+        args = (counts, None if mode == "counts_only" else cms, _SEEDS,
+                rows, valid)
+    outs = []
+    for fn in (attr.attr_fold, attr.attr_fold_plain):
+        copies = [a.clone() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+        kwc = {k: v.clone() if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()}
+        fn(*copies, **kwc)
+        outs.append([c for c in copies if isinstance(c, torch.Tensor)]
+                    + [v for v in kwc.values() if isinstance(v, torch.Tensor)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_attr_fold_gated_in_a_graph(cuda_device):
+    """K7 gated on a device flag, captured once: each replay folds only
+    while the flag is set, and bumps ``stale`` then."""
+    from orleans_tpu_torch.kernels import attr
+
+    counts = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    cms = torch.zeros((4, 16), dtype=torch.int32, device=cuda_device)
+    total = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    rows = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    gate = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    stale = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    attr.attr_fold(counts, cms, _SEEDS, rows, valid, total=total, slot=1,
+                   gate=gate, stale=stale)  # load the module first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        attr.attr_fold(counts, cms, _SEEDS, rows, valid, total=total,
+                       slot=1, gate=gate, stale=stale)
+    for flag in (0, 1, 0, 1, 1):
+        gate.fill_(flag)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert counts[:8].tolist() == [3] * 8 and int(counts.sum()) == 24
+    assert total.tolist() == [0, 24] and int(stale[0]) == 3
+    assert cms.sum(dim=1).tolist() == [24] * 4
+
+
+@pytest.mark.parametrize("device_k", [False, True])
+def test_attr_apply_matches_plain(cuda_device, device_k):
+    from orleans_tpu_torch.kernels import attr
+
+    rng = np.random.default_rng(41)
+    counts, cms, slots, rows, valid = _attr_inputs(rng, cuda_device)
+    cdelta = torch.randint(0, 3, counts.shape, dtype=torch.int32,
+                           device=cuda_device)
+    sdelta = torch.randint(0, 3, cms.shape, dtype=torch.int32,
+                           device=cuda_device)
+    n = torch.tensor([123], dtype=torch.int32, device=cuda_device)
+    k = torch.tensor([5], dtype=torch.int32, device=cuda_device) \
+        if device_k else 5
+    a = [counts.clone(), cms.clone(), slots.clone()]
+    b = [counts.clone(), cms.clone(), slots.clone()]
+    attr.attr_apply(a[0], cdelta, a[1], sdelta, k, total=a[2], slot=9, n=n)
+    attr.attr_apply_plain(b[0], cdelta, b[1], sdelta, k, total=b[2], slot=9,
+                          n=n)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_attr_match_matches_plain(cuda_device):
+    from orleans_tpu_torch.kernels import attr
+
+    rng = np.random.default_rng(42)
+    _, _, _, plan_rows, plan_valid = _attr_inputs(rng, cuda_device)
+    rows, valid = [], []
+    for e in range(32):
+        r, v = plan_rows.clone(), plan_valid.clone()
+        if e % 5 == 1:
+            r[rng.integers(0, M)] += 1
+        if e % 7 == 2:
+            v[M - 1] = ~v[M - 1]
+        rows.append(r)
+        valid.append(v)
+    outs = []
+    for fn in (attr.attr_match, attr.attr_match_plain):
+        flags = torch.full((32,), 9, dtype=torch.int32, device=cuda_device)
+        km = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        fn(rows, valid, plan_rows, plan_valid, flags, km)
+        outs.append((flags.tolist(), int(km[0])))
+    assert outs[0] == outs[1]
+    assert outs[0][1] == 32 - sum(1 for e in range(32)
+                                  if e % 5 == 1 or e % 7 == 2)
+
+
+@pytest.mark.parametrize("kind", ["ties", "zipf", "sparse", "zero"])
+@pytest.mark.parametrize("cap,n_shards", [(1 << 16, 1), (1 << 16, 4),
+                                          (3000, 1)])
+def test_attr_snapshot_matches_plain(cuda_device, kind, cap, n_shards):
+    from orleans_tpu_torch.kernels import attr
+
+    rng = np.random.default_rng(43)
+    counts = {"ties": np.full(cap, 17),
+              "zipf": rng.zipf(1.3, cap) % 100000,
+              "sparse": np.where(rng.random(cap) < 0.01,
+                                 rng.integers(1, 9, cap), 0),
+              "zero": np.zeros(cap)}[kind].astype(np.int32)
+    c = torch.from_numpy(counts).to(cuda_device)
+    cms = torch.from_numpy(rng.integers(0, 99, (4, 8192)).astype(
+        np.int32)).to(cuda_device)
+    got = attr.decode_snapshot(attr.attr_snapshot(c, cms, _SEEDS, 16,
+                                                  n_shards).cpu().numpy(),
+                               16, n_shards)
+    want = attr.decode_snapshot(attr.attr_snapshot_plain(
+        c, cms, _SEEDS, 16, n_shards).cpu().numpy(), 16, n_shards)
+    for key in ("vals", "rows", "est", "shard"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    for key in ("total", "nnz", "p99", "mean_nz"):
+        assert got[key] == want[key], key
+    np.testing.assert_allclose(got["gini"], want["gini"], rtol=2.0**-20,
+                               atol=2.0**-30)
+
+
+def test_checked_flush_on_card_matches_cpu(cuda_device):
+    """The plane's device-checked flush (K8 match + multiply-add + gated
+    K7 folds) on the card against the CPU's, on batches that mostly
+    differ from the plan."""
+    import orleans_tpu_torch.samples.presence  # noqa: F401
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    rng = np.random.default_rng(44)
+    batches = [rng.integers(-4, 300, 256).astype(np.int32) for _ in range(40)]
+    for b in batches[::3]:
+        b[:] = batches[0]
+    out = []
+    for dev in (cuda_device, "cpu"):
+        engine = TensorEngine(device=dev)
+        arena = engine.arena_for("PresenceGrain")
+        arena.resolve_rows(np.arange(256, dtype=np.int64))
+        att = engine.attribution
+        for b in batches:
+            att.record_group(arena, "PresenceGrain", "heartbeat",
+                             torch.from_numpy(b).to(dev),
+                             torch.ones(256, dtype=torch.bool, device=dev))
+        att.flush_folds()
+        out.append((att.counts_for("PresenceGrain").cpu(),
+                    att.cms_for("PresenceGrain").cpu(),
+                    att._slot_arr().cpu(), att._stale_arr().cpu()))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert int(out[0][3][0]) == sum(1 for b in batches[1:]
+                                    if not np.array_equal(b, batches[0]))
+
+
+def test_fused_rollback_attribution_on_card(cuda_device):
+    """A forced rollback on the card: the graph windows' folds are undone
+    by the in-place restore and the unfused replay counts each message
+    once — the CPU run's attribution exactly."""
+    import asyncio
+
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples.presence import presence_inputs
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    players, games, scores = presence_inputs(2000, 20, 0)
+
+    async def drive(engine):
+        dev = engine.device
+        engine.arena_for("GameGrain").reserve(40)
+        injector = engine.make_injector("PresenceGrain", "heartbeat",
+                                        players)
+        score = torch.from_numpy(scores).to(dev)
+        for t in range(40):
+            g = games.copy()
+            if t >= 28:
+                g[0] = 33  # a game no one has activated
+            injector.inject({"game": torch.from_numpy(g).to(dev),
+                             "score": score, "tick": np.int32(t + 1)})
+            await engine.drain_queues()
+        await engine.flush()
+        engine.wait_completion()
+
+    cfg = dict(auto_fusion_ticks=3, auto_fusion_window=4,
+               auto_fusion_verify_windows=2)
+    gpu = TensorEngine(device=cuda_device, config=TensorEngineConfig(**cfg))
+    cpu = TensorEngine(device="cpu", config=TensorEngineConfig(**cfg))
+    asyncio.run(drive(gpu))
+    asyncio.run(drive(cpu))
+    assert gpu.autofuser.snapshot() == cpu.autofuser.snapshot()
+    assert gpu.autofuser.windows_rolled_back == 1
+    _assert_presence_arenas_match(gpu, cpu)
+    _assert_attribution_matches(gpu, cpu)
+    assert gpu.attribution.per_key_totals("PresenceGrain") == \
+        {k: 40 for k in range(2000)}

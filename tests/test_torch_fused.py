@@ -1,10 +1,11 @@
 """Differential tests of the port's steady-state tick against the JAX package.
 
 The same seeded loads go through ``orleans_tpu`` (JAX on the CPU, with the
-latency ledger and auto-fusion on and workload attribution off — the port
-has no attribution yet) and through ``orleans_tpu_torch`` on
-``device="cpu"``, where a fused window runs its ticks eagerly with every
-kernel's plain version (on the card the same ticks replay as a CUDA graph;
+latency ledger and auto-fusion on and workload attribution off) and
+through ``orleans_tpu_torch`` on ``device="cpu"`` with attribution off too
+(tests/test_torch_attribution.py holds the plane against JAX's), where a
+fused window runs its ticks eagerly with every kernel's plain version (on
+the card the same ticks replay as a CUDA graph;
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold that against these
 results).  Arenas are compared BY KEY: integer columns, message counts,
 auto-fusion counters and the ledger histogram exactly; the float fan-in
@@ -143,14 +144,14 @@ class TwinHopGrain(VectorGrain):  # noqa: F811 — the port twin
 
 def _engines(initial_capacity: int = 1024, **cfg):
     """A JAX engine and a port engine with the same config: auto-fusion
-    per ``cfg``, the ledger on, JAX's attribution plane off."""
+    per ``cfg``, the ledger on, the attribution plane off on both."""
     jax_cfg = JaxEngineConfig(tick_interval=0.0, **cfg)
     je = JaxTensorEngine(config=jax_cfg,
                          metrics=JaxMetricsConfig(attribution_enabled=False),
                          initial_capacity=initial_capacity)
     pe = TensorEngine(device="cpu", initial_capacity=initial_capacity,
                       config=TensorEngineConfig(**cfg),
-                      metrics=MetricsConfig())
+                      metrics=MetricsConfig(attribution_enabled=False))
     return je, pe
 
 
@@ -589,7 +590,8 @@ def test_idle_flush_drains_partial_window(run):
 
     async def main():
         cfg = _fuse_cfg(auto_fusion_window=16, auto_fusion_idle_flush=0.05)
-        pe = TensorEngine(device="cpu", config=TensorEngineConfig(**cfg))
+        pe = TensorEngine(device="cpu", config=TensorEngineConfig(**cfg),
+                          metrics=MetricsConfig(attribution_enabled=False))
         je = JaxTensorEngine(
             config=JaxEngineConfig(tick_interval=0.001, **cfg),
             metrics=JaxMetricsConfig(attribution_enabled=False))

@@ -51,6 +51,8 @@ def test_port_imports_neither_jax_nor_orleans_tpu():
         "orleans_tpu_torch.kernels.scatter",
         "orleans_tpu_torch.kernels.segment",
         "orleans_tpu_torch.kernels.hist", "orleans_tpu_torch.kernels.miss",
+        "orleans_tpu_torch.kernels.attr",
+        "orleans_tpu_torch.tensor.attribution",
         "orleans_tpu_torch.tensor.ledger", "orleans_tpu_torch.tensor.fused",
         "orleans_tpu_torch.tensor.autofuse",
         "orleans_tpu_torch.tensor.vector_grain",

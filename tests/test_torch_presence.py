@@ -1,11 +1,11 @@
 """Differential tests of the port's Presence tick against the JAX package.
 
 The same seeded load goes through ``orleans_tpu`` (JAX on the CPU, with
-auto-fusion, the latency ledger and attribution off — the port's unfused
-tick has none of them yet) and through ``orleans_tpu_torch`` on
-``device="cpu"``, where every kernel wrapper takes its plain PyTorch
-version.  Arenas are compared column by column BY KEY: integer columns
-exactly, the float fan-in column within twice Higham's summation bound,
+auto-fusion, the latency ledger and attribution off) and through
+``orleans_tpu_torch`` on ``device="cpu"`` with attribution off too
+(tests/test_torch_attribution.py holds the plane against JAX's), where
+every kernel wrapper takes its plain PyTorch version.  Arenas are
+compared column by column BY KEY: integer columns exactly, the float fan-in column within twice Higham's summation bound,
 ``2 * (k - 1) * 2**-24 * sum|x|`` for the ``k`` scores summed into a game
 (``k`` is the game's ``updates`` count; all scores are positive, so
 ``sum|x|`` is the total itself).  Also here: mirrors of the JAX engine
@@ -30,6 +30,7 @@ from orleans_tpu.tensor import vector_grain as jax_vector_grain
 from orleans_tpu.tensor.vector_grain import scatter_rows as jax_scatter_rows
 from samples.presence import run_presence_load as jax_run_presence_load
 
+from orleans_tpu_torch.config import MetricsConfig as PortMetricsConfig
 from orleans_tpu_torch.convert import arena_state_from_numpy
 from orleans_tpu_torch.core.grain import batched_method
 from orleans_tpu_torch.samples.presence import (
@@ -125,6 +126,13 @@ def _jax_engine(**kw):
                               attribution_enabled=False), **kw)
 
 
+def _port_engine(**kw):
+    """The port engine a differential test holds against ``_jax_engine``:
+    attribution off on both sides."""
+    return TensorEngine(device="cpu", metrics=PortMetricsConfig(
+        attribution_enabled=False), **kw)
+
+
 def _assert_arena_matches(jax_engine, port_engine, type_name):
     ja = jax_engine.arena_for(type_name)
     pa = port_engine.arena_for(type_name)
@@ -205,13 +213,16 @@ def test_presence_load_matches_jax(run, device_payloads, measure_latency,
         je = _jax_engine()
         je.config.max_rounds_per_tick = rounds
         jstats = await jax_run_presence_load(je, **kw)
-        pe = TensorEngine(device="cpu")
+        pe = _port_engine()
         pe.config.max_rounds_per_tick = rounds
         pstats = await run_presence_load(pe, **kw)
         return je, jstats, pe, pstats
 
     je, jstats, pe, pstats = run(main())
-    assert set(pstats) == set(jstats)
+    # the port's sample also returns the ledger's and the attribution
+    # plane's snapshots
+    assert set(pstats) == set(jstats) | {"ledger", "attribution"}
+    assert pstats["attribution"]["arenas"] == {}  # the plane is off
     assert pstats["autofuse"] == jstats["autofuse"]  # never engaged
     for key in ("players", "games", "ticks", "messages"):
         assert pstats[key] == jstats[key]
@@ -241,7 +252,7 @@ def test_host_key_batches_match_jax(run):
         return futures[2].result()
 
     async def main():
-        je, pe = _jax_engine(), TensorEngine(device="cpu")
+        je, pe = _jax_engine(), _port_engine()
         return je, await drive(je), pe, await drive(pe)
 
     je, jres, pe, pres = run(main())
@@ -272,7 +283,7 @@ def test_state_carried_across_matches_next_tick(run):
         je = _jax_engine()
         await jax_run_presence_load(je, n_players=n_players,
                                     n_games=n_games, n_ticks=2, seed=5)
-        pe = TensorEngine(device="cpu")
+        pe = _port_engine()
         for name in ("PresenceGrain", "GameGrain"):
             ja = je.arena_for(name)
             arena_state_from_numpy(
@@ -408,3 +419,48 @@ def test_undonated_step_leaves_live_columns_intact(run):
         assert int(arena.read_row(1)["count"]) == 1
 
     run(main())
+
+
+def test_parked_miss_check_redelivers_emit_time_payload(run):
+    """A cold tick's game emits miss and park a miss-check; the loader then
+    rewrites its ``game`` and ``score`` tensors in place (the PyTorch way
+    to refresh a payload) after the tick and before the drain.  The drain
+    must activate and redeliver what the tick emitted, as the JAX package
+    does (its arrays cannot change): the parked check holds copies."""
+    n_players, n_games = 200, 10
+    players, games, scores = presence_inputs(n_players, n_games, seed=6)
+    new_games = ((games + 3) % (2 * n_games)).astype(np.int32)
+    new_scores = (scores * 2 + 1).astype(np.float32)
+
+    async def drive(engine, game, score, rewrite):
+        engine.arena_for("GameGrain").reserve(2 * n_games)
+        inj = engine.make_injector("PresenceGrain", "heartbeat", players)
+        inj.inject({"game": game, "score": score, "tick": np.int32(1)})
+        await engine.drain_queues()   # every game emit misses: parked
+        assert engine.activation_passes == 0
+        rewrite(game, score)
+        await engine.flush()          # the drain activates and redelivers
+        return engine
+
+    def in_place(game, score):
+        game.copy_(torch.from_numpy(new_games))
+        score.copy_(torch.from_numpy(new_scores))
+
+    async def main():
+        # JAX: the loader's next arrays are new arrays; the emitted ones
+        # stand as they were
+        je = await drive(_jax_engine(), jnp.asarray(games),
+                         jnp.asarray(scores), lambda g, s: None)
+        pe = await drive(_port_engine(), torch.from_numpy(games.copy()),
+                         torch.from_numpy(scores.copy()), in_place)
+        return je, pe
+
+    je, pe = run(main())
+    assert pe.activation_passes == je.activation_passes == 1
+    assert pe.messages_processed == je.messages_processed
+    _assert_presence_matches(je, pe)
+    ga = pe.arena_for("GameGrain")
+    assert sorted(ga.keys().tolist()) == sorted(set(games.tolist()))
+    rows, _ = ga.lookup_rows(np.arange(n_games, dtype=np.int64))
+    np.testing.assert_array_equal(ga.state["updates"].numpy()[rows],
+                                  np.bincount(games, minlength=n_games))
