@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: the Presence tick on one NVIDIA card.
+"""Chip smoke of the PyTorch/CUDA port: Presence, WidePresence and Chirper on
+one NVIDIA card.
 
 Run from the repository root on a machine with an H100 and the CUDA toolkit:
 
@@ -41,13 +42,34 @@ Phases, each of which fails loudly (exit code other than 0):
    (the fused path: the pipelined run and the rollback run); every kernel
    must have launched on each path (graph replays count the launches
    their capture recorded).
-6. One JSON line of the kernels, the card line, and last
+6. Wide keys: WidePresence, 1,000,000 players over 10,000 wide game keys
+   (jenkins hashes, ``(hi, lo)`` words resolved by K10), player 0 on a
+   game that is never pre-activated (its warm ticks' updates miss and go
+   again through the exact host path), unfused and then auto-fused at the
+   default config; heartbeats and updates exact against the numpy oracle,
+   total_score within Higham's bound, the ledger and the attribution
+   plane exact.
+7. The follower fan-out: Chirper, 200,000 accounts, mean 25 followers,
+   Zipf 1.6, seed 0 (2,011,069 edges; the graph built once and shared),
+   unfused, then auto-fused at the default config, then a ``follow()``
+   while ticks are buffered (they run first on the old graph; the next
+   window rebuilds on the new one); per account ``published``,
+   ``received``, ``last_chirp`` exact and ``checksum`` within Higham's
+   bound, the ledger and the attribution plane exact.  K10 and K11 are
+   checked against their plain versions first (phase 3), at the paths'
+   shapes, on colliding wide hashes, edge words, padding and the
+   narrow-into-wide mode, on the empty graph and on a round whose
+   duplicate sources overflow the width.  Each path's launch counters are
+   zeroed just before it and read just after; every kernel of the path
+   must have launched (graph replays count).
+8. One JSON line of the kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import math
 import sys
@@ -64,6 +86,9 @@ REPS = 25
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12      # integer ALU: half the 67 TFLOP/s float32 rate
 SENTINEL = 2**31 - 1
+WIDE_GAMES = 10_000            # WidePresence: PLAYERS players, wide games
+ACCOUNTS, MEAN_FOLLOWERS, ZIPF = 200_000, 25.0, 1.6   # Chirper
+NEW_WINDOWS = 4                # fused windows per new path's timed run
 
 SOURCES = {
     "resolve_dense": ("orleans_tpu_torch/csrc/resolve.cu",
@@ -86,10 +111,24 @@ SOURCES = {
                    "orleans_tpu/tensor/attribution.py:205"),
     "attr_snapshot": ("orleans_tpu_torch/csrc/attr_snapshot.cu",
                       "orleans_tpu/tensor/attribution.py:257"),
+    "resolve_wide": ("orleans_tpu_torch/csrc/resolve_wide.cu",
+                     "orleans_tpu/tensor/engine.py:265"),
+    "fanout_expand": ("orleans_tpu_torch/csrc/fanout.cu",
+                      "orleans_tpu/tensor/fanout.py:52"),
 }
+# the kernels each path must launch (launch counts zeroed before it, read
+# after it)
+PRESENCE_KERNELS = ("resolve_dense", "resolve_sorted", "row_scatter",
+                    "seg_sum", "hist_count", "miss_keys", "attr_fold",
+                    "attr_apply", "attr_match", "attr_snapshot")
+WIDE_KERNELS = ("resolve_wide", "row_scatter", "seg_sum", "hist_count",
+                "attr_fold")
+CHIRPER_KERNELS = ("fanout_expand", "resolve_dense", "row_scatter",
+                   "seg_sum", "hist_count", "attr_fold")
 ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
                                  "orleans_tpu/tensor/arena.py:34"],
                  "hist_count": ["orleans_tpu/tensor/fused.py:384"],
+                 "resolve_wide": ["orleans_tpu/tensor/engine.py:248"],
                  "attr_fold": ["orleans_tpu/tensor/attribution.py:133",
                                "orleans_tpu/tensor/attribution.py:161",
                                "orleans_tpu/tensor/attribution.py:174",
@@ -1109,8 +1148,9 @@ def tick_device_ms(engine, games_d, scores_d, reps: int = 10):
     return float(np.median(device)), float(np.median(host))
 
 
-def require_launched(counts: dict, path: str) -> None:
-    for name in SOURCES:
+def require_launched(counts: dict, path: str,
+                     names=PRESENCE_KERNELS) -> None:
+    for name in names:
         require(counts.get(name, 0) > 0,
                 f"{name} never launched on the {path} path")
 
@@ -1203,43 +1243,24 @@ def drive_unfused_path(dev, card: str):
     return counts, runs
 
 
-class FusedRun:
-    """One engine at the default config driven by the inject-only loader,
-    one tick at a time: warm ticks and a flush, then ticks until a number
-    of windows ran.  ``moving``: the loader hands the engine a fresh copy
-    of the players' games every tick (players may move), so ``game`` is a
-    per-tick leaf of the window, not a static one.  ``attribution``: the
-    plane on (the default config) or off (to time what it adds).
-    ``fuse=False`` turns auto-fusion off."""
+class LoadRun:
+    """One engine driven by an inject-only loader, one tick at a time:
+    warm ticks and a flush, then ticks until a number of windows ran.
+    ``args_for(t)`` gives tick ``t``'s payload (ticks count from 1)."""
 
-    def __init__(self, dev, games, scores, moving: bool = False,
-                 attribution: bool = True, fuse: bool = True):
-        from orleans_tpu_torch.config import MetricsConfig, TensorEngineConfig
-        from orleans_tpu_torch.tensor.engine import TensorEngine
-
-        self.engine = TensorEngine(
-            device=dev, metrics=MetricsConfig(
-                attribution_enabled=attribution),
-            config=TensorEngineConfig(auto_fusion_ticks=16 if fuse else 0))
-        self.af = self.engine.autofuser
-        self.engine.arena_for("PresenceGrain").reserve(PLAYERS)
-        self.engine.arena_for("GameGrain").reserve(GAMES)
-        self.injector = self.engine.make_injector(
-            "PresenceGrain", "heartbeat", np.arange(PLAYERS, dtype=np.int64))
-        # a copy: the rollback phase moves a player
-        self.games_d = torch.from_numpy(games.copy()).to(dev)
-        self.moving = moving
-        self.scores_d = torch.from_numpy(scores).to(dev)
+    def __init__(self, engine, injector, args_for, warm: int = WARM_TICKS):
+        self.engine = engine
+        self.af = engine.autofuser
+        self.injector = injector
+        self.args_for = args_for
         self.ticks = 0
-        for _ in range(WARM_TICKS):
+        for _ in range(warm):
             self.tick()
         asyncio.run(self.engine.flush())
 
     def tick(self) -> None:
         self.ticks += 1
-        game = self.games_d.clone() if self.moving else self.games_d
-        self.injector.inject({"game": game, "score": self.scores_d,
-                              "tick": np.int32(self.ticks)})
+        self.injector.inject(self.args_for(self.ticks))
         self.engine.run_tick()
         for _ in range(self.engine.config.max_rounds_per_tick):
             if not any(self.engine.queues.values()):
@@ -1277,6 +1298,40 @@ class FusedRun:
     def finish(self) -> None:
         asyncio.run(self.engine.flush())
         self.engine.wait_completion()
+
+
+class FusedRun(LoadRun):
+    """A Presence engine at the default config driven by the inject-only
+    loader.  ``moving``: the loader hands the engine a fresh copy of the
+    players' games every tick (players may move), so ``game`` is a
+    per-tick leaf of the window, not a static one.  ``attribution``: the
+    plane on (the default config) or off (to time what it adds).
+    ``fuse=False`` turns auto-fusion off."""
+
+    def __init__(self, dev, games, scores, moving: bool = False,
+                 attribution: bool = True, fuse: bool = True):
+        from orleans_tpu_torch.config import MetricsConfig, TensorEngineConfig
+        from orleans_tpu_torch.tensor.engine import TensorEngine
+
+        engine = TensorEngine(
+            device=dev, metrics=MetricsConfig(
+                attribution_enabled=attribution),
+            config=TensorEngineConfig(auto_fusion_ticks=16 if fuse else 0))
+        engine.arena_for("PresenceGrain").reserve(PLAYERS)
+        engine.arena_for("GameGrain").reserve(GAMES)
+        injector = engine.make_injector(
+            "PresenceGrain", "heartbeat", np.arange(PLAYERS, dtype=np.int64))
+        # a copy: the rollback phase moves a player
+        self.games_d = torch.from_numpy(games.copy()).to(dev)
+        self.moving = moving
+        self.scores_d = torch.from_numpy(scores).to(dev)
+
+        def args_for(t: int) -> dict:
+            game = self.games_d.clone() if self.moving else self.games_d
+            return {"game": game, "score": self.scores_d,
+                    "tick": np.int32(t)}
+
+        super().__init__(engine, injector, args_for)
 
 
 def window_device_ms(run: "FusedRun", reps: int = 5):
@@ -1516,6 +1571,534 @@ def drive_fused_path(dev, card: str, unfused_tick_ms: float,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: wide keys (WidePresence) and the follower fan-out (Chirper)
+# ---------------------------------------------------------------------------
+
+def wide_inputs():
+    """The WidePresence load: PLAYERS players over WIDE_GAMES wide games
+    (jenkins hashes of game names); player 0 plays a game that is never
+    pre-activated (the cold wide destination)."""
+    from orleans_tpu_torch.samples.presence_wide import (
+        wide_game_keys,
+        wide_presence_inputs,
+    )
+    from orleans_tpu_torch.tensor.arena import split_wide_keys
+
+    players, games, index, _words, scores = wide_presence_inputs(
+        PLAYERS, WIDE_GAMES, seed=0)
+    cold = wide_game_keys(WIDE_GAMES + 1)[-1]
+    assign = games[index]
+    assign[0] = cold
+    hi, lo = split_wide_keys(assign)
+    return dict(players=players, games=games, cold=cold, assign=assign,
+                hi=hi, lo=lo, scores=scores)
+
+
+def chirper_graph():
+    """The Chirper follow graph, 200,000 accounts, mean 25 followers, Zipf
+    1.6, seed 0, built once for every phase that uses it, with its edges
+    as numpy arrays for the oracle."""
+    from orleans_tpu_torch.samples.chirper import build_follow_graph
+
+    t0 = time.perf_counter()
+    fan = build_follow_graph(ACCOUNTS, MEAN_FOLLOWERS, zipf_a=ZIPF, seed=0)
+    fan.csr(torch.device("cpu"))  # the host CSR, once
+    keys, offsets, dst = fan._csr_host
+    n_edges = int(offsets[-1])
+    src = np.repeat(keys.astype(np.int64), np.diff(offsets))
+    graph = dict(fan=fan, src=src, dst=dst[:n_edges].astype(np.int64),
+                 build_s=time.perf_counter() - t0)
+    print(f"chirper graph: {ACCOUNTS} accounts, {n_edges} edges from "
+          f"{len(keys)} sources, largest degree {int(np.diff(offsets).max())}"
+          f", width {len(dst)}; built in {graph['build_s']:.1f} s on the "
+          f"host", flush=True)
+    return graph
+
+
+def check_new_kernels(dev, timer, card: str, wide: dict, graph: dict):
+    """K10 and K11 against their plain versions on the card: at the main
+    paths' shapes and on adversarial inputs; each timed beside its bound,
+    its plain version and a library yardstick."""
+    from orleans_tpu_torch.kernels import fanout as kfan
+    from orleans_tpu_torch.kernels import resolve
+    from orleans_tpu_torch.samples import presence_wide  # noqa: F401
+    from orleans_tpu_torch.tensor.arena import (
+        GrainArena,
+        mix32_np,
+        split_wide_keys,
+    )
+    from orleans_tpu_torch.tensor.fanout import DeviceFanout
+    from orleans_tpu_torch.tensor.vector_grain import vector_type
+
+    rng = np.random.default_rng(4321)
+    results = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def same(a, b):
+        return all(torch.equal(x.reshape(-1), y.reshape(-1))
+                   for x, y in zip(a, b))
+
+    # -- K10 resolve_wide: the main path's mirror and lanes ------------------
+    arena = GrainArena(vector_type("WideGame"), dev)
+    arena.reserve(WIDE_GAMES)
+    arena.resolve_rows(wide["games"])
+    mirror = arena.device_index_wide()
+    cap = mirror[0].shape[0]
+    hi_d, lo_d = t(wide["hi"]), t(wide["lo"])
+    valid_d = torch.ones(PLAYERS, dtype=torch.bool, device=dev)
+    out = resolve.resolve_wide(*mirror, hi_d, lo_d, valid_d)
+    require(same(out, resolve.resolve_wide_plain(*mirror, hi_d, lo_d,
+                                                 valid_d)),
+            "resolve_wide != plain (main path)")
+    want_rows, _ = arena.lookup_rows(wide["assign"])
+    require(int(out[1]) == 1 and np.array_equal(
+        out[0].cpu().numpy()[1:], want_rows[1:]) and int(out[0][0]) == -1,
+        "resolve_wide: the main path's lanes must hit but the cold one")
+    # adversarial: colliding hashes, edge words, padding, narrow mode
+    draws = np.unique(rng.integers(2**31, 2**63 - 1, 400_000,
+                                   dtype=np.int64))
+    h = mix32_np(*split_wide_keys(draws))
+    _, inv, cnt = np.unique(h, return_inverse=True, return_counts=True)
+    colliding = draws[cnt[inv] > 1]
+    require(len(colliding) >= 8, "too few colliding wide keys drawn")
+    edge = np.array([0, 5, 2**31 - 1, 2**31, 2**32 - 1, 2**32,
+                     (2**31 - 1) << 32, ((2**31 - 1) << 32) | (2**32 - 1),
+                     (1 << 32) | 2**31], np.int64)
+    adv = GrainArena(vector_type("WideGame"), dev, capacity=1 << 14)
+    adv.resolve_rows(np.unique(np.concatenate([colliding[::2], edge,
+                                               draws[:5000]])))
+    adv_mirror = adv.device_index_wide()
+    pool = np.concatenate([colliding, edge, draws[:5000],
+                           rng.integers(0, 2**63 - 1, 2000, np.int64)])
+    a_hi, a_lo = split_wide_keys(rng.choice(pool, PLAYERS))
+    a_valid = t(rng.random(PLAYERS) < 0.9)
+    narrow = t(rng.choice(np.array([0, 5, 6, SENTINEL, -3, 2**31 - 2],
+                                   np.int64), PLAYERS).astype(np.int32))
+    for hi, lo, valid, what in ((t(a_hi), t(a_lo), a_valid, "adversarial"),
+                                (None, narrow, a_valid, "narrow into wide")):
+        counter = torch.full((1,), 11, dtype=torch.int32, device=dev)
+        got = resolve.resolve_wide(*adv_mirror, hi, lo, valid, counter)
+        want = resolve.resolve_wide_plain(*adv_mirror, hi, lo, valid)
+        require(torch.equal(got[0], want[0])
+                and int(counter[0]) == 11 + int(want[1]),
+                f"resolve_wide != plain ({what})")
+    steps = math.ceil(math.log2(cap + 1))
+    h_d = resolve.mix32(hi_d, lo_d)
+
+    def library_wide():
+        idx = torch.searchsorted(mirror[0], h_d).clamp_(max=cap - 1)
+        rows = mirror[1].index_select(0, idx).clamp_(min=0)
+        return mirror[2].index_select(0, rows), mirror[3].index_select(0,
+                                                                       rows)
+
+    results["resolve_wide"] = dict(
+        max_abs_err=0,
+        library="torch.searchsorted + 3 index_select (no single call "
+                "computes it: one probe, no word check, no miss count)",
+        bound=bound(4 * 4 * cap + PLAYERS * (4 + 4 + 1 + 4) + 4,
+                    int_ops=PLAYERS * (2 * steps + 24)),
+        **measure(timer,
+                  lambda: resolve.resolve_wide(*mirror, hi_d, lo_d, valid_d),
+                  lambda: resolve.resolve_wide_plain(*mirror, hi_d, lo_d,
+                                                     valid_d),
+                  library_wide))
+
+    # -- K11 fanout_expand: the main path's publish round ---------------------
+    fan = graph["fan"]
+    csr = fan.csr(dev)
+    width = csr[2].shape[0]
+    n_src = csr[0].shape[0]
+    src_d = torch.arange(ACCOUNTS, dtype=torch.int32, device=dev)
+    ones_d = torch.ones(ACCOUNTS, dtype=torch.bool, device=dev)
+    out = kfan.fanout_expand(*csr, src_d, ones_d)
+    require(same(out, kfan.fanout_expand_plain(*csr, src_d, ones_d)),
+            "fanout_expand != plain (main path)")
+    n_edges = len(graph["dst"])
+    require(int(out[3]) == n_edges and int(out[5]) == 0
+            and int(out[2].sum()) == n_edges,
+            f"fanout_expand: total {int(out[3])} != {n_edges} edges")
+    # an empty graph, and a round whose duplicate sources overflow the width
+    top = int(np.argmax(np.bincount(graph["src"], minlength=ACCOUNTS)))
+    dup = torch.cat([src_d, torch.full((40,), top, dtype=torch.int32,
+                                       device=dev)])
+    dup_valid = torch.ones(dup.shape[0], dtype=torch.bool, device=dev)
+    empty = DeviceFanout(budget=1 << 12).csr(dev)
+    for args, what in (((*csr, dup, dup_valid), "overflowing round"),
+                       ((*empty, src_d, ones_d), "empty graph")):
+        got = kfan.fanout_expand(*args)
+        require(same(got, kfan.fanout_expand_plain(*args)),
+                f"fanout_expand != plain ({what})")
+    require(int(kfan.fanout_expand(*csr, dup, dup_valid)[5]) > 0,
+            "the overflowing round dropped no lane")
+    deg = np.zeros(ACCOUNTS, np.int64)
+    np.add.at(deg, np.asarray(fan._csr_host[0], np.int64),
+              np.diff(fan._csr_host[1]))
+    deg_d = t(deg)
+    results["fanout_expand"] = dict(
+        max_abs_err=0,
+        library="torch.repeat_interleave(deg, output_size=edges) "
+                "(src_index only)",
+        bound=bound(8 * n_src + 4 + 13 * width + 6 * ACCOUNTS + 8,
+                    int_ops=2 * ACCOUNTS * math.ceil(math.log2(n_src + 1))
+                    + 2 * width * math.ceil(math.log2(ACCOUNTS + 1))),
+        **measure(timer,
+                  lambda: kfan.fanout_expand(*csr, src_d, ones_d),
+                  lambda: kfan.fanout_expand_plain(*csr, src_d, ones_d),
+                  lambda: torch.repeat_interleave(
+                      torch.arange(ACCOUNTS, device=dev), deg_d,
+                      output_size=n_edges)))
+    for name in ("resolve_wide", "fanout_expand"):
+        v = results[name]
+        print(f"kernel {name}: {v['ms']:.4f} ms on the device, host "
+              f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
+              f"{v['library_ms']:.4f}, bound {v['bound'][0]:.4f} by "
+              f"{v['bound'][1]}); on {card}", flush=True)
+    return results
+
+
+def ledger_counts(engine, key: str) -> list:
+    return engine.ledger.snapshot()[key]["counts"]
+
+
+def want_hist(at0: int, at1: int = 0, late: tuple = ()) -> list:
+    """A ledger row: ``at0`` lanes at delta 0, ``at1`` at delta 1, one
+    lane per delta in ``late``."""
+    row = [0] * 16
+    row[0] += at0
+    row[1] += at1
+    for delta in late:
+        row[_bucket(delta)] += 1
+    return row
+
+
+def check_wide(engine, wide: dict, ticks: int, fused_ticks: int) -> None:
+    """WidePresence against the numpy oracle of its load: heartbeats and
+    updates exactly, total_score within Higham's bound, the cold game's
+    warm-tick updates delivered again exactly once each (one activation
+    pass per cold warm tick), the ledger and the attribution plane
+    exactly."""
+    pa = engine.arena_for("WidePresence")
+    rows, found = pa.lookup_rows(wide["players"])
+    require(bool(found.all()), "wide players live")
+    require(bool(np.all(pa.state["heartbeats"].cpu().numpy()[rows]
+                        == ticks)), "wide heartbeats")
+    keys = np.append(wide["games"], wide["cold"])
+    slot = np.searchsorted(np.sort(keys), wide["assign"])
+    order = np.argsort(keys)
+    per_game = np.zeros(len(keys), np.int64)
+    per_game[order] = np.bincount(slot, minlength=len(keys)) * ticks
+    score = np.zeros(len(keys), np.float64)
+    score[order] = np.bincount(slot, weights=wide["scores"].astype(
+        np.float64), minlength=len(keys)) * ticks
+    ga = engine.arena_for("WideGame")
+    present = per_game > 0
+    grows, gfound = ga.lookup_rows(keys)
+    require(bool(gfound[present].all()) and ga.has_wide_keys
+            and ga.live_count == len(keys), "wide games live")
+    updates = ga.state["updates"].cpu().numpy()[grows]
+    require(np.array_equal(updates, per_game), "wide updates")
+    total = ga.state["total_score"].cpu().numpy()[grows].astype(np.float64)
+    err = np.abs(total - score)
+    require(bool(np.all(err <= updates * 2.0**-24 * score)),
+            f"wide total_score off by {err.max()}")
+    require(engine.activation_passes == WARM_TICKS,
+            f"wide activation passes {engine.activation_passes}")
+    late = tuple(WARM_TICKS + 1 - k for k in range(1, WARM_TICKS + 1))
+    require(ledger_counts(engine, "WidePresence.heartbeat") == want_hist(
+        PLAYERS * fused_ticks, PLAYERS * (ticks - fused_ticks)),
+        "wide ledger heartbeats")
+    require(ledger_counts(engine, "WideGame.update") == want_hist(
+        PLAYERS * ticks - WARM_TICKS, late=late), "wide ledger updates")
+    att = engine.attribution
+    require(att.snapshot()["methods"] == {
+        "WidePresence.heartbeat": PLAYERS * ticks,
+        "WideGame.update": PLAYERS * ticks}, "wide attribution slots")
+    require(att.per_key_totals("WideGame") == {
+        k: v for k, v in zip(keys.tolist(), per_game.tolist()) if v},
+        "wide attribution per game")
+    require(att.per_key_totals("WidePresence") == dict.fromkeys(
+        wide["players"].tolist(), ticks), "wide attribution per player")
+
+
+def check_chirper(engine, graph: dict, ticks: int, fused_ticks: int,
+                  follow=None) -> None:
+    """Chirper against the numpy oracle: per account ``published = T``,
+    ``received = T * in-degree``, ``last_chirp`` the newest chirp id among
+    its followees, ``checksum`` within Higham's bound of ``T * sum(src %
+    97)``; ``follow = (src, dst, ticks)`` adds an edge for the last
+    ``ticks`` ticks.  The ledger and the attribution plane exactly."""
+    src, dst = graph["src"], graph["dst"]
+    weight = np.full(len(src), ticks, np.int64)
+    if follow is not None:
+        src = np.append(src, follow[0])
+        dst = np.append(dst, follow[1])
+        weight = np.append(weight, follow[2])
+    received = np.bincount(dst, weights=weight, minlength=ACCOUNTS)
+    checksum = np.bincount(dst, weights=weight * (src % 97),
+                           minlength=ACCOUNTS)
+    newest = np.full(ACCOUNTS, -1, np.int64)
+    np.maximum.at(newest, dst, src)
+    last = np.where(newest >= 0, (ticks - 1) * ACCOUNTS + newest, -1)
+    a = engine.arena_for("ChirperAccount")
+    rows, found = a.lookup_rows(np.arange(ACCOUNTS, dtype=np.int64))
+    require(bool(found.all()) and a.live_count == ACCOUNTS, "accounts live")
+    cols = {k: v.cpu().numpy()[rows] for k, v in a.state.items()}
+    require(bool(np.all(cols["published"] == ticks)), "published")
+    require(np.array_equal(cols["received"], received), "received")
+    require(np.array_equal(cols["last_chirp"], last), "last_chirp")
+    err = np.abs(cols["checksum"].astype(np.float64) - checksum)
+    require(bool(np.all(err <= received * 2.0**-24 * checksum)),
+            f"checksum off by {err.max()}")
+    deliveries = int(weight.sum())
+    require(ledger_counts(engine, "ChirperAccount.publish") == want_hist(
+        ACCOUNTS * fused_ticks, ACCOUNTS * (ticks - fused_ticks)),
+        "chirper ledger publish")
+    require(ledger_counts(engine, "ChirperAccount.new_chirp")
+            == want_hist(deliveries), "chirper ledger new_chirp")
+    att = engine.attribution
+    require(att.snapshot()["methods"] == {
+        "ChirperAccount.publish": ACCOUNTS * ticks,
+        "ChirperAccount.new_chirp": deliveries}, "chirper attribution slots")
+    require(att.per_key_totals("ChirperAccount") == dict(zip(
+        range(ACCOUNTS), (ticks + received.astype(np.int64)).tolist())),
+        "chirper attribution per account")
+
+
+def path_timings(run: LoadRun, msgs_per_tick: int, n_ticks: int) -> dict:
+    """Pipelined messages/s over ``n_ticks`` ticks to device completion,
+    and the device and host ms of one tick (held timing over blocks of 4
+    ticks, parked checks drained before each)."""
+    eng = run.engine
+    # earlier phases' engines are reference cycles (engine ↔ auto-fuser):
+    # collect them now, not inside the timed ticks (a collection freeing
+    # their device memory took up to 120 ms inside one tick)
+    gc.collect()
+    t0 = time.perf_counter()
+    for _ in range(n_ticks):
+        run.tick()
+    run.finish()
+    elapsed = time.perf_counter() - t0
+
+    def block():
+        for _ in range(4):
+            run.tick()
+
+    dev_ms, host_ms = held_device_ms(block, reps=3,
+                                     prepare=eng._drain_checks)
+    run.finish()
+    return dict(messages_per_sec=msgs_per_tick * n_ticks / elapsed,
+                tick_device_ms=dev_ms / 4, tick_host_ms=host_ms / 4)
+
+
+def fused_timings(run: LoadRun, msgs_per_tick: int) -> dict:
+    """Windows after the first, pipelined: messages/s to completion (the
+    flush that verifies the chain included); then the device ms of one
+    window (``window_device_ms``)."""
+    run.windows(1)
+    run.engine.wait_completion()
+    gc.collect()
+    ticks0 = run.ticks
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    t0 = time.perf_counter()
+    per_window = run.windows(NEW_WINDOWS - 1)
+    run.finish()
+    elapsed = time.perf_counter() - t0
+    events[1].record()
+    events[1].synchronize()
+    ticks = run.ticks - ticks0
+    dev_ms, host_ms = window_device_ms(run, reps=3)
+    return dict(messages_per_sec=msgs_per_tick * ticks / elapsed,
+                pipelined_ticks=ticks,
+                pipelined_s=elapsed,
+                pipelined_stream_ms=events[0].elapsed_time(events[1]),
+                window_host_ms=float(np.median([h for h, _ in per_window])),
+                window_device_ms=dev_ms, window_timed_host_ms=host_ms)
+
+
+def idle_share(f: dict) -> float:
+    """The device's idle share over a fused path's pipelined windows:
+    1 - (windows x one window's device time) / the stream's elapsed
+    time between events around them."""
+    busy = f["window_device_ms"] * f["pipelined_ticks"] / 16
+    return 1 - busy / f["pipelined_stream_ms"]
+
+
+def drive_wide_path(dev, card: str, wide: dict) -> dict:
+    """Phase 6: WidePresence, 1,000,000 players and 10,000 wide games,
+    unfused (auto-fusion off), then auto-fused at the default config;
+    launches counted per path."""
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples import presence_wide  # noqa: F401
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    hi_d, lo_d = (torch.from_numpy(w).to(dev) for w in (wide["hi"],
+                                                         wide["lo"]))
+    scores_d = torch.from_numpy(wide["scores"]).to(dev)
+
+    def make(fuse: bool) -> LoadRun:
+        eng = TensorEngine(device=dev, config=TensorEngineConfig(
+            auto_fusion_ticks=16 if fuse else 0))
+        eng.arena_for("WidePresence").reserve(PLAYERS)
+        eng.arena_for("WideGame").reserve(WIDE_GAMES)
+        eng.arena_for("WideGame").resolve_rows(wide["games"])
+        inj = eng.make_injector("WidePresence", "heartbeat",
+                                wide["players"])
+        return LoadRun(eng, inj, lambda t: {
+            "game_hi": hi_d, "game_lo": lo_d, "score": scores_d,
+            "tick": np.int32(t)})
+
+    out = {"counts": {}, "report": {}}
+    _build.reset_launch_counts()
+    run = make(fuse=False)
+    out["unfused"] = path_timings(run, 2 * PLAYERS, TICKS)
+    check_wide(run.engine, wide, run.ticks, 0)
+    out["counts"]["wide_unfused"] = _build.launch_counts()
+    require_launched(out["counts"]["wide_unfused"], "wide unfused",
+                     WIDE_KERNELS)
+    del run
+
+    _build.reset_launch_counts()
+    run = make(fuse=True)
+    out["fused"] = fused_timings(run, 2 * PLAYERS)
+    run.finish()
+    af = run.af.snapshot()
+    require(af["windows_rolled_back"] == 0 and af["windows_run"]
+            >= NEW_WINDOWS, f"wide autofuse {af}")
+    check_wide(run.engine, wide, run.ticks, af["ticks_fused"])
+    prog = run.af._program
+    require(prog is not None and prog._graph is not None
+            and prog.replays == af["windows_run"], "wide windows not replays")
+    out["counts"]["wide_fused"] = _build.launch_counts()
+    out["report"]["wide_fused"] = _build.launch_report()
+    require_launched(out["counts"]["wide_fused"], "wide fused", WIDE_KERNELS)
+    require(out["report"]["wide_fused"]["resolve_wide"]["replayed"] > 0,
+            "resolve_wide never replayed")
+    out["fused"].update(autofuse=af, rebuilds=dict(prog.rebuilds),
+                        per_replay=dict(prog._per_replay))
+    u, f = out["unfused"], out["fused"]
+    print(f"wide presence {PLAYERS} players / {WIDE_GAMES} wide games: "
+          f"unfused {u['messages_per_sec']:.1f} messages/s pipelined over "
+          f"{TICKS} ticks, one tick {u['tick_device_ms']:.4f} ms on the "
+          f"device, {u['tick_host_ms']:.4f} ms on the host; fused "
+          f"{f['messages_per_sec']:.1f} messages/s over the windows after "
+          f"the first, {f['window_device_ms']:.4f} ms per window of 16 on "
+          f"the device = {f['window_device_ms'] / 16:.4f} ms per fused "
+          f"tick, host {f['window_host_ms']:.4f} ms for the tick that runs "
+          f"a window; autofuse {json.dumps(af)}; one replay = "
+          f"{json.dumps(f['per_replay'])}; on {card}", flush=True)
+    print(f"wide fused pipelined: {f['pipelined_ticks']} ticks in "
+          f"{f['pipelined_s'] * 1e3:.3f} ms on the host clock, "
+          f"{f['pipelined_stream_ms']:.3f} ms between stream events; "
+          f"device idle share {idle_share(f):.4f}", flush=True)
+    return out
+
+
+def drive_chirper_path(dev, card: str, graph: dict) -> dict:
+    """Phase 7: Chirper, 200,000 accounts, mean 25 followers, unfused,
+    then auto-fused at the default config, then a follow() while the
+    auto-fuser holds buffered ticks (they run first, on the old graph;
+    the next window rebuilds on the new one); launches counted per path."""
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples import chirper  # noqa: F401
+    from orleans_tpu_torch.tensor.engine import TensorEngine, _map_tree
+    from orleans_tpu_torch.tensor.engine import _park_copy
+
+    fan = graph["fan"]
+    base_d = torch.arange(ACCOUNTS, dtype=torch.int32, device=dev)
+    accounts = np.arange(ACCOUNTS, dtype=np.int64)
+    msgs = ACCOUNTS + len(graph["dst"])
+
+    def make(fuse: bool) -> LoadRun:
+        eng = TensorEngine(device=dev, config=TensorEngineConfig(
+            auto_fusion_ticks=16 if fuse else 0))
+        eng.register_fanout("ChirperAccount", "publish", fan,
+                            "ChirperAccount", "new_chirp")
+        eng.arena_for("ChirperAccount").reserve(ACCOUNTS)
+        inj = eng.make_injector("ChirperAccount", "publish", accounts)
+        return LoadRun(eng, inj, lambda t: {
+            "chirp_id": base_d + (t - 1) * ACCOUNTS})
+
+    out = {"counts": {}, "report": {}}
+    _build.reset_launch_counts()
+    run = make(fuse=False)
+    out["unfused"] = path_timings(run, msgs, TICKS)
+    check_chirper(run.engine, graph, run.ticks, 0)
+    out["counts"]["chirper_unfused"] = _build.launch_counts()
+    require_launched(out["counts"]["chirper_unfused"], "chirper unfused",
+                     CHIRPER_KERNELS)
+    # the parked fan-out check's copies of the publish round's keys and
+    # payload: once per unfused Chirper tick
+    args = {"chirp_id": base_d + 1}
+    out["unfused"]["fanout_check_copy_ms"] = Timer(dev)(
+        lambda: (base_d.clone(), _map_tree(_park_copy, args)))
+    del run
+
+    _build.reset_launch_counts()
+    run = make(fuse=True)
+    out["fused"] = fused_timings(run, msgs)
+    run.finish()
+    af = run.af.snapshot()
+    require(af["windows_rolled_back"] == 0, f"chirper autofuse {af}")
+    check_chirper(run.engine, graph, run.ticks, af["ticks_fused"])
+    prog = run.af._program
+    require(prog is not None and prog._graph is not None
+            and prog.replays == af["windows_run"],
+            "chirper windows not replays")
+    out["fused"]["per_replay"] = dict(prog._per_replay)
+    # a follow() with ticks buffered: an account nobody followed gains a
+    # follower (a new source row of the CSR)
+    run.windows(1)
+    for _ in range(5):
+        run.tick()
+    require(bool(run.af._buffer), "no tick buffered before the follow")
+    sources = set(np.unique(graph["src"]).tolist())
+    top = next(a for a in range(ACCOUNTS) if a not in sources)
+    new_follower = (top + 1) % ACCOUNTS
+    version = fan.version
+    fan.follow(top, new_follower)
+    followed_at = run.ticks
+    run.windows(2)
+    run.finish()
+    require(fan.version == version + 1, "the follow graph did not rebuild")
+    af = run.af.snapshot()
+    require(af["windows_rolled_back"] == 0, f"chirper autofuse {af}")
+    require(prog.rebuilds["fanout_rebuild"] == 1,
+            f"window rebuilds {dict(prog.rebuilds)}")
+    check_chirper(run.engine, graph, run.ticks, af["ticks_fused"],
+                  follow=(top, new_follower, run.ticks - followed_at))
+    out["counts"]["chirper_fused"] = _build.launch_counts()
+    out["report"]["chirper_fused"] = _build.launch_report()
+    require_launched(out["counts"]["chirper_fused"], "chirper fused",
+                     CHIRPER_KERNELS)
+    require(out["report"]["chirper_fused"]["fanout_expand"]["replayed"] > 0,
+            "fanout_expand never replayed")
+    out["fused"].update(autofuse=af, rebuilds=dict(prog.rebuilds))
+    u, f = out["unfused"], out["fused"]
+    print(f"chirper {ACCOUNTS} accounts / {len(graph['dst'])} edges: "
+          f"unfused {u['messages_per_sec']:.1f} messages/s pipelined over "
+          f"{TICKS} ticks, one tick {u['tick_device_ms']:.4f} ms on the "
+          f"device, {u['tick_host_ms']:.4f} ms on the host (the parked "
+          f"fan-out check's copies {u['fanout_check_copy_ms']:.4f} ms); "
+          f"fused {f['messages_per_sec']:.1f} messages/s over the windows "
+          f"after the first, {f['window_device_ms']:.4f} ms per window of "
+          f"16 on the device = {f['window_device_ms'] / 16:.4f} ms per "
+          f"fused tick, host {f['window_host_ms']:.4f} ms for the tick "
+          f"that runs a window; after the follow: rebuilds "
+          f"{json.dumps(f['rebuilds'])}, autofuse {json.dumps(af)}; one "
+          f"replay = {json.dumps(f['per_replay'])}; on {card}", flush=True)
+    print(f"chirper fused pipelined: {f['pipelined_ticks']} ticks in "
+          f"{f['pipelined_s'] * 1e3:.3f} ms on the host clock, "
+          f"{f['pipelined_stream_ms']:.3f} ms between stream events; "
+          f"device idle share {idle_share(f):.4f}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -1536,8 +2119,11 @@ def main() -> int:
 
     dev = torch.device("cuda")
     timer = Timer(dev)
+    wide = wide_inputs()
+    graph = chirper_graph()
     results = check_kernels(dev, timer, card)
     results.update(check_attr_kernels(dev, timer, card))
+    results.update(check_new_kernels(dev, timer, card, wide, graph))
     time_plain_programs(dev, timer, card)
     results["window_bound_ms"] += results["attr_window_bound_ms"]
     t1 = time.perf_counter()
@@ -1546,8 +2132,13 @@ def main() -> int:
     fused = drive_fused_path(dev, card, runs["tick_device_ms"],
                              results["window_bound_ms"])
     t3 = time.perf_counter()
+    wide_out = drive_wide_path(dev, card, wide)
+    t4 = time.perf_counter()
+    chirper_out = drive_chirper_path(dev, card, graph)
+    t5 = time.perf_counter()
     print(f"phase seconds: kernels {t1 - t0:.1f}, unfused {t2 - t1:.1f}, "
-          f"fused {t3 - t2:.1f}", flush=True)
+          f"fused {t3 - t2:.1f}, wide {t4 - t3:.1f}, chirper "
+          f"{t5 - t4:.1f}", flush=True)
     plane = runs["plane_ms"]
     fused_added = (fused["window_device_ms"]
                    - fused["window_off_device_ms"]) / 16
@@ -1562,22 +2153,32 @@ def main() -> int:
           f"the parked miss-check copies {runs['park_copy_ms']:.4f} ms per "
           f"unfused tick; on {card}", flush=True)
 
+    # device launches per path (eager + graph replays), each path's counts
+    # zeroed just before it and read just after
+    paths = {"presence_unfused": unfused_counts,
+             "presence_fused": fused["counts"],
+             **wide_out["counts"], **chirper_out["counts"]}
+    reports = {"presence_fused": fused["report"], **wide_out["report"],
+               **chirper_out["report"]}
+    per_replay = {"presence_fused": fused["per_replay"],
+                  "wide_fused": wide_out["fused"]["per_replay"],
+                  "chirper_fused": chirper_out["fused"]["per_replay"]}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
-        fused_report = fused["report"][name]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
-                 # device launches on both paths: eager + graph replays
-                 "launches": unfused_counts[name] + fused["counts"][name],
+                 "launches": sum(c.get(name, 0) for c in paths.values()),
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                  "bound_by": r["bound"][1], "library_ms": r["library_ms"],
                  "library": r["library"], "host_ms": r["host_ms"],
                  "launches_by_path": {
-                     "unfused": unfused_counts[name],
-                     "fused": fused_report,
-                     "fused_per_replay": fused["per_replay"].get(name, 0)},
+                     **{p: c.get(name, 0) for p, c in paths.items()},
+                     **{f"{p}_by_kind": by_kind[name]
+                        for p, by_kind in reports.items()},
+                     **{f"{p}_per_replay": pr.get(name, 0)
+                        for p, pr in per_replay.items()}},
                  # every comparison above passed, or the run stopped there
                  "matches_plain": True}
         if name in ALSO_REPLACES:

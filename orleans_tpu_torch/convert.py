@@ -1,12 +1,16 @@
 """Carry an engine's state across from the JAX package.
 
 The system has no weights; what a running cluster carries is its arenas
-— the host key→row map and the state columns — its latency ledger and its
-workload-attribution plane.
+— the host key→row map and the state columns — its latency ledger, its
+workload-attribution plane and its fan-out graphs.
 ``arena_state_from_numpy`` loads an arena — as numpy arrays, e.g.
 ``jax_arena._key_of_row`` and ``{k: np.asarray(v) for k, v in
 jax_arena.state.items()}`` — into a port arena, after which both packages
-compute the same next tick.  ``ledger_state_from_numpy`` loads a ledger's
+compute the same next tick (an arena holding keys beyond int32 resolves
+through its wide mirror, as the JAX arena does).
+``fanout_from_adjacency`` builds a port ``DeviceFanout`` from a JAX one's
+adjacency lists and budget (``jax_fanout._adj``, ``jax_fanout.budget``),
+after which both expand the same messages into the same slots.  ``ledger_state_from_numpy`` loads a ledger's
 slots and counts, after which both report the same histogram.
 ``attribution_state_from_numpy`` loads an attribution plane's counts,
 sketches, slot counts and retired mirror, after which both report the same
@@ -15,13 +19,14 @@ snapshot and per-key totals.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from orleans_tpu_torch.tensor.arena import GrainArena
 from orleans_tpu_torch.tensor.attribution import WorkloadAttribution
+from orleans_tpu_torch.tensor.fanout import DeviceFanout
 from orleans_tpu_torch.tensor.ledger import MAX_SLOTS, DeviceLatencyLedger
 
 
@@ -142,3 +147,18 @@ def attribution_state_from_numpy(
     att._retired = {t: {int(k): int(v) for k, v in d.items()}
                     for t, d in (retired or {}).items()}
     att.retired_rows = int(retired_rows)
+
+
+def fanout_from_adjacency(adjacency: Mapping[int, Iterable[int]],
+                          budget: int) -> DeviceFanout:
+    """A ``DeviceFanout`` holding ``adjacency`` (source key → follower
+    keys, each list in the order it was followed) under ``budget``: the
+    same CSR as the source graph, so the same expansion slots."""
+    fan = DeviceFanout(budget=budget)
+    for src, dsts in adjacency.items():
+        dsts = [int(d) for d in dsts]
+        if dsts:
+            fan._adj[int(src)] = dsts
+            fan.edge_count += len(dsts)
+    fan._dirty = True
+    return fan

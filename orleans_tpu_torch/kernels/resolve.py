@@ -1,10 +1,15 @@
-"""K1 ``resolve_dense`` and K2 ``resolve_sorted``: key → row resolution of
-emitted messages on the device, with the count of misses.
+"""K1 ``resolve_dense``, K2 ``resolve_sorted`` and K10 ``resolve_wide``:
+key → row resolution of emitted messages on the device, with the count of
+misses.
 
 ``resolve_dense`` replaces ``orleans_tpu/tensor/engine.py``
 ``_resolve_rows_dense_kernel`` (one gather from a dense direct map);
 ``resolve_sorted`` replaces ``_resolve_rows_kernel`` (a lower-bound binary
-search over the sentinel-padded sorted key mirror).  Both return ``rows``
+search over the sentinel-padded sorted key mirror); ``resolve_wide``
+replaces ``_resolve_rows_wide_kernel`` (a 30-bit hash of a wide key's
+``(hi, lo)`` int32 words, a lower-bound search over the sorted hashes and
+up to ``WIDE_PROBES`` candidates checked against the full words).  All
+three return ``rows``
 (int32, -1 where the key is padding, invalid or not active) and the miss
 count (an int32 scalar tensor: lanes that were valid but did not resolve),
 which stays on the device until the engine's miss-check drain reads it.
@@ -13,21 +18,28 @@ count adds into it instead of a fresh zeroed scalar: a fused window sums
 every tick's misses into its one device total that way.
 
 What bounds them on an H100 and what the kernels do about it is in the
-note at the top of ``csrc/resolve.cu``.
+notes at the top of ``csrc/resolve.cu`` and ``csrc/resolve_wide.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from orleans_tpu_torch.kernels import _build
+from orleans_tpu_torch.kernels.attr import _M32, _mul32
 
 # Device-path key sentinel: resolve kernels treat any key >= this as
 # padding and drop it.  Single definition (re-exported by vector_grain).
 KEY_SENTINEL = 2**31 - 1
+
+#: candidates ``resolve_wide`` checks past the lower bound of a key's hash:
+#: a run of more than 4 equal 30-bit hashes among live keys is
+#: astronomically unlikely, and a key that still misses is redelivered
+#: through the exact host path
+WIDE_PROBES = 4
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -36,6 +48,8 @@ _SIGNATURES = {
     "resolve_sorted": (_P, _P, ctypes.c_int32, _P, _P, _P, _P,
                        ctypes.c_int64, _P),
 }
+_SIG_WIDE = {"resolve_wide": (_P, _P, ctypes.c_int32, _P, _P, ctypes.c_int32,
+                              _P, _P, _P, _P, _P, ctypes.c_int64, _P)}
 
 
 def _check_vector(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -73,8 +87,9 @@ def _miss_counter(misses, keys: torch.Tensor) -> torch.Tensor:
     return misses
 
 
-def _launch(fn_name: str, rows: torch.Tensor, *args) -> None:
-    lib = _build.library("resolve", _SIGNATURES)
+def _launch(fn_name: str, rows: torch.Tensor, *args,
+            source: str = "resolve", signatures=_SIGNATURES) -> None:
+    lib = _build.library(source, signatures)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     err = getattr(lib, fn_name)(*args, stream)
     _build.check(lib, err, fn_name)
@@ -163,4 +178,99 @@ def resolve_sorted(sorted_keys: torch.Tensor, sorted_rows: torch.Tensor,
                 keys.data_ptr(), valid.data_ptr(), rows.data_ptr(),
                 misses.data_ptr(), m)
         _build.note_launch(resolve_sorted)
+    return rows, misses
+
+
+# -- K10 ---------------------------------------------------------------------
+
+def mix32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The 30-bit bucket hash of wide keys' int32 words (``arena.mix32_np``
+    and ``engine._mix32_dev`` of the JAX package, computed in uint32
+    there): int64 arithmetic masked to 32 bits, each multiply split so no
+    product overflows int64."""
+    h = _mul32(hi.to(torch.int64) & _M32, 0x85EBCA6B) \
+        ^ _mul32(lo.to(torch.int64) & _M32, 0xC2B2AE35)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x27D4EB2F)
+    h = h ^ (h >> 13)
+    return (h & 0x3FFFFFFF).to(torch.int32)
+
+
+def _check_wide(sorted_h, rows_by_h, hi_col, lo_col, hi, lo, valid) -> None:
+    _check_vector("lo", lo, torch.int32, lo.device)
+    _check_vector("valid", valid, torch.bool, lo.device)
+    if lo.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {lo.device}")
+    if valid.shape != lo.shape:
+        raise ValueError(f"valid {tuple(valid.shape)} != keys "
+                         f"{tuple(lo.shape)}")
+    if hi is not None:
+        _check_vector("hi", hi, torch.int32, lo.device)
+        if hi.shape != lo.shape:
+            raise ValueError(f"hi {tuple(hi.shape)} != lo {tuple(lo.shape)}")
+    for name, t in (("sorted_h", sorted_h), ("rows_by_h", rows_by_h),
+                    ("hi_col", hi_col), ("lo_col", lo_col)):
+        _check_vector(name, t, torch.int32, lo.device)
+    if sorted_h.shape != rows_by_h.shape or sorted_h.shape[0] == 0:
+        raise ValueError("sorted_h/rows_by_h must be equal, non-empty "
+                         "vectors")
+    if hi_col.shape != lo_col.shape or hi_col.shape[0] == 0:
+        raise ValueError("hi_col/lo_col must be equal, non-empty vectors")
+
+
+def resolve_wide_plain(sorted_h: torch.Tensor, rows_by_h: torch.Tensor,
+                       hi_col: torch.Tensor, lo_col: torch.Tensor,
+                       hi: Optional[torch.Tensor], lo: torch.Tensor,
+                       valid: torch.Tensor, misses=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``resolve_wide``."""
+    if hi is None:
+        valid = valid & (lo < KEY_SENTINEL)
+        hi = torch.zeros_like(lo)
+    h = mix32(hi, lo)
+    n, cap = sorted_h.shape[0], hi_col.shape[0]
+    idx = torch.searchsorted(sorted_h, h, side="left")
+    rows = torch.full_like(lo, -1)
+    for k in range(WIDE_PROBES):
+        j = (idx + k).clamp_(0, n - 1)
+        cand = rows_by_h[j]
+        cr = cand.clamp(0, cap - 1)
+        ok = valid & (sorted_h[j] == h) & (cand >= 0) \
+            & (hi_col[cr] == hi) & (lo_col[cr] == lo)
+        rows = torch.where((rows < 0) & ok, cand, rows)
+    hit = (rows >= 0) & valid
+    count = _miss_counter(misses, lo)
+    count += (hit ^ valid).sum(dtype=torch.int32)
+    return rows, count
+
+
+@_build.counted
+def resolve_wide(sorted_h: torch.Tensor, rows_by_h: torch.Tensor,
+                 hi_col: torch.Tensor, lo_col: torch.Tensor,
+                 hi: Optional[torch.Tensor], lo: torch.Tensor,
+                 valid: torch.Tensor, misses=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resolve wide keys ``(hi, lo)`` against the wide mirror
+    ``(sorted_h, rows_by_h, hi_col, lo_col)`` of ``GrainArena.
+    device_index_wide``: the row of the first of the ``WIDE_PROBES``
+    entries from the lower bound of the key's hash whose row holds both
+    words, where the lane is valid, else -1; plus the miss count (added
+    into ``misses`` when given).  ``hi=None`` resolves int32 keys ``lo``
+    as the wide keys ``(0, lo)``, keys at or above the sentinel being
+    padding."""
+    _check_wide(sorted_h, rows_by_h, hi_col, lo_col, hi, lo, valid)
+    if lo.device.type == "cpu":
+        return resolve_wide_plain(sorted_h, rows_by_h, hi_col, lo_col, hi,
+                                  lo, valid, misses)
+    m = lo.shape[0]
+    rows = torch.empty(m, dtype=torch.int32, device=lo.device)
+    misses = _miss_counter(misses, lo)
+    if m:
+        _launch("resolve_wide", rows, sorted_h.data_ptr(),
+                rows_by_h.data_ptr(), sorted_h.shape[0], hi_col.data_ptr(),
+                lo_col.data_ptr(), hi_col.shape[0],
+                None if hi is None else hi.data_ptr(), lo.data_ptr(),
+                valid.data_ptr(), rows.data_ptr(), misses.data_ptr(), m,
+                source="resolve_wide", signatures=_SIG_WIDE)
+        _build.note_launch(resolve_wide)
     return rows, misses

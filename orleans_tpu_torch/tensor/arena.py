@@ -14,8 +14,14 @@ GetOrCreateActivation (reference: Catalog.cs:411).
 One card holds one shard block, so rows are allocated by a bump pointer
 over ``[0, capacity)`` and growth doubles the block in place (rows keep
 their index; the generation still bumps, as in the JAX package).
-Eviction, replicas, migration, resharding, wide-key device routing and
-the checkpoint layout belong to later slices of the port.
+
+Keys span ``[0, 2**63)``.  Keys that fit int32 resolve on the device
+through the dense or the sorted mirror; an arena holding a wider key
+resolves through the two-level wide mirror (``device_index_wide``): wide
+keys ride as ``(hi, lo)`` int32 word pairs, hashed into 30-bit buckets
+and checked against the full words (reference key breadth:
+UniqueKey.cs:34).  Eviction, replicas, migration, resharding and the
+checkpoint layout belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -32,6 +38,37 @@ from orleans_tpu_torch.tensor.vector_grain import StateField, VectorGrainInfo
 
 class ArenaFullError(RuntimeError):
     pass
+
+
+# -- wide (64-bit) keys ------------------------------------------------------
+# copies of orleans_tpu/tensor/arena.py's helpers: a wide key rides the
+# device as two int32 words, and routing hashes the words into a 30-bit
+# bucket space (the int32 padding sentinel then never equals a hash)
+
+def split_wide_keys(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """int64[n] → (hi int32[n], lo int32[n]) bit-pattern words."""
+    u = np.asarray(keys).astype(np.uint64)
+    hi = (u >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return hi, lo
+
+
+def join_wide_keys(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """(hi, lo) int32 words → int64 keys (bit-pattern inverse)."""
+    u = (np.asarray(hi).view(np.uint32).astype(np.uint64) << np.uint64(32)) \
+        | np.asarray(lo).view(np.uint32).astype(np.uint64)
+    return u.astype(np.int64)
+
+
+def mix32_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """30-bit bucket hash of a wide key's words; bit-identical to the
+    device hash (``kernels.resolve.mix32`` and ``csrc/resolve_wide.cu``)."""
+    h = (np.asarray(hi).view(np.uint32) * np.uint32(0x85EBCA6B)) \
+        ^ (np.asarray(lo).view(np.uint32) * np.uint32(0xC2B2AE35))
+    h = h ^ (h >> np.uint32(15))
+    h = h * np.uint32(0x27D4EB2F)
+    h = h ^ (h >> np.uint32(13))
+    return (h & np.uint32(0x3FFFFFFF)).astype(np.int32)
 
 
 class GrainArena:
@@ -81,7 +118,11 @@ class GrainArena:
         self._dev_dense: Optional[torch.Tensor] = None
         self._dev_index_stale = True
         self._dev_dense_stale = True
-        # True once an activated key does not fit the int32 device keys
+        # the wide-key (two-level hash/bucket) mirror, built on demand
+        self._dev_wide: Optional[Tuple[torch.Tensor, ...]] = None
+        self._dev_wide_stale = True
+        # True once an activated key does not fit the int32 device keys:
+        # narrow emits to this arena then resolve through the wide mirror
         self.has_wide_keys = False
 
     def _settle_owner_chain(self) -> None:
@@ -156,6 +197,7 @@ class GrainArena:
         self._dirty = False
         self._dev_index_stale = True
         self._dev_dense_stale = True
+        self._dev_wide_stale = True
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -208,6 +250,33 @@ class GrainArena:
         self._dev_dense = self._to_device(dense)
         self._dev_dense_stale = False
         return self._dev_dense
+
+    def device_index_wide(self) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor, torch.Tensor]:
+        """The wide-key mirror ``(sorted_h, rows_by_h, hi_col, lo_col)``:
+        the 30-bit hashes of the live keys in ascending order (ties in key
+        order) padded to capacity with 2**31 - 1, the row of each (padded
+        with -1), and the two words of the key of every row (0 and -1 on
+        free rows).  Rebuilt after any activation or growth."""
+        if self._dirty:
+            self._rebuild_index()
+        if self._dev_wide_stale or self._dev_wide is None:
+            hi, lo = split_wide_keys(self._sorted_keys)
+            h = mix32_np(hi, lo)
+            order = np.argsort(h, kind="stable")
+            pad = self.capacity - len(h)
+            sorted_h = np.concatenate(
+                [h[order], np.full(pad, 2**31 - 1, np.int32)])
+            rows_by_h = np.concatenate(
+                [self._sorted_rows[order], np.full(pad, -1, np.int32)])
+            hi_col = np.zeros(self.capacity, np.int32)
+            lo_col = np.full(self.capacity, -1, np.int32)
+            hi_col[self._sorted_rows] = hi
+            lo_col[self._sorted_rows] = lo
+            self._dev_wide = tuple(self._to_device(p) for p in
+                                   (sorted_h, rows_by_h, hi_col, lo_col))
+            self._dev_wide_stale = False
+        return self._dev_wide
 
     def lookup_rows(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Vectorized lookup; returns (rows int32, found bool)."""

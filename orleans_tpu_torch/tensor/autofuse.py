@@ -226,8 +226,8 @@ class AutoFuser:
             b = batches[0]
             args = b.args
             if (b.future is not None or b.rows is None
-                    or b.keys_host is None or b.mask is not None
-                    or not isinstance(args, dict)):
+                    or b.keys_host is None or b.no_fanout
+                    or b.mask is not None or not isinstance(args, dict)):
                 return None
             arena = self.engine.arenas.get(key[0])
             if arena is None or b.generation != arena.generation:

@@ -17,10 +17,17 @@ Data movement:
   caches the resolved destination rows of a stable key set on the device.
 * emit routing never touches the host: each arena keeps a device mirror
   of its key→row directory, and destinations resolve on the card
-  (``kernels/resolve.py``).  Only a scalar miss count per routed batch
+  (``kernels/resolve.py``; wide ``(hi, lo)`` keys through the arena's
+  two-level wide mirror, K10).  Only a scalar miss count per routed batch
   crosses to the host, and only at the miss-check drain; cold batches
   then pay one compacted miss-key fetch that activates the new rows, and
-  exactly the dropped messages are delivered again.
+  exactly the dropped messages are delivered again (wide keys through
+  the exact host path).
+* a registered fan-out (``register_fanout``: a ``DeviceFanout``
+  subscription graph, ``tensor/fanout.py``) expands every message its
+  source method applies into messages for its subscribers on the card
+  (K11); lanes past the expansion width park and expand again at the
+  drain, with their original stamp.
 
 Each step runs its handler eagerly (PyTorch has no trace to cache) and
 records a ``torch.cuda.Event`` after it as the step's completion fence.
@@ -32,13 +39,21 @@ first, runs whole windows of ticks as one program (``tensor/fused.py``;
 on the card one replay of a captured CUDA graph).  The workload-
 attribution plane (``tensor/attribution.py``) folds every executing
 group's destination rows.  Timers, the profiler, checkpoints, collection,
-fan-outs, streams, the cross-shard exchange and the cluster router belong
-to later slices of the port.
+stream subscriptions, the cross-shard exchange and the cluster router
+belong to later slices of the port.
+
+Every tensor the engine keeps past the call that handed it over — a
+``send_batch`` slab, a batch spilled past the round cap, a parked
+miss-check or fan-out check — is a copy taken on the stream: a caller may
+rewrite its tensor in place before the tick that reads it, where a JAX
+array cannot change.  Host (numpy) leaves are kept as they are, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import time
 import weakref
 from collections import defaultdict, deque
@@ -55,8 +70,9 @@ from orleans_tpu_torch.kernels.resolve import (
     KEY_SENTINEL,
     resolve_dense,
     resolve_sorted,
+    resolve_wide,
 )
-from orleans_tpu_torch.tensor.arena import GrainArena
+from orleans_tpu_torch.tensor.arena import GrainArena, join_wide_keys
 from orleans_tpu_torch.tensor.attribution import WorkloadAttribution
 from orleans_tpu_torch.tensor.ledger import DeviceLatencyLedger, SlotRegistry
 from orleans_tpu_torch.tensor.vector_grain import (
@@ -122,6 +138,16 @@ def _leaf_to_device(a: Any, device: torch.device) -> Any:
     return a
 
 
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: on a card through pinned memory,
+    asynchronously (a copy from pageable memory waits for the stream to
+    drain, which stalls the host behind every queued kernel)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _pad_leaf(a: Any, n: int) -> Any:
     """Zero-pad a lane-aligned leaf to ``n`` lanes (scalars broadcast)."""
     if isinstance(a, torch.Tensor):
@@ -141,16 +167,22 @@ class PendingBatch:
 
     Destination resolution precedence: ``rows`` while its ``generation``
     still matches the arena (injector fast path), else ``keys_host`` (host
-    resolution, activating unseen keys), else ``keys_dev`` (device
-    resolution — emits and miss redeliveries)."""
+    resolution, activating unseen keys), else ``keys_wide`` or
+    ``keys_dev`` (device resolution — emits and miss redeliveries)."""
 
     args: Any                                   # tree of [m, ...] / scalars
     rows: Optional[torch.Tensor] = None         # int32[m] device
     keys_host: Optional[np.ndarray] = None      # int64[m]
     keys_dev: Optional[torch.Tensor] = None     # int32[m] device
+    # wide keys as (hi, lo) int32[m] device word pairs, resolved through
+    # the arena's wide mirror
+    keys_wide: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     mask: Optional[torch.Tensor] = None         # bool[m] device (None = all)
     future: Optional[asyncio.Future] = None     # resolves to results[m]
     generation: int = -1                        # arena generation of rows
+    # set on redeliveries whose fan-out already expanded (the wide miss
+    # path): expanding again would deliver twice
+    no_fanout: bool = False
     # latency ledger: the engine tick at which this batch was injected or
     # emitted (-1 = unstamped, not counted).  Miss redeliveries carry the
     # ORIGINAL stamp, so their latency includes the redelivery wait.
@@ -160,6 +192,8 @@ class PendingBatch:
         for c in (self.rows, self.keys_host, self.keys_dev):
             if c is not None:
                 return len(c)
+        if self.keys_wide is not None:
+            return len(self.keys_wide[0])
         raise ValueError("empty batch")
 
 
@@ -172,7 +206,7 @@ class _MissCheck:
     arena: GrainArena
     type_name: str
     method: str
-    keys: torch.Tensor
+    keys: Any                  # int32[m], or wide (hi, lo) int32[m] words
     valid: torch.Tensor
     rows: torch.Tensor
     miss_count: torch.Tensor
@@ -180,18 +214,46 @@ class _MissCheck:
     inject_tick: int = -1
 
 
-def resolve_rows_on_device(arena: GrainArena, keys: torch.Tensor,
+@dataclass
+class _FanoutCheck:
+    """A parked fan-out overflow check: source lanes whose expansion did
+    not fit the width delivered nothing this round and carry a device-side
+    dropped mask; at the next quiescence point the engine expands exactly
+    those lanes again, their deliveries stamped with the ORIGINAL
+    ``inject_tick``.  Its keys and tensor payload leaves are copies taken
+    when it was parked."""
+
+    expander: Any              # DeviceFanout
+    dst_type: str
+    dst_method: str
+    keys: torch.Tensor         # int32[m] — source keys
+    args: Any                  # the source payload
+    dropped: torch.Tensor      # bool[m] — parked source lanes
+    count: torch.Tensor        # int32 device scalar
+    inject_tick: int = -1
+
+
+def resolve_rows_on_device(arena: GrainArena, keys: Any,
                            valid: torch.Tensor,
                            misses: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Resolve int32 grain keys to rows on the device: one gather from the
-    dense direct map when the key space affords it (K1), else a binary
-    search of the sorted mirror (K2).  Returns (rows, miss count); the
-    count adds into ``misses`` when given (a fused window's total)."""
-    if isinstance(keys, tuple) or arena.has_wide_keys:
-        raise NotImplementedError(
-            "wide-key device resolution belongs to a later slice of the "
-            "port (orleans_tpu/tensor/engine.py _resolve_rows_wide_kernel)")
+    """Resolve grain keys to rows on the device: wide ``(hi, lo)`` keys,
+    and int32 keys into an arena holding wide keys (the key ``k`` is the
+    wide key ``(0, k)``), through the wide mirror (K10); other int32 keys
+    with one gather from the dense direct map when the key space affords
+    it (K1), else a binary search of the sorted mirror (K2).  Returns
+    (rows, miss count); the count adds into ``misses`` when given (a fused
+    window's total)."""
+    if isinstance(keys, tuple):
+        hi, lo = keys
+        return resolve_wide(*arena.device_index_wide(), hi, lo, valid,
+                            misses)
+    if arena.has_wide_keys:
+        # the narrow mirror cannot hold the arena's keys; keys at or above
+        # the sentinel stay padding (K10's narrow mode), so a padding lane
+        # never aliases a live grain whose key is 2**31 - 1
+        return resolve_wide(*arena.device_index_wide(), None, keys, valid,
+                            misses)
     dense = arena.dense_index()
     if dense is not None:
         return resolve_dense(dense, keys, valid, misses)
@@ -208,12 +270,29 @@ def _miss_keys(keys: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
 
 
 def _park_copy(a: Any) -> Any:
-    """A parked miss-check's copy of a payload leaf: a tensor is cloned
-    on its stream (no sync), since the caller may rewrite it in place
-    before the drain redelivers it; a JAX array cannot change, so the
-    JAX package redelivers the emit-time values.  Host leaves are kept as
-    they are, as the JAX package keeps them."""
+    """A kept copy of a payload leaf or key tensor: a tensor is cloned on
+    its stream (no sync), since the caller may rewrite it in place before
+    the engine reads it; a JAX array cannot change, so the JAX package
+    delivers the enqueue-time values.  Host leaves are kept as they are,
+    as the JAX package keeps them."""
     return a.clone() if isinstance(a, torch.Tensor) else a
+
+
+def _spill_copy(b: PendingBatch) -> PendingBatch:
+    """A batch spilled past the round cap, with copies of every tensor it
+    references (an emit can forward the loader's own payload tensor)."""
+    return dataclasses.replace(
+        b, args=_map_tree(_park_copy, b.args), rows=_park_copy(b.rows),
+        keys_dev=_park_copy(b.keys_dev), mask=_park_copy(b.mask),
+        keys_wide=_map_tree(_park_copy, b.keys_wide))
+
+
+def _host_take(a: Any, idx: np.ndarray) -> Any:
+    """A payload leaf on the host, restricted to the lanes ``idx``
+    (scalars broadcast)."""
+    if isinstance(a, torch.Tensor):
+        return a if a.dim() == 0 else a.cpu().numpy()[idx]
+    return a if np.ndim(a) == 0 else np.asarray(a)[idx]
 
 
 def _stack_counts(*xs: torch.Tensor) -> torch.Tensor:
@@ -261,6 +340,9 @@ class TensorEngine:
         self._step_cache: Dict[Tuple[str, str], Callable] = {}
         self._masks: Dict[int, torch.Tensor] = {}
         self._pending_checks: List[_MissCheck] = []
+        # (src_type, src_method) → (DeviceFanout, dst_type, dst_method)
+        self._fanouts: Dict[Tuple[str, str], Tuple[Any, str, str]] = {}
+        self._fanout_checks: List[_FanoutCheck] = []
         # completion fence of the latest step or fused window (a CUDA
         # event; None on CPU)
         self._tick_fence: Optional[torch.cuda.Event] = None
@@ -296,25 +378,102 @@ class TensorEngine:
                    want_results: bool = False) -> Optional[asyncio.Future]:
         """Bulk message injection: one call carries a whole (keys,
         payload) slab.  int32 device keys resolve optimistically on the
-        device; anything else resolves (and activates) on the host."""
+        device; anything else resolves (and activates) on the host.  The
+        batch keeps copies of the tensors it is given, taken now."""
         future = asyncio.get_running_loop().create_future() \
             if want_results else None
+        args = _map_tree(_park_copy, args)
         if (isinstance(keys, torch.Tensor) and keys.dtype == torch.int32
                 and not want_results):
             # device keys resolve optimistically (unseen keys re-delivered
             # later), which cannot fix an already-resolved result future,
             # so want_results forces the host path
-            batch = PendingBatch(args=args, keys_dev=keys.to(self.device),
+            batch = PendingBatch(args=args,
+                                 keys_dev=keys.to(self.device, copy=True),
                                  inject_tick=self.tick_number)
         else:
             if isinstance(keys, torch.Tensor):
-                keys = keys.cpu().numpy()
+                keys = np.array(keys.cpu().numpy(), dtype=np.int64)
             batch = PendingBatch(args=args, future=future,
                                  keys_host=np.asarray(keys, dtype=np.int64),
                                  inject_tick=self.tick_number)
         self.queues[(self._type_name(interface), method)].append(batch)
         self._wake_up()
         return future
+
+    def register_fanout(self, src_interface, src_method: str, fanout,
+                        dst_interface, dst_method: str) -> None:
+        """Every message delivered to (src_interface, src_method) also
+        expands through ``fanout`` (a ``DeviceFanout``) into messages for
+        (dst_interface, dst_method), delivered the next round of the same
+        tick (reference: ChirperAccount.PublishMessage → Followers loop,
+        ChirperAccount.cs:129-156)."""
+        self._fanouts[(self._type_name(src_interface), src_method)] = (
+            fanout, self._type_name(dst_interface), dst_method)
+        fanout.bind_owner(self)
+
+    def _route_expand_push(self, expander, dst_type: str, dst_method: str,
+                           skeys: torch.Tensor, args: Any,
+                           mask: Optional[torch.Tensor],
+                           inject_tick: int) -> None:
+        """Expand, queue the subscriber deliveries, and park the
+        expansion's overflow mask with copies of the source keys and
+        payload (dropped lanes expand again at the next drain)."""
+        dst, gargs, valid = expander.expand(skeys, args, mask)
+        count, dropped = expander.take_drop()
+        self._fanout_checks.append(_FanoutCheck(
+            expander=expander, dst_type=dst_type, dst_method=dst_method,
+            keys=skeys.clone(), args=_map_tree(_park_copy, args),
+            dropped=dropped, count=count, inject_tick=inject_tick))
+        self.queues[(dst_type, dst_method)].append(
+            PendingBatch(args=gargs, keys_dev=dst, mask=valid,
+                         inject_tick=self.tick_number))
+
+    def _run_fanout(self, type_name: str, method: str,
+                    batches: List[PendingBatch]) -> None:
+        """Expand the group's host-key batches (they resolve, activating,
+        inside the group, so they expand before it).  Batches with device
+        keys — emits, redeliveries, an injector's — expand after their
+        resolution (``_expand_resolved_fanout``)."""
+        fan = self._fanouts.get((type_name, method))
+        if fan is None:
+            return
+        fanout, dst_type, dst_method = fan
+        for b in batches:
+            if b.no_fanout or b.keys_dev is not None:
+                continue
+            if b.keys_host is not None:
+                if (b.keys_host >= KEY_SENTINEL).any() or \
+                        (b.keys_host < 0).any():
+                    raise OverflowError(
+                        "fanout src keys must be in [0, 2**31-1)")
+                skeys = _upload(b.keys_host.astype(np.int32), self.device)
+            elif b.keys_wide is not None:
+                raise OverflowError(
+                    "fanout expansion requires narrow int keys in "
+                    "[0, 2**31-1); wide (hi, lo) source keys cannot map "
+                    "through the CSR subscription graph")
+            else:
+                continue  # a row-only batch: no keys to expand
+            self._route_expand_push(fanout, dst_type, dst_method, skeys,
+                                    b.args, b.mask, b.inject_tick)
+
+    def _expand_resolved_fanout(self, fan, batches: List[PendingBatch],
+                                resolved: List[Tuple[Any, Any]]) -> None:
+        """Device-key fan-out, gated by the resolution the step applies:
+        lanes that hit expand now, missed lanes when their redelivery
+        applies."""
+        fanout, dst_type, dst_method = fan
+        for b, (rows, _args) in zip(batches, resolved):
+            if b.no_fanout or b.keys_dev is None:
+                continue
+            if isinstance(rows, np.ndarray):  # a stale injector's rows
+                rows = _upload(rows, self.device)
+            base = b.mask if b.mask is not None \
+                else self._mask_for(len(b))
+            self._route_expand_push(fanout, dst_type, dst_method,
+                                    b.keys_dev, b.args, base & (rows >= 0),
+                                    b.inject_tick)
 
     def make_injector(self, interface, method: str,
                       keys: np.ndarray) -> "BatchInjector":
@@ -394,8 +553,9 @@ class TensorEngine:
 
     async def flush(self) -> None:
         """Run ticks until every queue drains AND every optimistic
-        miss-check has settled (full delivery).  A partially filled fused
-        window replays unfused here, one buffered tick at a time."""
+        miss-check and fan-out check has settled (full delivery).  A
+        partially filled fused window replays unfused here, one buffered
+        tick at a time."""
         while True:
             await self.drain_queues()
             requeued = self._drain_checks()
@@ -403,6 +563,10 @@ class TensorEngine:
                 requeued = True
             if not requeued:
                 break
+        # fold un-taken expansion drops (direct expand() users) into the
+        # fan-outs' host stats
+        for fanout, _, _ in self._fanouts.values():
+            fanout.overflow_check()
 
     def wait_completion(self) -> None:
         """Block until the latest step has completed on the device."""
@@ -416,8 +580,10 @@ class TensorEngine:
             return
         t0 = time.perf_counter()
         self.tick_number += 1
-        if len(self._pending_checks) >= self.config.miss_check_cap:
-            # bound device memory pinned by parked optimistic checks
+        if len(self._pending_checks) + len(self._fanout_checks) \
+                >= self.config.miss_check_cap:
+            # bound device memory pinned by parked checks (fan-out checks
+            # pin their batch's payload the same way)
             self._drain_checks()
         rounds = 0
         while rounds < self.config.max_rounds_per_tick:
@@ -426,9 +592,14 @@ class TensorEngine:
                 break
             self.queues = defaultdict(list)
             for (type_name, method), batches in pending.items():
+                self._run_fanout(type_name, method, batches)
                 self._run_group(type_name, method, batches)
             rounds += 1
             self.rounds_run += 1
+        for batches in self.queues.values():
+            # round-cap spill: these run next tick, after the caller may
+            # have rewritten the tensors they reference
+            batches[:] = [_spill_copy(b) for b in batches]
         self.tick_durations.append(time.perf_counter() - t0)
 
     def stats(self) -> Dict[str, Any]:
@@ -488,13 +659,13 @@ class TensorEngine:
         if b.keys_host is not None:
             rows = arena.resolve_rows(b.keys_host, tick=self.tick_number)
             return rows.astype(np.int32), b.args
-        keys = b.keys_dev
-        valid = b.mask if b.mask is not None else self._mask_for(len(keys))
+        keys = b.keys_wide if b.keys_wide is not None else b.keys_dev
+        valid = b.mask if b.mask is not None else self._mask_for(len(b))
         rows, miss_count = resolve_rows_on_device(arena, keys, valid)
         self._pending_checks.append(
             _MissCheck(arena=arena, type_name=arena.info.name, method=method,
-                       keys=keys.clone(), valid=valid.clone(), rows=rows,
-                       miss_count=miss_count,
+                       keys=_map_tree(_park_copy, keys), valid=valid.clone(),
+                       rows=rows, miss_count=miss_count,
                        args=_map_tree(_park_copy, b.args),
                        inject_tick=b.inject_tick))
         return rows, b.args
@@ -503,17 +674,35 @@ class TensorEngine:
         """Quiescence point: activate the unseen keys found by optimistic
         resolution and queue their (and only their) messages again.
         Returns True if work was queued."""
-        if not self._pending_checks:
+        if not self._pending_checks and not self._fanout_checks:
             return False
         checks = self._pending_checks
         self._pending_checks = []
+        requeued = self._drain_fanout_checks()
+        if not checks:
+            return requeued
         # one device→host copy for every parked count
         counts = _stack_counts(*(c.miss_count for c in checks)).tolist()
-        requeued = False
         for c, cnt in zip(checks, counts):
             if cnt == 0:
                 continue
             self.activation_passes += 1
+            if isinstance(c.keys, tuple):
+                # wide keys: the missed lanes go again through the exact
+                # host path (their int64 keys rejoined), which activates
+                # and cannot loop on a collision run the probes miss; their
+                # fan-out, if any, already expanded
+                idx = np.nonzero(((c.rows < 0) & c.valid).cpu().numpy())[0]
+                if len(idx) == 0:
+                    continue
+                keys64 = join_wide_keys(c.keys[0].cpu().numpy()[idx],
+                                        c.keys[1].cpu().numpy()[idx])
+                self.queues[(c.type_name, c.method)].append(PendingBatch(
+                    args=_map_tree(lambda a: _host_take(a, idx), c.args),
+                    keys_host=keys64, no_fanout=True,
+                    inject_tick=c.inject_tick))
+                requeued = True
+                continue
             miss_keys, missing = _miss_keys(c.keys, c.rows, c.valid, MISS_BUF)
             mk = miss_keys.cpu().numpy()
             mk = mk[mk != KEY_SENTINEL].astype(np.int64)
@@ -523,6 +712,35 @@ class TensorEngine:
             # when the unique misses exceed MISS_BUF
             self.queues[(c.type_name, c.method)].append(PendingBatch(
                 args=c.args, keys_dev=c.keys, mask=missing,
+                inject_tick=c.inject_tick))
+            requeued = True
+        return requeued
+
+    def _drain_fanout_checks(self) -> bool:
+        """Fold the parked fan-out drop counts (one device→host copy for
+        all) and expand exactly the dropped source lanes again, their
+        deliveries stamped with the original inject tick.  Each pass
+        completes at least one parked lane (the width is never below one
+        lane's degree), so the drains converge.  Returns True if
+        deliveries were queued."""
+        if not self._fanout_checks:
+            return False
+        checks = self._fanout_checks
+        self._fanout_checks = []
+        counts = _stack_counts(*(c.count for c in checks)).tolist()
+        requeued = False
+        for c, cnt in zip(checks, counts):
+            exp = c.expander
+            exp.dropped_lanes += int(cnt)
+            if cnt == 0:
+                continue
+            exp.redeliveries += 1
+            dst, gargs, valid = exp.expand(c.keys, c.args, c.dropped)
+            cnt2, dropped2 = exp.take_drop()
+            self._fanout_checks.append(dataclasses.replace(
+                c, dropped=dropped2, count=cnt2))
+            self.queues[(c.dst_type, c.dst_method)].append(PendingBatch(
+                args=gargs, keys_dev=dst, mask=valid,
                 inject_tick=c.inject_tick))
             requeued = True
         return requeued
@@ -539,7 +757,7 @@ class TensorEngine:
         def mergeable(b: PendingBatch) -> bool:
             return (b.future is None and b.keys_host is not None
                     and b.rows is None and b.keys_dev is None
-                    and b.mask is None)
+                    and b.mask is None and not b.no_fanout)
 
         def merge(member: List[PendingBatch]) -> PendingBatch:
             def cat(*leaves):
@@ -620,6 +838,9 @@ class TensorEngine:
                         for b in batches]
             if arena.generation == gen0:
                 break
+        fan = self._fanouts.get((type_name, method))
+        if fan is not None:
+            self._expand_resolved_fanout(fan, batches, resolved)
         if ledger.enabled:
             # device side: count exactly the lanes the step applies (mask
             # ∧ resolved, one K5 launch per batch); unresolved lanes count
@@ -705,17 +926,25 @@ class TensorEngine:
                 continue
             keys = emit.keys
             if isinstance(keys, tuple):
-                raise NotImplementedError(
-                    "wide (hi, lo) emit keys belong to a later slice of "
-                    "the port")
-            if isinstance(keys, torch.Tensor):
-                keys = keys.to(device=self.device, dtype=torch.int32)
-            else:
-                keys = torch.as_tensor(np.asarray(keys, dtype=np.int32),
-                                       device=self.device)
+                # a wide destination: an (hi, lo) int32 word pair
+                self.queues[(emit.interface, emit.method)].append(
+                    PendingBatch(args=emit.args,
+                                 keys_wide=tuple(self._emit_keys(k)
+                                                 for k in keys),
+                                 mask=emit.mask,
+                                 inject_tick=self.tick_number))
+                continue
+            keys = self._emit_keys(keys)
             self.queues[(emit.interface, emit.method)].append(PendingBatch(
                 args=emit.args, keys_dev=keys, mask=emit.mask,
                 inject_tick=self.tick_number))
+
+    def _emit_keys(self, keys: Any) -> torch.Tensor:
+        """Emit keys as an int32 device tensor."""
+        if isinstance(keys, torch.Tensor):
+            return keys.to(device=self.device, dtype=torch.int32)
+        return torch.as_tensor(np.asarray(keys, dtype=np.int32),
+                               device=self.device)
 
     # ================= steps ==============================================
 
@@ -778,6 +1007,11 @@ class BatchInjector:
         self.method = method
         self.keys = keys
         self._arena = engine.arena_for(type_name)
+        # device mirror of the key set: a registered fan-out expands the
+        # injected batches with no host→device copy per inject
+        self._keys_dev = _upload(keys.astype(np.int32), engine.device) \
+            if len(keys) and keys.max() < KEY_SENTINEL and keys.min() >= 0 \
+            else None
         self.rows: Optional[torch.Tensor] = None
         self.generation = -2
         self._refresh()
@@ -797,7 +1031,8 @@ class BatchInjector:
             if want_results else None
         engine.queues[(self.type_name, self.method)].append(
             PendingBatch(args=args, rows=self.rows, keys_host=self.keys,
-                         future=future, generation=self.generation,
+                         keys_dev=self._keys_dev, future=future,
+                         generation=self.generation,
                          inject_tick=engine.tick_number))
         engine._wake_up()
         return future

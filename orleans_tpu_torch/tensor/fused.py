@@ -37,9 +37,19 @@ group's rows into a per-window delta column and its slot counter (K7);
 after the window's last tick one K7 adds each arena's delta into its
 counts and its hashed buckets into its sketch, and the delta is zeroed —
 the JAX window's scan carry plus its once-per-window sketch fold, equal
-bit for bit because integer adds commute.  Exchange, fan-out, stream
-routes and wide keys are not on this slice's path: the port's engine has
-none of them, and a wide emit key raises ``NotImplementedError``.
+bit for bit because integer adds commute.
+
+Wide ``(hi, lo)`` emit keys resolve through the destination's wide mirror
+(K10), adding their misses into the window's total.  A registered fan-out
+expands each applied source group inside the window (K11): the source
+keys come from a device key-of-row column built with the window, the
+expanded deliveries resolve like any emit, and the lanes that overflow
+the expansion width add into the miss total (the chain then rolls back
+and the unfused replay parks and redelivers them).  The window bakes the
+fan-out's CSR tensors, so a rebuild of the follow graph rebuilds the
+window (cause ``fanout_rebuild``); the JAX window keeps the graph it was
+traced with (ROADMAP queue C).  Exchange and stream routes belong to later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ CAUSE_CONFIG_TOGGLE = "config_toggle"
 CAUSE_SHAPE_CHANGE = "shape_change"
 CAUSE_MIRROR_REBUILD = "mirror_rebuild"
 CAUSE_STATIC_CHANGE = "static_change"
+CAUSE_FANOUT_REBUILD = "fanout_rebuild"
 
 
 def plan_windows(window: int, n_ticks: int) -> Tuple[int, int, int]:
@@ -94,8 +105,12 @@ def _normalize(out):
     return state, results, emits
 
 
-def _mirror_of(arena) -> Tuple[torch.Tensor, ...]:
-    """The directory mirror a window resolves against (built if stale)."""
+def _mirror_of(arena, wide: bool) -> Tuple[torch.Tensor, ...]:
+    """The directory mirror a window resolves against (built if stale):
+    the wide mirror for wide keys and for an arena holding wide keys,
+    else the dense or the sorted one (``resolve_rows_on_device``)."""
+    if wide or arena.has_wide_keys:
+        return arena.device_index_wide()
     dense = arena.dense_index()
     return (dense,) if dense is not None else arena.device_index()
 
@@ -236,10 +251,16 @@ class FusedTickProgram:
         self._generations: Dict[str, int] = {}
         self._epochs: Dict[str, int] = {}
         self._touched: List[str] = []
-        # arenas whose directory mirror the window resolves against, and
-        # the mirror tensors it was built with (identity-compared)
-        self._resolved: List[str] = []
-        self._mirrors: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        # (arena, wide keys) pairs whose directory mirror the window
+        # resolves against, and the mirror tensors it was built with
+        # (identity-compared)
+        self._resolved: List[Tuple[str, bool]] = []
+        self._mirrors: Dict[Tuple[str, bool], Tuple[torch.Tensor, ...]] = {}
+        # fan-outs: the registrations and CSR versions the window was
+        # built with, and the device key-of-row column of each source type
+        self._fanout_regs: Dict[Tuple[str, str], Tuple[Any, str, str]] = {}
+        self._fanout_versions: Dict[int, Tuple[Any, int]] = {}
+        self._key_cols: Dict[str, torch.Tensor] = {}
         self._discovering = False
         # device [1, 2] int32: (misses, delivered) since the last verify,
         # added into in place by every window (one address for graphs)
@@ -331,21 +352,32 @@ class FusedTickProgram:
         for e in (emits if isinstance(emits, (tuple, list)) else (emits,)):
             if e is None:
                 continue
-            if isinstance(e.keys, tuple):
-                raise NotImplementedError(
-                    "wide (hi, lo) emit keys in a fused window belong to a "
-                    "later slice of the port (orleans_tpu/tensor/engine.py "
-                    "_resolve_rows_wide_kernel)")
-            ekeys = e.keys.to(device=engine.device, dtype=torch.int32) \
-                if isinstance(e.keys, torch.Tensor) \
-                else _leaf_to_device(np.asarray(e.keys, np.int32),
-                                     engine.device)
-            m = ekeys.shape[0]
+            # wide destination keys: an (hi, lo) int32 word pair
+            ekeys = tuple(engine._emit_keys(k) for k in e.keys) \
+                if isinstance(e.keys, tuple) else engine._emit_keys(e.keys)
+            m = (ekeys[0] if isinstance(ekeys, tuple) else ekeys).shape[0]
             emask = e.mask if e.mask is not None \
                 else ones_mask(m, engine.device)
             eargs = _map_tree(lambda a: _leaf_to_device(a, engine.device),
                               e.args)
             out_batches.append((e.interface, e.method, ekeys, eargs, emask))
+
+        fan = engine._fanouts.get((type_name, method))
+        if fan is not None and not at_cap:
+            # the registered fan-out, inside the window: lanes past the
+            # expansion width add into the miss total
+            fanout, dst_type, dst_method = fan
+            self._fanout_versions[id(fanout)] = (
+                fanout, fanout.current_version())
+            dkeys, dargs, dvalid = fanout.expand(
+                self._src_keys_for(type_name, rows), args, mask,
+                n_dropped=totals[0, 0])
+            fanout.take_drop()
+            out_batches.append((dst_type, dst_method, dkeys, dargs, dvalid))
+        elif fan is not None:
+            # a fan-out the round cap keeps from running would lose its
+            # deliveries: count its source lanes as misses
+            hist_count(totals, 0, 0, mask)
 
         if at_cap:
             # the unfused engine SPILLS round-cap emits to the next tick;
@@ -358,8 +390,9 @@ class FusedTickProgram:
         for dst_type, dst_method, ekeys, eargs, emask in out_batches:
             dst_arena = engine.arena_for(dst_type)
             self._note_arena(dst_type, dst_arena)
-            if dst_type not in self._resolved:
-                self._resolved.append(dst_type)
+            site = (dst_type, isinstance(ekeys, tuple))
+            if site not in self._resolved:
+                self._resolved.append(site)
             drows, _ = resolve_rows_on_device(dst_arena, ekeys, emask,
                                               misses=totals[0, 0])
             hist_count(totals, 0, 1, emask)
@@ -400,6 +433,24 @@ class FusedTickProgram:
         if not self._attr:
             return None
         return {"delta": self._attr_delta, "slots": self._attr["slots"]}
+
+    def _src_keys_for(self, type_name: str,
+                      rows: torch.Tensor) -> torch.Tensor:
+        """The grain keys of ``rows`` for a fan-out's source lanes: a
+        gather from a device key-of-row column built with the window
+        (keys clipped into the int32 fan-out key range, free rows 0, as
+        the JAX window's constant); a rebuild of the window (growth, a
+        mirror change) builds it anew."""
+        col = self._key_cols.get(type_name)
+        if col is None:
+            if not self._discovering:
+                raise RuntimeError(f"fused window: no key column for "
+                                   f"{type_name!r}")
+            key_of_row = self.engine.arena_for(type_name)._key_of_row
+            col = self._key_cols[type_name] = _leaf_to_device(
+                key_of_row.clip(0, 2**31 - 2).astype(np.int32),
+                self.engine.device)
+        return col.index_select(0, rows.clamp(0, col.shape[0] - 1))
 
     def _note_arena(self, name: str, arena) -> None:
         if name not in self._generations:
@@ -483,11 +534,15 @@ class FusedTickProgram:
                 or self._attr_sig != engine.attribution.build_signature() \
                 or not self._attr_live():
             return CAUSE_CONFIG_TOGGLE
-        for n, mirror in self._mirrors.items():
-            now = _mirror_of(engine.arena_for(n))
+        for (n, wide), mirror in self._mirrors.items():
+            now = _mirror_of(engine.arena_for(n), wide)
             if len(now) != len(mirror) or any(
                     a is not b for a, b in zip(now, mirror)):
                 return CAUSE_MIRROR_REBUILD
+        if engine._fanouts != self._fanout_regs or any(
+                fan.current_version() != v
+                for fan, v in self._fanout_versions.values()):
+            return CAUSE_FANOUT_REBUILD
         if self._graph is None:
             return None
         for buf, st in zip(self._in, stackeds):
@@ -557,6 +612,8 @@ class FusedTickProgram:
         # kernel once before capture
         self._generations, self._epochs = {}, {}
         self._touched, self._resolved = [], []
+        self._fanout_regs = dict(engine._fanouts)
+        self._fanout_versions, self._key_cols = {}, {}
         for s in self.sources:
             self._note_arena(s.type_name, s.arena)
         states = {s.type_name: {k: v.clone() for k, v in
@@ -580,8 +637,8 @@ class FusedTickProgram:
             self._attr_delta = {
                 n: torch.zeros_like(self._attr["counts"][n])
                 for n in self._touched}
-        self._mirrors = {n: _mirror_of(engine.arena_for(n))
-                         for n in self._resolved}
+        self._mirrors = {(n, wide): _mirror_of(engine.arena_for(n), wide)
+                         for n, wide in self._resolved}
         self._built = True
         if self.on_card:
             self._capture(stackeds, statics, n_ticks)

@@ -95,14 +95,16 @@ class Batch(NamedTuple):
 class Emit:
     """Messages emitted by a handler to another vector grain type.
 
-    ``keys`` are grain primary keys (int32, not rows): the engine resolves
-    key→row on the destination type's arena on the device, auto-activating
-    unseen keys at the next miss-check drain (reference: Dispatcher.cs:555,
+    ``keys`` are grain primary keys (int32, not rows), or wide keys in
+    ``[0, 2**63)`` as an ``(hi, lo)`` pair of int32 word tensors
+    (``arena.split_wide_keys``): the engine resolves key→row on the
+    destination type's arena on the device, auto-activating unseen keys
+    at the next miss-check drain (reference: Dispatcher.cs:555,
     Catalog.cs:411)."""
 
     interface: str
     method: str
-    keys: Any                  # int32[M'] grain keys (may repeat)
+    keys: Any                  # int32[M'] grain keys (may repeat) | (hi, lo)
     args: Any                  # dict of [M', ...]
     mask: Optional[torch.Tensor] = None  # bool[M']; None = all valid
 

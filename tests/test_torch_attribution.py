@@ -690,11 +690,10 @@ def test_presence_slice_matches_jax(jax_trace_shim, run, load):
     """Both engines at their defaults (attribution on, auto-fusion after 3
     identical ticks, 4-tick windows): unfused ticks, fused windows and,
     for ``moving_rollback``, one forced rollback.  Snapshots, per-key
-    totals and the fold outcomes must agree; the one known difference is
-    that a buffered tick replayed unfused after fusion engaged carries
-    the injector's rows (the port proves its plan) but not the
-    injector's device key mirror, which anchors the JAX plan (JAX checks
-    it on the device) — ROADMAP queue C."""
+    totals and the fold outcome of every record (built, hit or checked)
+    must agree: the port's injector carries the device key mirror that
+    anchors the JAX plan, and a buffered tick replayed unfused carries
+    the injector's rows but not that mirror, in both packages."""
     cfg = dict(auto_fusion_ticks=3, auto_fusion_window=4,
                auto_fusion_verify_windows=2)
     logs = {}
@@ -725,12 +724,7 @@ def test_presence_slice_matches_jax(jax_trace_shim, run, load):
     assert sum(pe.attribution.per_key_totals("GameGrain").values()) == \
         pe.ledger.snapshot()["GameGrain.update_game_status"]["total"]
     jlog, plog = logs["jax"], logs["port"]
-    assert len(plog) == len(jlog)
-    for (jt, jm, jo, _jr), (pt, pm, po, replaying) in zip(jlog, plog):
-        assert (pt, pm) == (jt, jm)
-        if po != jo:
-            assert (jt, jo, po, replaying) == \
-                ("PresenceGrain", "checked", "hit", True), (jlog, plog)
+    assert [x[:3] for x in plog] == [x[:3] for x in jlog]
     for key in ("plan_builds", "stale_folds"):
         assert pe.attribution.stats()[key] == je.attribution.stats()[key]
 

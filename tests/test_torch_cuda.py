@@ -607,3 +607,226 @@ def test_fused_rollback_attribution_on_card(cuda_device):
     _assert_attribution_matches(gpu, cpu)
     assert gpu.attribution.per_key_totals("PresenceGrain") == \
         {k: 40 for k in range(2000)}
+
+
+# -- K10 resolve_wide and K11 fanout_expand -----------------------------------
+
+def _wide_mirror(rng, n_live=3000, cap=8192):
+    """A port arena's wide mirror holding colliding, edge-word and random
+    keys, and a pool of query keys (live, unseen, colliding unseen)."""
+    from orleans_tpu_torch.samples import presence  # noqa: F401
+    from orleans_tpu_torch.tensor.arena import (
+        GrainArena,
+        mix32_np,
+        split_wide_keys,
+    )
+    from orleans_tpu_torch.tensor.vector_grain import vector_type
+
+    draws = np.unique(rng.integers(2**31, 2**63 - 1, 300_000,
+                                   dtype=np.int64))
+    h = mix32_np(*split_wide_keys(draws))
+    _, inv, cnt = np.unique(h, return_inverse=True, return_counts=True)
+    colliding = draws[cnt[inv] > 1]
+    edge = np.array([0, 5, 2**31 - 1, 2**31, 2**32 - 1, 2**32,
+                     (2**31 - 1) << 32, ((2**31 - 1) << 32) | (2**32 - 1),
+                     (1 << 32) | (2**31)], np.int64)
+    live = np.unique(np.concatenate([colliding[::2], edge,
+                                     draws[:n_live]]))
+    arena = GrainArena(vector_type("PresenceGrain"), torch.device("cpu"),
+                       capacity=cap)
+    arena.resolve_rows(live)
+    pool = np.concatenate([live, colliding[1::2],
+                           rng.integers(0, 2**63 - 1, 500, dtype=np.int64)])
+    return arena.device_index_wide(), pool
+
+
+@pytest.mark.parametrize("mode", ["wide", "narrow_into_wide"])
+def test_resolve_wide_matches_plain(cuda_device, mode):
+    from orleans_tpu_torch.tensor.arena import split_wide_keys
+
+    rng = np.random.default_rng(11)
+    mirror, pool = _wide_mirror(rng)
+    m = 200_000
+    if mode == "wide":
+        hi, lo = (torch.from_numpy(w) for w in
+                  split_wide_keys(rng.choice(pool, m)))
+    else:
+        hi = None
+        lo = torch.from_numpy(rng.choice(
+            np.array([0, 5, 6, 2**31 - 1, -3], np.int64), m).astype(
+            np.int32))
+    valid = torch.from_numpy(rng.random(m) < 0.9)
+    want = resolve.resolve_wide(*mirror, hi, lo, valid)
+    dev = [t.to(cuda_device) for t in mirror]
+    counter = torch.full((1, 2), 5, dtype=torch.int32, device=cuda_device)
+    got = resolve.resolve_wide(
+        *dev, None if hi is None else hi.to(cuda_device), lo.to(cuda_device),
+        valid.to(cuda_device), misses=counter[0, 0])
+    assert torch.equal(got[0].cpu(), want[0])
+    assert counter.tolist() == [[5 + int(want[1]), 5]]
+    assert (want[0] >= 0).any() and int(want[1]) > 0
+
+
+def _fanout_case(kind, rng):
+    from orleans_tpu_torch.samples.chirper import build_follow_graph
+    from orleans_tpu_torch.tensor.fanout import DeviceFanout
+
+    if kind == "empty_graph":
+        return DeviceFanout(budget=64), np.array([0, 3, KEY_SENTINEL],
+                                                 np.int32)
+    if kind == "overflow":
+        fan = DeviceFanout(budget=600)
+        for d in range(300):
+            fan.follow(1, 1000 + d)
+        fan.follow(2, 5)
+        return fan, np.array([1, 2, 1, 1, 7, 2] * 3, np.int32)
+    fan = build_follow_graph(20_000, 8.0, seed=2)
+    m = 1_200_000 if kind == "many_lanes" else 20_000
+    # "many_lanes": more lane blocks than one block of the scan of block
+    # sums holds, most lanes without edges
+    hi = 20_000 if kind == "power_law" else 4_000_000
+    return fan, rng.integers(0, hi, m).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["power_law", "many_lanes", "empty_graph",
+                                  "overflow"])
+def test_fanout_expand_matches_plain(cuda_device, kind):
+    from orleans_tpu_torch.kernels import fanout as kfan
+
+    rng = np.random.default_rng(12)
+    fan, src = _fanout_case(kind, rng)
+    valid = rng.random(len(src)) < 0.95
+    csr = fan.csr(torch.device("cpu"))
+    want = kfan.fanout_expand(*csr, torch.from_numpy(src),
+                              torch.from_numpy(valid))
+    got = kfan.fanout_expand(*(t.to(cuda_device) for t in csr),
+                             torch.from_numpy(src).to(cuda_device),
+                             torch.from_numpy(valid).to(cuda_device))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dst", "src_index", "out_valid", "total",
+                           "src_dropped", "n_dropped"), got, want):
+        assert torch.equal(g.cpu(), w), name
+    if kind == "overflow":
+        assert int(want[5]) > 0
+
+
+def test_fanout_expand_in_a_graph(cuda_device):
+    """K11 captured into a CUDA graph with its drop count added into a
+    window total: every replay re-expands the current source buffer."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.kernels import fanout as kfan
+    from orleans_tpu_torch.tensor.fanout import DeviceFanout
+
+    fan = DeviceFanout(budget=8)
+    for s, ds in {1: [10, 11, 12], 2: [20, 21], 3: [30]}.items():
+        for d in ds:
+            fan.follow(s, d)
+    csr = fan.csr(cuda_device)
+    src = torch.tensor([1, 2, 3, 9], dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    total = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    kfan.fanout_expand(*csr, src, valid)  # load the module first
+    torch.cuda.synchronize()
+    before = dict(_build.launch_report()["fanout_expand"])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kfan.fanout_expand(*csr, src, valid, n_dropped=total[0, 0])
+    assert _build.launch_report()["fanout_expand"]["captured"] \
+        == before["captured"] + 1
+    cpu_csr = fan.csr(torch.device("cpu"))
+    for keys, drops in (([1, 2, 3, 9], 0), ([1, 1, 1, 2], 2)):
+        src.copy_(torch.tensor(keys, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = kfan.fanout_expand(*cpu_csr, torch.tensor(keys,
+                                                         dtype=torch.int32),
+                                  torch.ones(4, dtype=torch.bool))
+        for g, w in zip(out[:5], want[:5]):
+            assert torch.equal(g.cpu(), w)
+        assert int(want[5]) == drops
+    assert total.tolist() == [[2, 0]]
+
+
+def _chirper_autofused(device, fan, follow_after=None):
+    import asyncio
+
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples.chirper import run_chirper_load
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    engine = TensorEngine(device=device, config=TensorEngineConfig(
+        auto_fusion_ticks=3, auto_fusion_window=4))
+    stats = asyncio.run(run_chirper_load(engine, n_accounts=3000,
+                                         n_ticks=16, fanout=fan))
+    if follow_after is not None:
+        fan.follow(*follow_after)
+        stats = asyncio.run(run_chirper_load(engine, n_accounts=3000,
+                                             n_ticks=16, fanout=fan))
+    return engine, stats
+
+
+def test_fused_chirper_window_on_card_matches_cpu(cuda_device):
+    """Auto-fused Chirper, the follower expansion inside the graph windows
+    (K11 replayed), then a follow() and more windows (the window rebuilds
+    on the new graph): the card equals the CPU."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples.chirper import build_follow_graph
+
+    gpu, gstats = _chirper_autofused(cuda_device,
+                                     build_follow_graph(3000, 6.0, seed=4),
+                                     follow_after=(5, 7))
+    cpu, cstats = _chirper_autofused("cpu",
+                                     build_follow_graph(3000, 6.0, seed=4),
+                                     follow_after=(5, 7))
+    assert gstats["autofuse"] == cstats["autofuse"]
+    assert gstats["autofuse"]["ticks_fused"] > 0
+    assert _build.launch_report()["fanout_expand"]["replayed"] > 0
+    assert gpu.messages_processed == cpu.messages_processed
+    ga, ca = gpu.arena_for("ChirperAccount"), cpu.arena_for("ChirperAccount")
+    keys = np.sort(ca.keys())
+    grows, crows = ga.lookup_rows(keys)[0], ca.lookup_rows(keys)[0]
+    for col in ca.state:
+        got = ga.state[col].cpu().numpy()[grows]
+        want = ca.state[col].numpy()[crows]
+        if want.dtype.kind == "f":
+            k = ca.state["received"].numpy()[crows]
+            tol = 2 * np.maximum(k - 1, 0) * 2.0**-24 * np.abs(want)
+            assert np.all(np.abs(got - want) <= tol), col
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=col)
+    assert gpu.ledger.snapshot() == cpu.ledger.snapshot()
+    prog = next(iter(gpu.autofuser._programs.values()))
+    assert prog.rebuilds["fanout_rebuild"] >= 1
+
+
+def test_wide_presence_window_on_card_matches_cpu(cuda_device):
+    """A fused WidePresence window on the card (K10 replayed in the graph)
+    equals the CPU run."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples import presence_wide
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    players, games, _idx, words, scores = \
+        presence_wide.wide_presence_inputs(5000, 50, seed=1)
+    out = {}
+    for device in (cuda_device, "cpu"):
+        eng = TensorEngine(device=device)
+        eng.arena_for("WideGame").resolve_rows(games)
+        prog = eng.fuse_ticks("WidePresence", "heartbeat", players)
+        static = {"game_hi": torch.from_numpy(words[0]).to(device),
+                  "game_lo": torch.from_numpy(words[1]).to(device),
+                  "score": torch.from_numpy(scores).to(device)}
+        for w in range(3):
+            prog.run({"tick": torch.arange(4 * w, 4 * w + 4,
+                                           dtype=torch.int32)}, static)
+        assert prog.verify() == 0
+        ga = eng.arena_for("WideGame")
+        rows, _ = ga.lookup_rows(games)
+        out[str(device)] = {c: v.cpu().numpy()[rows]
+                            for c, v in ga.state.items()}
+    assert _build.launch_report()["resolve_wide"]["replayed"] > 0
+    g, c = out[str(cuda_device)], out["cpu"]
+    np.testing.assert_array_equal(g["updates"], c["updates"])
+    tol = 2 * np.maximum(c["updates"] - 1, 0) * 2.0**-24 \
+        * np.abs(c["total_score"])
+    assert np.all(np.abs(g["total_score"] - c["total_score"]) <= tol)

@@ -57,7 +57,10 @@ def test_port_imports_neither_jax_nor_orleans_tpu():
         "orleans_tpu_torch.tensor.autofuse",
         "orleans_tpu_torch.tensor.vector_grain",
         "orleans_tpu_torch.tensor.arena", "orleans_tpu_torch.tensor.engine",
-        "orleans_tpu_torch.samples.presence", "orleans_tpu_torch.convert"}
+        "orleans_tpu_torch.samples.presence", "orleans_tpu_torch.convert",
+        "orleans_tpu_torch.kernels.fanout", "orleans_tpu_torch.tensor.fanout",
+        "orleans_tpu_torch.samples.presence_wide",
+        "orleans_tpu_torch.samples.chirper"}
     assert expected <= set(report["modules"])
     assert report["leaked"] == []
     # no card here: the default device must refuse, not fall back

@@ -464,3 +464,94 @@ def test_parked_miss_check_redelivers_emit_time_payload(run):
     rows, _ = ga.lookup_rows(np.arange(n_games, dtype=np.int64))
     np.testing.assert_array_equal(ga.state["updates"].numpy()[rows],
                                   np.bincount(games, minlength=n_games))
+
+
+@pytest.mark.parametrize("keys_kind", ["device", "host"])
+def test_send_batch_delivers_enqueue_time_values(run, keys_kind):
+    """A caller rewrites its key and payload tensors in place after
+    ``send_batch`` and before the tick runs: the engine delivers what was
+    sent (its batch holds copies), as the JAX package does with its
+    immutable arrays.  ``device``: int32 keys (the optimistic device
+    path); ``host``: int64 keys (the host path)."""
+    n_games = 12
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, n_games, 300).astype(np.int32)
+    scores = rng.random(300, dtype=np.float32)
+    counts = np.ones(300, np.int32)
+    dtype = torch.int32 if keys_kind == "device" else torch.int64
+
+    async def drive(engine, k, s, c, rewrite):
+        engine.arena_for("GameGrain").reserve(2 * n_games)
+        engine.send_batch("GameGrain", "update_game_status", k,
+                          {"score": s, "count": c})
+        rewrite(k, s, c)
+        await engine.flush()
+        return engine
+
+    def in_place(k, s, c):
+        k.copy_((k + 5) % (2 * n_games))
+        s.mul_(3)
+        c.fill_(7)
+
+    async def main():
+        # JAX takes int32 device arrays, or int64 host arrays (a JAX array
+        # without x64 would be int32)
+        jkeys = jnp.asarray(keys) if keys_kind == "device" \
+            else keys.astype(np.int64)
+        je = await drive(_jax_engine(), jkeys, jnp.asarray(scores),
+                         jnp.asarray(counts), lambda *a: None)
+        pe = await drive(_port_engine(),
+                         torch.from_numpy(keys.copy()).to(dtype),
+                         torch.from_numpy(scores.copy()),
+                         torch.from_numpy(counts.copy()), in_place)
+        return je, pe
+
+    je, pe = run(main())
+    assert pe.activation_passes == je.activation_passes
+    _assert_arena_matches(je, pe, "GameGrain")
+    ga = pe.arena_for("GameGrain")
+    rows, _ = ga.lookup_rows(np.arange(n_games, dtype=np.int64))
+    np.testing.assert_array_equal(ga.state["updates"].numpy()[rows],
+                                  np.bincount(keys, minlength=n_games))
+
+
+def test_round_cap_spill_delivers_emit_time_values(run):
+    """With one round per tick, the heartbeat's game emits spill to the
+    next tick; they forward the loader's own ``game`` and ``score``
+    tensors, which the loader rewrites in place between the two ticks.
+    The spilled batch holds copies: the next tick delivers what was
+    emitted, as the JAX package does."""
+    n_players, n_games = 200, 10
+    players, games, scores = presence_inputs(n_players, n_games, seed=9)
+
+    async def drive(engine, game, score, rewrite):
+        engine.config.max_rounds_per_tick = 1
+        engine.arena_for("GameGrain").resolve_rows(
+            np.arange(2 * n_games, dtype=np.int64))
+        inj = engine.make_injector("PresenceGrain", "heartbeat", players)
+        inj.inject({"game": game, "score": score, "tick": np.int32(1)})
+        engine.run_tick()             # heartbeats apply, game emits spill
+        assert any(engine.queues.values())
+        rewrite(game, score)
+        await engine.flush()
+        return engine
+
+    def in_place(game, score):
+        game.add_(n_games)
+        score.fill_(9.0)
+
+    async def main():
+        je = await drive(_jax_engine(), jnp.asarray(games),
+                         jnp.asarray(scores), lambda g, s: None)
+        pe = await drive(_port_engine(), torch.from_numpy(games.copy()),
+                         torch.from_numpy(scores.copy()), in_place)
+        return je, pe
+
+    je, pe = run(main())
+    assert pe.messages_processed == je.messages_processed
+    _assert_arena_matches(je, pe, "GameGrain")
+    ga = pe.arena_for("GameGrain")
+    rows, _ = ga.lookup_rows(np.arange(2 * n_games, dtype=np.int64))
+    np.testing.assert_array_equal(
+        ga.state["updates"].numpy()[rows],
+        np.bincount(games, minlength=2 * n_games))
