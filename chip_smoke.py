@@ -62,7 +62,29 @@ Phases, each of which fails loudly (exit code other than 0):
    duplicate sources overflow the width.  Each path's launch counters are
    zeroed just before it and read just after; every kernel of the path
    must have launched (graph replays count).
-8. One JSON line of the kernels, the card line, and last
+8. The grain lifecycle and the timers plane.  K12–K15 against their
+   plain versions on the card at the paths' shapes and on adversarial
+   inputs (clocks and cutoffs at the clipped int32 edges, pad lanes,
+   out-of-range slots, dues and clocks where int32 arithmetic wraps, a
+   harvest with re-arms, one-shots and stale slots, an empty harvest),
+   each timed beside its bound.  Collection at bench.py's full size
+   (``_collection_tier``): 500,000 Presence players on 5,000 games,
+   50,000 hot, ``collection_idle_ticks=60``, every 16 ticks, 16,384-row
+   chunks, a ``MemoryVectorStore``, the attribution plane on, auto-fusion
+   off — incremental (0.02 s pause budget), synchronous (budget 0), both
+   with compaction off, and once at the default threshold 0.75, which
+   crosses into ``_compact``.  Each is exact: 450,000 evicted, every live
+   row and every evicted key's store record equal the numpy oracle, the
+   probe key re-activates with its state, the attribution totals equal
+   the per-key message counts.  The timers: 2,000,000 AuctionGrain
+   one-shots striped over 64 ticks (each fires once, on its tick), the
+   auction sample at 1,000,000 and the watchdog at 500,000, exact against
+   their oracles; and the watchdog at 50,000 with collection on (silent
+   devices evicted between watches, re-activated by the watch fires),
+   held against the same run on the CPU engine (which
+   tests/test_torch_timers.py holds against the JAX engine).  Launches
+   are counted per path.
+9. One JSON line of the kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -89,6 +111,12 @@ SENTINEL = 2**31 - 1
 WIDE_GAMES = 10_000            # WidePresence: PLAYERS players, wide games
 ACCOUNTS, MEAN_FOLLOWERS, ZIPF = 200_000, 25.0, 1.6   # Chirper
 NEW_WINDOWS = 4                # fused windows per new path's timed run
+# collection (bench.py _collection_tier, full size)
+COLL_GRAINS, COLL_HOT, COLL_GAMES = 500_000, 50_000, 5_000
+COLL_IDLE, COLL_EVERY, COLL_BUDGET, COLL_CHUNK = 60, 16, 0.02, 16_384
+# timers (bench.py _timers_tier, full size)
+TIMERS_N, TIMERS_SPREAD = 2_000_000, 64
+AUCTIONS, FLEET, COMPOSED_FLEET = 1_000_000, 500_000, 50_000
 
 SOURCES = {
     "resolve_dense": ("orleans_tpu_torch/csrc/resolve.cu",
@@ -115,6 +143,14 @@ SOURCES = {
                      "orleans_tpu/tensor/engine.py:265"),
     "fanout_expand": ("orleans_tpu_torch/csrc/fanout.cu",
                       "orleans_tpu/tensor/fanout.py:52"),
+    "idle_mask": ("orleans_tpu_torch/csrc/lifecycle.cu",
+                  "orleans_tpu/tensor/arena.py:53"),
+    "gather_rows": ("orleans_tpu_torch/csrc/lifecycle.cu",
+                    "orleans_tpu/tensor/attribution.py:287"),
+    "timers_write": ("orleans_tpu_torch/csrc/timers.cu",
+                     "orleans_tpu/tensor/timers_plane.py:80"),
+    "timers_harvest": ("orleans_tpu_torch/csrc/timers.cu",
+                       "orleans_tpu/tensor/timers_plane.py:90"),
 }
 # the kernels each path must launch (launch counts zeroed before it, read
 # after it)
@@ -125,8 +161,19 @@ WIDE_KERNELS = ("resolve_wide", "row_scatter", "seg_sum", "hist_count",
                 "attr_fold")
 CHIRPER_KERNELS = ("fanout_expand", "resolve_dense", "row_scatter",
                    "seg_sum", "hist_count", "attr_fold")
+COLLECTION_KERNELS = ("idle_mask", "gather_rows", "row_scatter", "seg_sum",
+                      "attr_fold")
+TIMERS_KERNELS = ("timers_write", "timers_harvest", "gather_rows",
+                  "row_scatter", "resolve_dense")
+COMPOSED_KERNELS = ("idle_mask", "gather_rows", "timers_write",
+                    "timers_harvest", "row_scatter", "miss_keys")
 ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
-                                 "orleans_tpu/tensor/arena.py:34"],
+                                 "orleans_tpu/tensor/arena.py:34",
+                                 "orleans_tpu/tensor/attribution.py:294",
+                                 "orleans_tpu/tensor/arena.py:634",
+                                 "orleans_tpu/tensor/arena.py:877"],
+                 "gather_rows": ["orleans_tpu/tensor/arena.py:702",
+                                 "orleans_tpu/tensor/arena.py:768"],
                  "hist_count": ["orleans_tpu/tensor/fused.py:384"],
                  "resolve_wide": ["orleans_tpu/tensor/engine.py:248"],
                  "attr_fold": ["orleans_tpu/tensor/attribution.py:133",
@@ -176,11 +223,17 @@ class Timer:
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
         self.host_ms = 0.0
 
-    def __call__(self, fn, reps: int = REPS) -> float:
+    def __call__(self, fn, reps: int = REPS, setup=None) -> float:
+        """``setup``, where given, runs before every run and outside its
+        window: it restores state that ``fn`` changes in place."""
+        if setup is not None:
+            setup()
         fn()  # warm: first launch loads the module
         torch.cuda.synchronize()
         times, host = [], []
         for _ in range(reps):
+            if setup is not None:
+                setup()
             self.flush.zero_()
             torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
@@ -196,14 +249,16 @@ class Timer:
         return float(np.median(times))
 
 
-def measure(timer, kernel, plain, library) -> dict:
+def measure(timer, kernel, plain, library, setup=None) -> dict:
     """Device times of the kernel's wrapper, its plain version and the
     library yardstick (None where no one PyTorch call computes the same
-    function), plus the host time the wrapper takes to enqueue."""
-    ms = timer(kernel)
+    function), plus the host time the wrapper takes to enqueue.  ``setup``
+    restores, before every timed run, what the calls change in place."""
+    ms = timer(kernel, setup=setup)
     host_ms = timer.host_ms
-    return dict(ms=ms, host_ms=host_ms, plain_ms=timer(plain),
-                library_ms=timer(library) if library is not None else None)
+    return dict(ms=ms, host_ms=host_ms, plain_ms=timer(plain, setup=setup),
+                library_ms=timer(library, setup=setup)
+                if library is not None else None)
 
 
 def bound(bytes_moved: float, int_ops: float = 0.0):
@@ -2099,6 +2154,534 @@ def drive_chirper_path(dev, card: str, graph: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the grain lifecycle and the timers plane
+# ---------------------------------------------------------------------------
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def harvest_edge_columns(n: int):
+    """Slot columns whose dues, periods and clock make ``now - due`` and
+    ``due + steps * period`` overflow int32 (they wrap, as in JAX)."""
+    key = np.arange(n, dtype=np.int32)
+    key[0] = SENTINEL
+    pat_d = [0, -2**31 + 1, -2**31 + 1, -5, 2**31 - 1, 2**31 - 4, 7, -2**30,
+             -2**31 + 7, 0, 2**31 - 1, 5]
+    pat_p = [0, 1, 2**31 - 1, 3, 7, 2**31 - 1, 2**30, 2**30 + 5, 1,
+             2**31 - 1, 0, 2]
+    due = np.resize(np.array(pat_d, np.int64), n).astype(np.int32)
+    period = np.resize(np.array(pat_p, np.int64), n).astype(np.int32)
+    name = (np.arange(n) % 5).astype(np.int32)
+    return key, due, period, name
+
+
+def check_lifecycle_kernels(dev, timer, card: str) -> dict:
+    """K12–K15 against their plain versions on the card, at the shapes of
+    the collection and timers paths and on adversarial inputs; each timed
+    beside its bound, its plain version and (K13) a library yardstick."""
+    from orleans_tpu_torch.kernels import lifecycle as klc
+    from orleans_tpu_torch.kernels import timers as ktm
+
+    rng = np.random.default_rng(2468)
+    results = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # -- K12 idle_mask: the collection sweep over the arena -------------------
+    cap = 1 << 20  # Presence at 500,000 players after reserve()
+    dev_clock = rng.integers(0, 400, cap).astype(np.int32)
+    host_clock = rng.integers(0, 400, cap).astype(np.int32)
+    host_clock[::97] = 2**31 - 1   # the clipped edges
+    dev_clock[::89] = 0
+    live = rng.random(cap) < 0.5
+    dc, hc, lv = t(dev_clock), t(host_clock), t(live)
+    for cutoff in (-2**31 + 1, 0, 200, 2**31 - 1):
+        got = klc.idle_mask(dc, hc, lv, cutoff)
+        want = klc.idle_mask_plain(dc, hc, lv, cutoff)
+        require(torch.equal(got, want), f"idle_mask != plain ({cutoff})")
+    results["idle_mask"] = dict(
+        max_abs_err=0, library=None,
+        library_note="no single PyTorch call: the shortest expression is "
+                     "the plain version, live & (maximum(dev, host) < "
+                     "cutoff), timed as plain_ms",
+        bound=bound(10 * cap),
+        **measure(timer, lambda: klc.idle_mask(dc, hc, lv, 200),
+                  lambda: klc.idle_mask_plain(dc, hc, lv, 200), None))
+
+    # -- K13 gather_rows: one write-back chunk of every state column ----------
+    m = COLL_CHUNK
+    rows = rng.choice(cap, m, replace=False).astype(np.int32)
+    rows_d = t(rows)
+    cols = {"int32": t(rng.integers(-2**31, 2**31 - 1, cap, dtype=np.int64)
+                       .astype(np.int32)),
+            "float32": t(rng.standard_normal(cap).astype(np.float32)),
+            "width 3": t(rng.standard_normal((cap, 3)).astype(np.float32))}
+    padded = np.zeros(_pow2(m + 77), np.int32)
+    padded[:m + 77] = rng.integers(0, cap, m + 77)
+    padded[5], padded[9] = -3, cap + 11   # clipped into [0, cap)
+    for what, col in cols.items():
+        for r in (rows_d, t(padded)):
+            require(torch.equal(klc.gather_rows(col, r),
+                                klc.gather_rows_plain(col, r)),
+                    f"gather_rows != plain ({what})")
+    col = cols["int32"]
+    clamped = rows_d.clamp(0, cap - 1).long()
+    results["gather_rows"] = dict(
+        max_abs_err=0,
+        library="torch.index_select on rows clamped beforehand (the clamp "
+                "not timed)",
+        bound=bound(12 * m),
+        **measure(timer, lambda: klc.gather_rows(col, rows_d),
+                  lambda: klc.gather_rows_plain(col, rows_d),
+                  lambda: torch.index_select(col, 0, clamped)))
+
+    # -- K14 timers_write: the 2M-timer arm -----------------------------------
+    n_slots = 2_097_152 + 1     # the plane's columns after growing to 2M
+    w = _pow2(TIMERS_N)
+    slots = np.zeros(w, np.int32)
+    slots[:TIMERS_N] = rng.permutation(np.arange(1, n_slots))[:TIMERS_N]
+    vals = [np.full(w, SENTINEL, np.int32), np.zeros(w, np.int32),
+            np.zeros(w, np.int32), np.zeros(w, np.int32)]
+    vals[0][:TIMERS_N] = rng.integers(0, TIMERS_N, TIMERS_N)
+    vals[1][:TIMERS_N] = rng.integers(1, 65, TIMERS_N)
+    vals[2][:TIMERS_N] = 1
+    vals[3][:TIMERS_N] = np.where(rng.random(TIMERS_N) < 0.5, 0, 8)
+    idx_d = t(slots)
+    vals_d = [t(v) for v in vals]
+
+    def fresh_columns():
+        return [torch.full((n_slots,), SENTINEL, dtype=torch.int32,
+                           device=dev)] + [
+            torch.zeros(n_slots, dtype=torch.int32, device=dev)
+            for _ in range(3)]
+
+    a, b = fresh_columns(), fresh_columns()
+    ktm.timers_write(*a, idx_d, *vals_d)
+    ktm.timers_write_plain(*b, idx_d, *vals_d)
+    require(all(torch.equal(x, y) for x, y in zip(a, b)),
+            "timers_write != plain (the 2M arm)")
+    # adversarial: a small write with a dropped slot and pad lanes
+    small = np.zeros(16, np.int32)
+    small[:11] = rng.choice(np.arange(1, 4096), 11, replace=False)
+    small[3] = n_slots + 9
+    sv = [np.full(16, SENTINEL, np.int32)] + [np.zeros(16, np.int32)] * 3
+    sv = [v.copy() for v in sv]
+    for v, hi in zip(sv, (1 << 20, 2**31 - 1, 4, 2**31 - 1)):
+        v[:11] = rng.integers(0, hi, 11)
+    ktm.timers_write(*a, t(small), *(t(v) for v in sv))
+    ktm.timers_write_plain(*b, t(small), *(t(v) for v in sv))
+    require(all(torch.equal(x, y) for x, y in zip(a, b)),
+            "timers_write != plain (pads, dropped slot)")
+    cols_w = fresh_columns()
+    results["timers_write"] = dict(
+        max_abs_err=0, library=None,
+        library_note="no single PyTorch call: the shortest expression is "
+                     "four index_put_ calls, timed as plain_ms",
+        bound=bound(32 * w),
+        **measure(timer, lambda: ktm.timers_write(*cols_w, idx_d, *vals_d),
+                  lambda: ktm.timers_write_plain(*cols_w, idx_d, *vals_d),
+                  None))
+
+    # -- K15 timers_harvest: one tick's due bucket of the 2M headline ---------
+    due_w = TIMERS_N // TIMERS_SPREAD        # 31,250 due slots a tick
+    now = 1000
+    key = rng.integers(0, TIMERS_N, n_slots).astype(np.int32)
+    key[0] = SENTINEL
+    key[rng.random(n_slots) < 0.05] = SENTINEL    # freed / stale slots
+    due = rng.integers(now - 3, now + 64, n_slots).astype(np.int32)
+    period = np.where(rng.random(n_slots) < 0.3,
+                      rng.integers(1, 16, n_slots), 0).astype(np.int32)
+    name = rng.integers(0, 3, n_slots).astype(np.int32)
+    hidx = np.zeros(_pow2(due_w), np.int32)
+    hidx[:due_w] = rng.choice(np.arange(1, n_slots), due_w, replace=False)
+    hidx_d = t(hidx)
+    base = [t(key), t(due), t(period), t(name)]
+
+    def harvest_pair(cols4, idx, now_):
+        k1, d1 = cols4[0].clone(), cols4[1].clone()
+        k2, d2 = cols4[0].clone(), cols4[1].clone()
+        got = ktm.timers_harvest(k1, d1, cols4[2], cols4[3], idx, now_)
+        want = ktm.timers_harvest_plain(k2, d2, cols4[2], cols4[3], idx,
+                                        now_)
+        return (torch.equal(k1, k2) and torch.equal(d1, d2)
+                and all(torch.equal(x, y) for x, y in zip(got, want)))
+
+    require(harvest_pair(base, hidx_d, now), "timers_harvest != plain "
+            "(the headline bucket, re-arms, one-shots, stale slots)")
+    edge = [t(c) for c in harvest_edge_columns(4096)]
+    eidx = t(np.concatenate([rng.choice(np.arange(1, 4096), 3000,
+                                        replace=False).astype(np.int32),
+                             np.zeros(1096, np.int32)]))
+    for now_ in (0, 9, 2**31 - 1, 2**31 - 2, -2**31 + 10, 2**30):
+        require(harvest_pair(edge, eidx, now_),
+                f"timers_harvest != plain (int32 edges, now={now_})")
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    out = ktm.timers_harvest(*[c.clone() for c in base[:2]], base[2],
+                             base[3], empty, now)
+    require(all(x.shape == (0,) for x in out), "empty harvest")
+    # timed on the bucket as the 2M headline hands it to K15: every lane
+    # live and due on this tick, a one-shot; the harvest frees its slots
+    # in place, so each timed run starts from a fresh copy of the bucket
+    head = [key.copy(), due.copy(), period.copy()]
+    lanes = hidx[:due_w]
+    head[0][lanes] = rng.integers(0, TIMERS_N, due_w)
+    head[1][lanes] = now
+    head[2][lanes] = 0
+    head = [t(c) for c in head] + [base[3]]
+    require(harvest_pair(head, hidx_d, now),
+            "timers_harvest != plain (the headline's one-shot bucket)")
+    hk, hd = head[0].clone(), head[1].clone()
+
+    def restore():
+        hk.copy_(head[0])
+        hd.copy_(head[1])
+
+    results["timers_harvest"] = dict(
+        max_abs_err=0, library=None,
+        library_note="none: no PyTorch call gathers, re-arms and frees "
+                     "in one",
+        bound=bound(33 * due_w),
+        **measure(timer,
+                  lambda: ktm.timers_harvest(hk, hd, head[2], head[3],
+                                             hidx_d, now),
+                  lambda: ktm.timers_harvest_plain(hk, hd, head[2],
+                                                   head[3], hidx_d, now),
+                  None, setup=restore))
+    for name_ in ("idle_mask", "gather_rows", "timers_write",
+                  "timers_harvest"):
+        v = results[name_]
+        lib = f"{v['library_ms']:.4f}" if v["library_ms"] is not None \
+            else "none"
+        print(f"kernel {name_}: {v['ms']:.4f} ms on the device, host "
+              f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
+              f"{lib}, bound {v['bound'][0]:.4f} by {v['bound'][1]}); on "
+              f"{card}", flush=True)
+    return results
+
+
+def _presence_payload(games, ks, tick: int) -> dict:
+    return {"game": games[:len(ks)],
+            "score": np.ones(len(ks), np.float32),
+            "tick": np.full(len(ks), tick, np.int32)}
+
+
+def collection_run(dev, budget_s: float, threshold: float) -> dict:
+    """bench.py's ``_collection_scenario`` on the card, with its oracle:
+    activate every player, settle into the hot subset's steady state, let
+    the tick-interleaved collector evict the idle majority with columnar
+    write-back, then re-activate one evicted player through the store.
+    Checks every live row, every evicted key's record, the probe and the
+    attribution totals exactly."""
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples import presence  # noqa: F401
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+    from orleans_tpu_torch.tensor.persistence import MemoryVectorStore
+
+    n, hot, chunk = COLL_GRAINS, COLL_HOT, COLL_CHUNK
+    cfg = TensorEngineConfig(
+        auto_fusion_ticks=0, collection_idle_ticks=COLL_IDLE,
+        collection_every_ticks=COLL_EVERY,
+        collection_pause_budget_s=budget_s, collection_chunk_rows=chunk,
+        compact_fragmentation_threshold=threshold)
+    store = MemoryVectorStore()
+    engine = TensorEngine(device=dev, config=cfg, store=store)
+    keys = np.arange(n, dtype=np.int64)
+    games = (keys % COLL_GAMES).astype(np.int32)
+    hb = np.zeros(n, np.int64)      # the oracle: heartbeats per player
+    last = np.zeros(n, np.int64)    # and the tick of the last one
+
+    def drive(inj, n_ticks, stalls=None):
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            tick = engine.tick_number
+            inj.inject(_presence_payload(games, inj.keys, tick))
+            hb[inj.keys] += 1
+            last[inj.keys] = tick
+            engine.run_tick()
+            if stalls is not None:
+                stalls.append(engine.last_tick_stages.get("collect", 0.0))
+        asyncio.run(engine.flush())
+        return time.perf_counter() - t0
+
+    drive(engine.make_injector("PresenceGrain", "heartbeat", keys), 4)
+    arena = engine.arena_for("PresenceGrain")
+    # warm the collection machinery on a sacrificial key range outside
+    # the measured window (bench.py does the same)
+    warm = np.arange(n, n + chunk, dtype=np.int64)
+    arena.resolve_rows(warm, tick=0)
+    arena.select_idle_rows(0)
+    engine.arena_for("GameGrain").select_idle_rows(0)
+    arena.deactivate_idle_rows(arena.lookup_rows(warm)[0], 10**9,
+                               write_back=True)
+    gen0 = arena.generation
+    hot_inj = engine.make_injector("PresenceGrain", "heartbeat", keys[:hot])
+    drive(hot_inj, 16)
+    msgs0 = engine.messages_processed
+    pre_s = drive(hot_inj, 16)
+    pre_rate = (engine.messages_processed - msgs0) / pre_s
+    stalls = []
+    evicted0 = arena.evicted_count
+    for _ in range(40):
+        drive(hot_inj, 8, stalls)
+        if arena.live_count == hot and not engine.collector.active():
+            break
+    evicted = arena.evicted_count - evicted0
+    msgs1 = engine.messages_processed
+    post_s = drive(hot_inj, 16)
+    post_rate = (engine.messages_processed - msgs1) / post_s
+    require(evicted == n - hot, f"collection evicted {evicted}, want "
+            f"{n - hot}")
+    if threshold == 0.0:
+        require(arena.generation == gen0, "the generation moved")
+    else:
+        require(arena.generation > gen0, "no compaction ran")
+    # every evicted player's record is its state at eviction
+    cold = keys[hot:]
+    recs = store.read_many("PresenceGrain", cold.tolist())
+    require(len(recs) == len(cold), "records missing")
+    for field_, want in (("heartbeats", hb[hot:]), ("last_heartbeat",
+                                                    last[hot:]),
+                         ("game", games[hot:])):
+        got = np.array([int(recs[int(k)][field_]) for k in cold])
+        require(np.array_equal(got, want), f"store {field_} != oracle")
+    warm_recs = store.read_many("PresenceGrain", warm.tolist())
+    require(all(int(r["heartbeats"]) == 0 and int(r["game"]) == -1
+                for r in warm_recs.values()) and len(warm_recs) == chunk,
+            "warm records")
+    # the probe re-activates with its state
+    probe = int(keys[-1])
+    engine.send_batch("PresenceGrain", "heartbeat",
+                      np.array([probe], dtype=np.int64),
+                      _presence_payload(np.zeros(1, np.int32), [probe], 0))
+    asyncio.run(engine.flush())
+    hb[probe] += 1
+    last[probe] = 0
+    games_now = games.copy()
+    games_now[probe] = 0
+    live_keys = np.sort(arena.keys())
+    require(np.array_equal(live_keys, np.append(keys[:hot], probe)),
+            "live keys != hot + probe")
+    rows, _ = arena.lookup_rows(live_keys)
+    state = {k: v.cpu().numpy()[rows] for k, v in arena.state.items()}
+    for field_, want in (("heartbeats", hb), ("last_heartbeat", last),
+                         ("game", games_now)):
+        require(np.array_equal(state[field_], want[live_keys]),
+                f"live {field_} != oracle")
+    require(arena.restored_count == 1, f"restored {arena.restored_count}")
+    # the games: every heartbeat's update, exact (integer-valued floats)
+    updates = np.bincount(games, weights=hb, minlength=COLL_GAMES)
+    updates[games[probe]] -= 1
+    updates[0] += 1
+    ga = engine.arena_for("GameGrain")
+    grows, found = ga.lookup_rows(np.arange(COLL_GAMES, dtype=np.int64))
+    require(found.all(), "game rows")
+    require(np.array_equal(ga.state["updates"].cpu().numpy()[grows],
+                           updates)
+            and np.array_equal(ga.state["total_score"].cpu().numpy()[grows],
+                               updates.astype(np.float32)),
+            "game updates != oracle")
+    # the attribution plane: retired + live counts == messages per key
+    att = engine.attribution
+    got = att.per_key_totals("PresenceGrain")
+    want = {int(k): int(v) for k, v in zip(keys, hb) if v}
+    require(got == want, "attribution totals (players) != messages")
+    got = att.per_key_totals("GameGrain")
+    require(got == {g: int(u) for g, u in enumerate(updates) if u},
+            "attribution totals (games) != messages")
+    stall = np.asarray(stalls) if stalls else np.zeros(1)
+    snap = engine.collector.snapshot()
+    snap.pop("last_slices")
+    return {
+        "evicted": evicted, "generation_moved": arena.generation != gen0,
+        "max_collect_stall_s": float(stall.max()),
+        "collect_stall_p99_s": float(np.percentile(stall, 99)),
+        "pre_evict_msgs_per_sec": pre_rate,
+        "post_evict_msgs_per_sec": post_rate,
+        "collector": snap,
+        "retired_keys": att.stats()["retired_keys"],
+    }
+
+
+def drive_collection_path(dev, card: str) -> dict:
+    """Collection 500k/50k: incremental, synchronous, and across a
+    threshold compaction; launches counted over the three runs."""
+    from orleans_tpu_torch.kernels import _build
+
+    gc.collect()
+    _build.reset_launch_counts()
+    out = {"incremental": collection_run(dev, COLL_BUDGET, 0.0),
+           "synchronous": collection_run(dev, 0.0, 0.0),
+           "compacting": collection_run(dev, COLL_BUDGET, 0.75)}
+    out["counts"] = _build.launch_counts()
+    out["report"] = _build.launch_report()
+    require_launched(out["counts"], "collection", COLLECTION_KERNELS)
+    for mode in ("incremental", "synchronous", "compacting"):
+        r = out[mode]
+        print(f"collection {mode} {COLL_GRAINS} players / {COLL_HOT} hot: "
+              f"evicted {r['evicted']} (generation moved: "
+              f"{r['generation_moved']}), collect stall max "
+              f"{r['max_collect_stall_s'] * 1e3:.3f} ms, p99 "
+              f"{r['collect_stall_p99_s'] * 1e3:.3f} ms; "
+              f"{r['pre_evict_msgs_per_sec']:.1f} msgs/s before eviction, "
+              f"{r['post_evict_msgs_per_sec']:.1f} after; collector "
+              f"{json.dumps(r['collector'])}; on {card}", flush=True)
+    print(f"launches on the collection path: {json.dumps(out['counts'])}",
+          flush=True)
+    return out
+
+
+def drive_timers_path(dev, card: str) -> dict:
+    """The 2M one-shot harvest headline, the auction sample at 1M and the
+    watchdog at 500k, each exact; launches counted over the three."""
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples.auction import run_auction_load
+    from orleans_tpu_torch.samples.watchdog import run_watchdog_load
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    gc.collect()
+    _build.reset_launch_counts()
+    out = {}
+    n = TIMERS_N
+    engine = TensorEngine(device=dev, config=TensorEngineConfig(
+        auto_fusion_ticks=0))
+    keys = np.arange(n, dtype=np.int64)
+    engine.arena_for("AuctionGrain").reserve(n)
+    inj = engine.make_injector("AuctionGrain", "bid", keys)
+    inj.inject({"amount": np.zeros(n, np.float32)})
+    engine.run_tick()
+    asyncio.run(engine.flush())
+    dues = engine.tick_number + 1 + (keys % TIMERS_SPREAD)
+    t0 = time.perf_counter()
+    engine.timers.arm_batch("AuctionGrain", keys, dues, 0, "close")
+    arm_s = time.perf_counter() - t0
+    closes_at = {}
+    t0 = time.perf_counter()
+    for _ in range(TIMERS_SPREAD + 1):
+        engine.run_tick()
+        closes_at[engine.tick_number] = engine.timers.fired_total
+    asyncio.run(engine.flush())
+    harvest_s = time.perf_counter() - t0
+    snap = engine.timers.snapshot()
+    arena = engine.arena_for("AuctionGrain")
+    rows, found = arena.lookup_rows(keys)
+    closes = arena.state["closes"].cpu().numpy()[rows]
+    per_tick = np.bincount(dues - dues.min(), minlength=TIMERS_SPREAD)
+    fired_per_tick = np.diff([0] + [closes_at[t] for t in sorted(closes_at)])
+    require(found.all() and (closes == 1).all(), "a closing fired twice "
+            "or never")
+    require(snap["fired"] == n and snap["worst_lateness_ticks"] == 0
+            and snap["armed"] == 0, f"harvest {snap}")
+    require(np.array_equal(fired_per_tick[:TIMERS_SPREAD], per_tick),
+            "timers fired off their tick")
+    out["harvest"] = {
+        "fires_per_sec": n / harvest_s, "arms_per_sec": n / arm_s,
+        "mean_harvest_width": snap["mean_harvest_width"],
+        "worst_lateness_ticks": snap["worst_lateness_ticks"],
+        "seconds": harvest_s}
+    del engine, inj, arena
+    gc.collect()
+    engine = TensorEngine(device=dev, config=TensorEngineConfig(
+        auto_fusion_ticks=0))
+    t0 = time.perf_counter()
+    out["auction"] = asyncio.run(run_auction_load(
+        engine, n_auctions=AUCTIONS, n_ticks=40, verify=True))
+    out["auction"]["seconds"] = time.perf_counter() - t0
+    del engine
+    gc.collect()
+    engine = TensorEngine(device=dev, config=TensorEngineConfig(
+        auto_fusion_ticks=0))
+    t0 = time.perf_counter()
+    out["watchdog"] = asyncio.run(run_watchdog_load(
+        engine, n_devices=FLEET, window=8, n_windows=4, verify=True))
+    out["watchdog"]["seconds"] = time.perf_counter() - t0
+    del engine
+    out["counts"] = _build.launch_counts()
+    out["report"] = _build.launch_report()
+    require_launched(out["counts"], "timers", TIMERS_KERNELS)
+    h = out["harvest"]
+    print(f"timers {n} one-shots over {TIMERS_SPREAD} ticks: "
+          f"{h['fires_per_sec']:.1f} fires/s ({h['seconds']:.3f} s for the "
+          f"ticks), armed at {h['arms_per_sec']:.1f}/s, mean harvest width "
+          f"{h['mean_harvest_width']}, worst lateness "
+          f"{h['worst_lateness_ticks']}; auction {AUCTIONS}: "
+          f"{json.dumps(out['auction'])}; watchdog {FLEET}: "
+          f"{json.dumps(out['watchdog'])}; on {card}", flush=True)
+    print(f"launches on the timers path: {json.dumps(out['counts'])}",
+          flush=True)
+    return out
+
+
+def drive_composition_path(dev, card: str) -> dict:
+    """The watchdog at 50,000 devices with collection on: silent devices
+    are evicted between watches and each watch fire re-activates them
+    through the store.  The oracle is the same run on the CPU engine,
+    compared key by key, with the timer mirrors and the counters."""
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples.watchdog import run_watchdog_load
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+    from orleans_tpu_torch.tensor.persistence import MemoryVectorStore
+
+    def run(device):
+        engine = TensorEngine(device=device, store=MemoryVectorStore(),
+                              config=TensorEngineConfig(
+                                  auto_fusion_ticks=0,
+                                  collection_idle_ticks=4,
+                                  collection_every_ticks=2))
+        stats = asyncio.run(run_watchdog_load(
+            engine, n_devices=COMPOSED_FLEET, window=8, n_windows=4,
+            verify=False))
+        return engine, stats
+
+    gc.collect()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, stats = run(dev)
+    seconds = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    report = _build.launch_report()
+    ref, ref_stats = run("cpu")
+    require(stats == ref_stats, f"composition stats {stats} != CPU "
+            f"{ref_stats}")
+    a, b = eng.arena_for("FleetDeviceGrain"), ref.arena_for(
+        "FleetDeviceGrain")
+    keys = np.arange(COMPOSED_FLEET, dtype=np.int64)
+    ra, fa = a.lookup_rows(keys)
+    rb, fb = b.lookup_rows(keys)
+    require(fa.all() and fb.all(), "composition: a device is not live")
+    for name, col in a.state.items():
+        require(np.array_equal(col.cpu().numpy()[ra],
+                               b.state[name].numpy()[rb]),
+                f"composition {name} != CPU engine")
+    for k in ("evicted", "restored", "messages", "ticks",
+              "activation_passes"):
+        require(eng.stats()[k] == ref.stats()[k], f"composition {k}")
+    ta, tb = eng.timers.snapshot(), ref.timers.snapshot()
+    ta.pop("harvest_seconds")
+    tb.pop("harvest_seconds")
+    require(ta == tb, f"composition timers {ta} != {tb}")
+    tt_a = eng.timers._types["FleetDeviceGrain"]
+    tt_b = ref.timers._types["FleetDeviceGrain"]
+    require(np.array_equal(tt_a.due_np, tt_b.due_np)
+            and np.array_equal(tt_a.key.cpu().numpy(), tt_b.key.numpy())
+            and np.array_equal(tt_a.due.cpu().numpy(), tt_b.due.numpy()),
+            "composition timer columns")
+    st = eng.stats()
+    require(st["evicted"] > 0 and st["restored"] > 0,
+            "composition evicted or restored nothing")
+    require_launched(counts, "composition", COMPOSED_KERNELS)
+    print(f"watchdog {COMPOSED_FLEET} with collection: {json.dumps(stats)}, "
+          f"evicted {st['evicted']}, restored {st['restored']}, "
+          f"{seconds:.3f} s; equal to the CPU engine key by key; launches "
+          f"{json.dumps(counts)}; on {card}", flush=True)
+    return {"counts": counts, "report": report, "stats": stats,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -2124,6 +2707,7 @@ def main() -> int:
     results = check_kernels(dev, timer, card)
     results.update(check_attr_kernels(dev, timer, card))
     results.update(check_new_kernels(dev, timer, card, wide, graph))
+    results.update(check_lifecycle_kernels(dev, timer, card))
     time_plain_programs(dev, timer, card)
     results["window_bound_ms"] += results["attr_window_bound_ms"]
     t1 = time.perf_counter()
@@ -2136,9 +2720,16 @@ def main() -> int:
     t4 = time.perf_counter()
     chirper_out = drive_chirper_path(dev, card, graph)
     t5 = time.perf_counter()
+    collection = drive_collection_path(dev, card)
+    t6 = time.perf_counter()
+    timers = drive_timers_path(dev, card)
+    t7 = time.perf_counter()
+    composed = drive_composition_path(dev, card)
+    t8 = time.perf_counter()
     print(f"phase seconds: kernels {t1 - t0:.1f}, unfused {t2 - t1:.1f}, "
           f"fused {t3 - t2:.1f}, wide {t4 - t3:.1f}, chirper "
-          f"{t5 - t4:.1f}", flush=True)
+          f"{t5 - t4:.1f}, collection {t6 - t5:.1f}, timers {t7 - t6:.1f}, "
+          f"composition {t8 - t7:.1f}", flush=True)
     plane = runs["plane_ms"]
     fused_added = (fused["window_device_ms"]
                    - fused["window_off_device_ms"]) / 16
@@ -2157,9 +2748,12 @@ def main() -> int:
     # zeroed just before it and read just after
     paths = {"presence_unfused": unfused_counts,
              "presence_fused": fused["counts"],
-             **wide_out["counts"], **chirper_out["counts"]}
+             **wide_out["counts"], **chirper_out["counts"],
+             "collection": collection["counts"], "timers": timers["counts"],
+             "composition": composed["counts"]}
     reports = {"presence_fused": fused["report"], **wide_out["report"],
-               **chirper_out["report"]}
+               **chirper_out["report"], "collection": collection["report"],
+               "timers": timers["report"], "composition": composed["report"]}
     per_replay = {"presence_fused": fused["per_replay"],
                   "wide_fused": wide_out["fused"]["per_replay"],
                   "chirper_fused": chirper_out["fused"]["per_replay"]}
@@ -2183,6 +2777,8 @@ def main() -> int:
                  "matches_plain": True}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
+        if "library_note" in r:
+            entry["library_note"] = r["library_note"]
         if "per" in r:
             entry["per"] = r["per"]
         kernels.append(entry)

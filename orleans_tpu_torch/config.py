@@ -17,6 +17,22 @@ class TensorEngineConfig:
     donate_state: bool = True
     # ring buffer of recent per-tick durations backing latency percentiles
     latency_window: int = 1024
+    # activation collection (reference: ActivationCollector quantum + age
+    # limit): rows idle > collection_idle_ticks are evicted (written back
+    # when a store is attached) every collection_every_ticks.  0 disables
+    # automatic sweeps (collect_idle() stays callable).
+    collection_idle_ticks: int = 0
+    collection_every_ticks: int = 64
+    # incremental collection: a sweep's victims drain in chunks between
+    # ticks, each slice capped at this host-pause budget (seconds); <= 0
+    # runs the whole sweep in one slice (the synchronous baseline)
+    collection_pause_budget_s: float = 0.005
+    # victims written back per chunk (bounds one chunk's stall and the
+    # device→host gather of one columnar write-back)
+    collection_chunk_rows: int = 65536
+    # freed/high-water ratio above which deactivation still repacks the
+    # arena (rows move, generation bumps); <= 0 or > 1 disables it
+    compact_fragmentation_threshold: float = 0.75
     # padded host-batch buckets: a host batch pads to the smallest bucket
     # >= its size (padding lanes carry row -1 and are dropped)
     bucket_sizes: tuple = (256, 4096, 32768, 131072, 262144, 524288,
@@ -41,6 +57,16 @@ class TensorEngineConfig:
     # idle grace before the engine loop replays a partially-filled
     # window unfused
     auto_fusion_idle_flush: float = 0.02
+    # device timers plane (tensor/timers_plane.py): the per-tick harvest
+    # of the hierarchical timing wheel; off = armed timers stop firing
+    # (the wheel catches up on re-enable)
+    timers_plane: bool = True
+    # wheel level widths in bits, lowest first: 256 one-tick buckets,
+    # 64 of 256 ticks, 64 of 16384 ticks, then the overflow list
+    timers_wheel_bits: tuple = (8, 6, 6)
+    # tick jump beyond which advance_to rebuilds the wheel from the live
+    # slot mirrors (O(armed)) instead of stepping tick by tick
+    timers_catchup_jump: int = 4096
 
 
 @dataclass

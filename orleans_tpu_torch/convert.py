@@ -1,8 +1,10 @@
 """Carry an engine's state across from the JAX package.
 
 The system has no weights; what a running cluster carries is its arenas
-— the host key→row map and the state columns — its latency ledger, its
-workload-attribution plane and its fan-out graphs.
+— the host key→row map, the state columns and the lifecycle bookkeeping
+(free list, bump pointer, eviction epoch and counters, both use clocks)
+— its store, its timers, its latency ledger, its workload-attribution
+plane and its fan-out graphs.
 ``arena_state_from_numpy`` loads an arena — as numpy arrays, e.g.
 ``jax_arena._key_of_row`` and ``{k: np.asarray(v) for k, v in
 jax_arena.state.items()}`` — into a port arena, after which both packages
@@ -14,7 +16,13 @@ after which both expand the same messages into the same slots.  ``ledger_state_f
 slots and counts, after which both report the same histogram.
 ``attribution_state_from_numpy`` loads an attribution plane's counts,
 sketches, slot counts and retired mirror, after which both report the same
-snapshot and per-key totals.
+snapshot and per-key totals.  ``timers_from_jax`` loads a JAX timers
+plane's host mirrors (slot for slot: key, name, due, period, stamp, the
+index and the free slots) into a port plane, rebuilding its wheel and
+device columns, after which both fire the same timers on the same ticks;
+``store_from_jax`` copies a JAX ``MemoryVectorStore``'s records.  Both
+read the JAX objects' attributes only: nothing of the JAX package is
+imported.
 """
 
 from __future__ import annotations
@@ -28,15 +36,31 @@ from orleans_tpu_torch.tensor.arena import GrainArena
 from orleans_tpu_torch.tensor.attribution import WorkloadAttribution
 from orleans_tpu_torch.tensor.fanout import DeviceFanout
 from orleans_tpu_torch.tensor.ledger import MAX_SLOTS, DeviceLatencyLedger
+from orleans_tpu_torch.tensor.persistence import MemoryVectorStore
+from orleans_tpu_torch.tensor.timers_plane import TimersPlane
 
 
 def arena_state_from_numpy(arena: GrainArena, key_of_row: np.ndarray,
-                           columns: Dict[str, np.ndarray]) -> None:
+                           columns: Dict[str, np.ndarray], *,
+                           free_rows: Optional[np.ndarray] = None,
+                           shard_next: Optional[int] = None,
+                           last_use_tick: Optional[np.ndarray] = None,
+                           last_use_dev: Optional[np.ndarray] = None,
+                           eviction_epoch: Optional[int] = None,
+                           evicted_count: int = 0,
+                           restored_count: int = 0) -> None:
     """Replace ``arena``'s rows and state with ``key_of_row`` (int64
     ``[capacity]``, -1 = free row) and ``columns`` (one ``[capacity, ...]``
     array per declared field, of the field's dtype).  The arena takes the
-    source's capacity and row layout, with both use clocks zeroed; its
-    generation bumps, so injectors holding rows re-resolve."""
+    source's capacity and row layout; its generation bumps, so injectors
+    holding rows re-resolve.
+
+    The lifecycle bookkeeping of a JAX arena with one shard block rides
+    along when given: ``free_rows`` (``jax_arena._free[0]``, in its LIFO
+    order), ``shard_next`` (``jax_arena._shard_next[0]``; default: past
+    the last live row), both use clocks (``jax_arena.last_use_tick``,
+    ``np.asarray(jax_arena.last_use_dev)``; default zero), the eviction
+    epoch and the evicted/restored counts."""
     key_of_row = np.asarray(key_of_row, dtype=np.int64)
     capacity = key_of_row.shape[0]
     fields = arena.info.state_fields
@@ -55,14 +79,26 @@ def arena_state_from_numpy(arena: GrainArena, key_of_row: np.ndarray,
     arena.state = state
     arena.capacity = capacity
     arena._key_of_row = key_of_row.copy()
-    arena._next_row = int(live[-1]) + 1 if len(live) else 0
+    if shard_next is None:
+        shard_next = int(live[-1]) + 1 if len(live) else 0
+    arena._shard_next = np.array([shard_next], dtype=np.int64)
+    arena._free = [np.array(free_rows if free_rows is not None else [],
+                            dtype=np.int64)]
     arena.live_count = len(live)
     arena.has_wide_keys = bool(len(live)) and \
         int(key_of_row[live].max()) >= 2**31 - 1
-    arena.last_use_tick = np.zeros(capacity, dtype=np.int64)
+    arena.last_use_tick = np.zeros(capacity, dtype=np.int64) \
+        if last_use_tick is None \
+        else np.array(last_use_tick, dtype=np.int64)
     arena.fused_use_tick = 0
-    arena.last_use_dev = torch.zeros(capacity, dtype=torch.int32,
-                                     device=arena.device)
+    arena.last_use_dev = torch.zeros(capacity, dtype=torch.int32) \
+        if last_use_dev is None \
+        else torch.from_numpy(np.array(last_use_dev, dtype=np.int32))
+    arena.last_use_dev = arena.last_use_dev.to(arena.device)
+    if eviction_epoch is not None:
+        arena.eviction_epoch = int(eviction_epoch)
+    arena.evicted_count = int(evicted_count)
+    arena.restored_count = int(restored_count)
     arena._dirty = True
     arena.generation += 1
 
@@ -162,3 +198,43 @@ def fanout_from_adjacency(adjacency: Mapping[int, Iterable[int]],
             fan.edge_count += len(dsts)
     fan._dirty = True
     return fan
+
+
+def timers_from_jax(plane: TimersPlane, source) -> None:
+    """Load the JAX timers plane ``source``'s host mirrors into ``plane``
+    slot for slot — key, due, name, period, stamp, the (key, name) → slot
+    index, the free slots and the interned names — then rebuild each
+    type's wheel at the port engine's tick and upload its device columns.
+    Every armed due is after the source's tick, so the port engine must
+    stand at the same tick.  The counters come along."""
+    eng = plane.engine()
+    plane._names = list(source._names)
+    plane._name_ids = dict(source._name_ids)
+    plane._types = {}
+    for type_name, st in source._types.items():
+        tt = plane._type(type_name)
+        tt.cap = int(st.cap)
+        tt.key_np = np.array(st.key_np, dtype=np.int64)
+        tt.due_np = np.array(st.due_np, dtype=np.int64)
+        tt.name_np = np.array(st.name_np, dtype=np.int32)
+        tt.period_np = np.array(st.period_np, dtype=np.int64)
+        tt.stamp_np = np.array(st.stamp_np, dtype=np.int64)
+        tt.index = {(int(k), int(n)): int(s)
+                    for (k, n), s in st.index.items()}
+        tt.free = [int(s) for s in st.free]
+        if tt.cap:
+            plane._rebuild(tt, eng.tick_number)
+            tt.sync_device()
+    for name in ("fired_total", "re_armed_total", "cancelled_total",
+                 "exported_total", "adopted_total", "harvests",
+                 "last_harvest_width", "worst_lateness_ticks"):
+        setattr(plane, name, int(getattr(source, name)))
+    plane.harvest_seconds = float(source.harvest_seconds)
+
+
+def store_from_jax(store) -> MemoryVectorStore:
+    """A port ``MemoryVectorStore`` holding copies of the records of the
+    JAX ``MemoryVectorStore`` ``store``."""
+    return MemoryVectorStore({
+        (t, int(k)): {n: np.array(v, copy=True) for n, v in rec.items()}
+        for (t, k), rec in store._store.items()})

@@ -11,17 +11,28 @@ Auto-activation: resolving an unseen key allocates a row and initialises
 its columns from the declared field inits — the batched analog of
 GetOrCreateActivation (reference: Catalog.cs:411).
 
-One card holds one shard block, so rows are allocated by a bump pointer
-over ``[0, capacity)`` and growth doubles the block in place (rows keep
-their index; the generation still bumps, as in the JAX package).
+One card holds one shard block: rows come from the block's LIFO free list
+first, then from its bump pointer over ``[0, capacity)``, in the JAX
+package's order, and growth doubles the block in place (rows keep their
+index; the generation still bumps, as in the JAX package).
+
+Collection (reference: ActivationCollector.cs:37, Catalog.cs:836): the
+victims of an idle sweep are selected on the device (K12, only the bool
+mask crosses to the host), their state columns are gathered (K13) and
+written back to the attached ``VectorStore`` before their rows are freed,
+and the freed rows return to the free list scrubbed in place (K3 SET), so
+the generation stands and only ``eviction_epoch`` bumps.  Past the
+fragmentation threshold the block repacks (``_compact``: rows move, the
+generation bumps).  A later activation of an evicted key reads its row
+back from the store (reference: Catalog.SetupActivationState :731).
 
 Keys span ``[0, 2**63)``.  Keys that fit int32 resolve on the device
 through the dense or the sorted mirror; an arena holding a wider key
 resolves through the two-level wide mirror (``device_index_wide``): wide
 keys ride as ``(hi, lo)`` int32 word pairs, hashed into 30-bit buckets
 and checked against the full words (reference key breadth:
-UniqueKey.cs:34).  Eviction, replicas, migration, resharding and the
-checkpoint layout belong to later slices of the port.
+UniqueKey.cs:34).  Replicas, migration, resharding and the checkpoint
+layout belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -31,6 +42,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from orleans_tpu_torch.device import fetch_host, host_upload
+from orleans_tpu_torch.kernels.lifecycle import gather_rows, idle_mask
 from orleans_tpu_torch.kernels.resolve import KEY_SENTINEL
 from orleans_tpu_torch.kernels.scatter import row_scatter
 from orleans_tpu_torch.tensor.vector_grain import StateField, VectorGrainInfo
@@ -38,6 +51,9 @@ from orleans_tpu_torch.tensor.vector_grain import StateField, VectorGrainInfo
 
 class ArenaFullError(RuntimeError):
     pass
+
+
+_NP_DTYPE = {torch.int32: np.int32, torch.float32: np.float32}
 
 
 # -- wide (64-bit) keys ------------------------------------------------------
@@ -79,9 +95,14 @@ class GrainArena:
     DENSE_KEY_BOUND = 1 << 23  # 8M slots = 32 MB ceiling
 
     def __init__(self, info: VectorGrainInfo, device: torch.device,
-                 capacity: int = 1024) -> None:
+                 capacity: int = 1024, store: Optional[Any] = None) -> None:
         self.info = info
         self.device = device
+        # VectorStore (tensor/persistence.py): activation reads persisted
+        # rows, eviction writes them back
+        self.store = store
+        self.evicted_count = 0
+        self.restored_count = 0
         self.capacity = max(1, capacity)
         self.state: Dict[str, torch.Tensor] = {}
         self._init_state_columns(self.capacity)
@@ -90,14 +111,21 @@ class GrainArena:
         self.generation = 0
         # host-side directory partition: key → row
         self._key_of_row = np.full(self.capacity, -1, dtype=np.int64)
-        self._next_row = 0
+        # the shard block's bump pointer and LIFO free list (one block per
+        # card; lists of one, as the JAX package's per-shard lists).  Free
+        # slots hold init-valued columns and zeroed use clocks, so reuse
+        # needs no scrub.
+        self._shard_next = np.zeros(1, dtype=np.int64)
+        self._free: list = [np.empty(0, dtype=np.int64)]
+        # freed/high-water ratio above which deactivation repacks
+        # (engine.arena_for sets it from TensorEngineConfig)
+        self.compact_fragmentation = 0.75
         self._sorted_keys = np.empty(0, dtype=np.int64)
         self._sorted_rows = np.empty(0, dtype=np.int32)
         self._dirty = False
         self.live_count = 0
-        # eviction (free-list deactivation) belongs to a later slice of
-        # the port: the epoch it bumps stays 0, and the fused window and
-        # the auto-fuser check it as the JAX package does
+        # bumped whenever rows are freed without moving: holders of
+        # resolved rows re-check liveness (generation = rows moved)
         self.eviction_epoch = 0
         # host-side last use: updated by host-key resolution
         self.last_use_tick = np.zeros(self.capacity, dtype=np.int64)
@@ -145,10 +173,11 @@ class GrainArena:
         return att if att is not None and att.has_state(self.info.name) \
             else None
 
-    def last_use(self, rows: np.ndarray) -> np.ndarray:
+    def last_use(self, rows) -> np.ndarray:
         """Host last-use tick of live ``rows``: the later of the host
-        stamp and the latest fused window (which counts every live row
-        as used; no eviction frees rows in this slice)."""
+        stamp and the end of the latest fused window, which counts every
+        row live then as used (the JAX window stamps each live row).  A
+        row activated since holds a later stamp of its own."""
         return np.maximum(self.last_use_tick[rows], self.fused_use_tick)
 
     # -- state columns ------------------------------------------------------
@@ -309,15 +338,28 @@ class GrainArena:
         return rows
 
     def _take_rows(self, n: int) -> np.ndarray:
-        """Allocate ``n`` fresh rows from the bump pointer without binding
-        keys.  Callers guarantee capacity."""
-        rows = np.arange(self._next_row, self._next_row + n, dtype=np.int64)
-        self._next_row += n
-        return rows
+        """Allocate ``n`` rows without binding keys: free-list reuse first
+        (the most recently freed slots, the tail of the list in its
+        order), then the bump pointer.  Callers guarantee capacity."""
+        parts = []
+        reuse = min(n, len(self._free[0]))
+        if reuse:
+            parts.append(self._free[0][-reuse:])
+            self._free[0] = self._free[0][:-reuse]
+        fresh = n - reuse
+        if fresh:
+            start = int(self._shard_next[0])
+            parts.append(np.arange(start, start + fresh, dtype=np.int64))
+            self._shard_next[0] += fresh
+        if not parts:
+            return np.empty(0, dtype=np.int64)
+        return np.concatenate(parts) if len(parts) > 1 else parts[0]
 
     def _ensure_capacity(self, need: int) -> None:
-        """Grow until ``need`` more rows fit."""
-        while self._next_row + need > self.capacity:
+        """Grow until ``need`` more rows fit; free-list slots count as
+        available (steady activate/evict churn never grows the arena)."""
+        while int(self._shard_next[0]) + max(need - len(self._free[0]), 0) \
+                > self.capacity:
             self._grow()
 
     def _activate_keys(self, keys: np.ndarray) -> None:
@@ -334,13 +376,34 @@ class GrainArena:
         self._key_of_row[rows] = keys
         self.live_count += len(keys)
         self._dirty = True
+        if self.store is not None:
+            self._load_persisted(keys)
+
+    def _load_persisted(self, keys: np.ndarray) -> None:
+        """Activation stage 2, batched: scatter persisted rows (evicted
+        earlier) into the freshly allocated rows with K3 SET (reference:
+        Catalog.SetupActivationState, Catalog.cs:731)."""
+        stored = self.store.read_many(self.info.name, keys.tolist())
+        if not stored:
+            return
+        found = np.array(sorted(stored), dtype=np.int64)
+        rows, ok = self.lookup_rows(found)
+        assert ok.all()
+        dst = host_upload(rows.astype(np.int32), self.device)
+        for name, f in self.info.state_fields.items():
+            vals = np.stack([np.asarray(stored[int(k)][name]) for k in found])
+            col = self.state[name]
+            row_scatter(col, dst, host_upload(
+                vals.astype(_NP_DTYPE[col.dtype]), self.device), "set")
+        self.restored_count += len(found)
 
     # -- growth -------------------------------------------------------------
 
     def _grow(self) -> None:
         """Double the capacity.  With one shard block every row keeps its
-        index, so the old columns copy into the front of the new ones;
-        the generation bumps because every column tensor is new."""
+        index, so the old columns copy into the front of the new ones and
+        the free list stands (its rows are init-valued in the copy); the
+        generation bumps because every column tensor is new."""
         self._settle_owner_chain()
         old = self.capacity
         new_capacity = old * 2
@@ -374,6 +437,159 @@ class GrainArena:
         """Pre-size so ~n activations fit without growth mid-run."""
         while self.capacity < n * 2:
             self._grow()
+
+    # -- collection (reference: ActivationCollector.cs:37) ---------------
+
+    def rows_to_host(self, rows: np.ndarray) -> Dict[str, np.ndarray]:
+        """Gather ``rows``' state columns to the host: one K13 gather per
+        column on the current stream, then one wait for every copy.  Eager
+        PyTorch has no compile set to bound, so the rows go unpadded."""
+        idx = host_upload(np.asarray(rows, dtype=np.int32), self.device)
+        return fetch_host({name: gather_rows(col, idx)
+                       for name, col in self.state.items()})
+
+    def shard_occupancy(self) -> np.ndarray:
+        """Live rows per shard block (one block on one card)."""
+        return np.array([self.live_count], dtype=np.int64)
+
+    def fragmentation(self) -> float:
+        """Freed/high-water ratio of the block (0.0 = no holes): the
+        threshold trigger for compaction."""
+        hw = max(int(self._shard_next[0]), 1)
+        return len(self._free[0]) / hw
+
+    def select_idle_rows(self, older_than_tick: int) -> np.ndarray:
+        """Victim selection: one K12 compare over both use clocks on the
+        device; only the bool victim mask crosses to the host, with one
+        copy on the current stream after every tick enqueued there.
+        Returns victim row ids (host int64)."""
+        # settle BEFORE computing victims: a settle-triggered replay may
+        # grow this arena, which would invalidate the row ids
+        self._settle_owner_chain()
+        live = self._key_of_row >= 0
+        if not live.any():
+            return np.empty(0, dtype=np.int64)
+        cutoff = int(np.clip(older_than_tick, -2**31 + 1, 2**31 - 1))
+        # the host clock as ``last_use`` reads it: a fused window's O(1)
+        # stamp counts for every row live at its end
+        host_clock = np.clip(np.maximum(self.last_use_tick,
+                                        self.fused_use_tick),
+                             0, 2**31 - 1).astype(np.int32)
+        mask = idle_mask(self.last_use_dev,
+                         host_upload(host_clock, self.device),
+                         host_upload(live, self.device), cutoff)
+        return np.flatnonzero(mask.cpu().numpy()).astype(np.int64)
+
+    def deactivate_idle_rows(self, rows: np.ndarray, older_than_tick: int,
+                             write_back: bool = True) -> int:
+        """Deactivate the subset of ``rows`` still live and still idle —
+        the re-validated chunk step of incremental collection.  Rows
+        touched (either clock) since their sweep selected them are
+        spared; a row reused by another key stays eligible only if that
+        key is itself idle past the cutoff."""
+        self._settle_owner_chain()
+        rows = np.asarray(rows, dtype=np.int64)
+        rows = rows[(rows >= 0) & (rows < self.capacity)]
+        rows = rows[self._key_of_row[rows] >= 0]
+        if len(rows) == 0:
+            return 0
+        idx = host_upload(rows.astype(np.int32), self.device)
+        dev = fetch_host({"c": gather_rows(self.last_use_dev, idx)})["c"]
+        idle = np.maximum(self.last_use(rows),
+                          dev.astype(np.int64)) < older_than_tick
+        return self._deactivate_rows(rows[idle], write_back)
+
+    def collect(self, older_than_tick: int, write_back: bool = True) -> int:
+        """Deactivate rows idle since before ``older_than_tick`` (the
+        age-based sweep, reference: Catalog.cs:836): victims are written
+        back first when a store is attached, then their rows return to
+        the free list in place.  Returns the number of rows evicted."""
+        return self._deactivate_rows(
+            self.select_idle_rows(older_than_tick), write_back)
+
+    def evict_keys(self, keys: np.ndarray, write_back: bool = True) -> int:
+        """Deactivate specific keys (write-back first when a store is
+        attached; reference: GrainDirectoryHandoffManager.cs:141)."""
+        self._settle_owner_chain()
+        rows, found = self.lookup_rows(np.asarray(keys, dtype=np.int64))
+        return self._deactivate_rows(rows[found].astype(np.int64),
+                                     write_back)
+
+    def _deactivate_rows(self, victims: np.ndarray, write_back: bool) -> int:
+        """Shared deactivation tail: write-back FIRST (victims are freed
+        only after the store returns, so a storage fault mid-chunk leaves
+        them live for the retry), then the rows return to the free list
+        in place.  Rows do not move: the generation stands and only
+        ``eviction_epoch`` bumps.  Callers settle the owner chain before
+        they compute victims."""
+        victims = np.asarray(victims, dtype=np.int64)
+        if len(victims) == 0:
+            return 0
+        keys = self._key_of_row[victims]
+        att = self._attribution()
+        if att is not None:
+            # retire the victims' traffic per key BEFORE their rows free:
+            # a reused row must never inherit the evicted grain's counts
+            att.on_evict(self, victims, keys)
+        if write_back and self.store is not None:
+            self.store.write_many_columnar(
+                self.info.name, keys.tolist(), self.rows_to_host(victims))
+        self._key_of_row[victims] = -1
+        self.live_count -= len(victims)
+        self.evicted_count += len(victims)
+        self._free_rows(victims)
+        self.eviction_epoch += 1
+        self._dirty = True
+        if 0.0 < self.compact_fragmentation <= 1.0 \
+                and self.fragmentation() > self.compact_fragmentation:
+            self._compact()
+        return len(victims)
+
+    def _free_rows(self, victims: np.ndarray) -> None:
+        """Return freed rows to the free list and scrub them in place: the
+        state columns back to their field inits with one K3 SET of a host
+        scalar per field, both use clocks to 0.  In place, so the columns
+        keep their addresses."""
+        self._free[0] = np.concatenate([self._free[0], victims])
+        idx = host_upload(victims.astype(np.int32), self.device)
+        for name, f in self.info.state_fields.items():
+            row_scatter(self.state[name], idx, f.init, "set")
+        row_scatter(self.last_use_dev, idx, 0, "set")
+        self.last_use_tick[victims] = 0
+
+    def _compact(self) -> None:
+        """Repack the block so live rows are contiguous from row 0 (the
+        free list clears; the bump pointer resets to the live count).
+        Rows move, so the generation bumps and holders re-resolve; the
+        columns are built anew (K13 gather of the old rows, K3 SET into
+        the new), which the rebuild the generation forces allows."""
+        old_rows = np.nonzero(self._key_of_row >= 0)[0]
+        new_rows = np.arange(len(old_rows), dtype=np.int64)
+        keys = self._key_of_row[old_rows]
+        last_use = self.last_use_tick[old_rows]
+        self._key_of_row.fill(-1)
+        self._key_of_row[new_rows] = keys
+        self.last_use_tick.fill(0)
+        self.last_use_tick[new_rows] = last_use
+        self._shard_next = np.array([len(old_rows)], dtype=np.int64)
+        self._free = [np.empty(0, dtype=np.int64)]
+
+        src = host_upload(old_rows.astype(np.int32), self.device)
+        dst = host_upload(new_rows.astype(np.int32), self.device)
+        for name, f in self.info.state_fields.items():
+            col = self._make_column(f, self.capacity)
+            row_scatter(col, dst, gather_rows(self.state[name], src), "set")
+            self.state[name] = col
+        last_use_dev = torch.zeros(self.capacity, dtype=torch.int32,
+                                   device=self.device)
+        row_scatter(last_use_dev, dst, gather_rows(self.last_use_dev, src),
+                    "set")
+        self.last_use_dev = last_use_dev
+        att = self._attribution()
+        if att is not None:
+            att.remap_rows(self, old_rows, new_rows, self.capacity)
+        self._dirty = True
+        self.generation += 1
 
     # -- host access --------------------------------------------------------
 

@@ -41,9 +41,11 @@ recorded and replayed with every window.  The auto-fuser pins the plane
 by copy at a chain's start and restores it in place on rollback.
 
 Snapshots run K9 per arena and read every arena's outputs, the slot
-counts and the stale counter with one device-to-host copy.  Eviction,
-mesh resharding and the pull-mode ``segments`` fold belong to later
-slices of the port (``on_evict``, ``fold_type`` and ``relocate`` raise).
+counts and the stale counter with one device-to-host copy.  An eviction
+retires the victims' counts to a host mirror by key (``on_evict``: a K13
+gather, one copy, then K3 zeroes the rows in place).  Mesh resharding and
+the pull-mode ``segments`` fold belong to later slices of the port
+(``fold_type`` and ``relocate`` raise).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from orleans_tpu_torch.device import host_upload
 from orleans_tpu_torch.kernels.attr import (
     MAX_STACK,
     attr_apply,
@@ -63,6 +66,8 @@ from orleans_tpu_torch.kernels.attr import (
     decode_snapshot,
     snapshot_size,
 )
+from orleans_tpu_torch.kernels.lifecycle import gather_rows
+from orleans_tpu_torch.kernels.scatter import row_scatter
 from orleans_tpu_torch.tensor.ledger import MAX_SLOTS, SlotRegistry
 
 #: multiply-shift seed per sketch depth (the JAX package's constants)
@@ -76,8 +81,8 @@ _MAX_PLANS = 128
 #: buffered folds flushed per coalesced dispatch
 _FLUSH_CAP = 32
 
-_LIFECYCLE = ("belongs to the arena-lifecycle slice of the port "
-              "(eviction, migration, resharding)")
+_RESHARD = ("belongs to the multi-shard slice of the port (migration "
+            "and resharding)")
 
 
 def pow2ceil(n: int) -> int:
@@ -157,8 +162,8 @@ class WorkloadAttribution:
         self._cms: Dict[str, torch.Tensor] = {}      # type → [depth, width]
         self._slot_counts: Optional[torch.Tensor] = None  # int32[MAX_SLOTS]
         # host mirror of counts retired off the device column, per type:
-        # grain key → messages (carried across by convert; this slice has
-        # no eviction), merged per key at snapshot
+        # grain key → messages (eviction retires here; convert carries
+        # it), merged per key at snapshot
         self._retired: Dict[str, Dict[int, int]] = {}
         self.records = 0
         self.d2h_fetches = 0
@@ -424,15 +429,33 @@ class WorkloadAttribution:
         return type_name in self._counts
 
     def on_evict(self, arena, victims: np.ndarray, keys: np.ndarray) -> None:
-        raise NotImplementedError(f"attribution on_evict {_LIFECYCLE}")
+        """Retire evicted rows' counts to the host mirror by key before
+        their rows return to the free list (a reused row must never
+        inherit the evicted grain's traffic): the buffered folds flush, a
+        K13 gather reads the victims' counts with one copy, and one K3 SET
+        zeroes their rows in place, so the column keeps its address."""
+        self.flush_folds()  # retire post-fold counts
+        col = self._counts.get(arena.info.name)
+        if col is None or len(victims) == 0:
+            return
+        idx = host_upload(np.asarray(victims, dtype=np.int32), self.device)
+        vals = gather_rows(col, idx).cpu().numpy()
+        retired = self._retired.setdefault(arena.info.name, {})
+        nz = vals > 0
+        for k, v in zip(np.asarray(keys)[nz].tolist(), vals[nz].tolist()):
+            retired[k] = retired.get(k, 0) + int(v)
+        row_scatter(col, idx, 0, "set")
+        self.retired_rows += len(victims)
+        self._retire_version += 1
+        self._snap_cache = None
 
     def fold_type(self, type_name: str, arena=None) -> None:
         raise NotImplementedError(
-            f"attribution fold_type {_LIFECYCLE}: the counts column of "
+            f"attribution fold_type {_RESHARD}: the counts column of "
             f"{type_name!r} no longer matches its arena's capacity")
 
     def relocate(self) -> None:
-        raise NotImplementedError(f"attribution relocate {_LIFECYCLE}")
+        raise NotImplementedError(f"attribution relocate {_RESHARD}")
 
     def remap_rows(self, arena, old_rows: np.ndarray, new_rows: np.ndarray,
                    new_capacity: int) -> None:

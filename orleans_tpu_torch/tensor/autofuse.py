@@ -90,7 +90,7 @@ class _PatternState:
     in canonical order."""
 
     __slots__ = ("key", "sig", "prev_top", "prev_versions", "static_keys",
-                 "rows", "keys_host", "generation", "static_args")
+                 "rows", "keys_host", "generation", "epoch", "static_args")
 
     def __init__(self, key: Tuple[str, str], sig: Tuple,
                  args: Dict[str, Any], b: PendingBatch) -> None:
@@ -102,6 +102,7 @@ class _PatternState:
         self.rows = b.rows
         self.keys_host = b.keys_host
         self.generation = b.generation
+        self.epoch = b.epoch
         self.static_args: Dict[str, Any] = {}
 
 
@@ -230,8 +231,11 @@ class AutoFuser:
                     or b.mask is not None or not isinstance(args, dict)):
                 return None
             arena = self.engine.arenas.get(key[0])
-            if arena is None or b.generation != arena.generation:
-                # stale rows: the injector revalidates on its next inject
+            if arena is None or b.generation != arena.generation \
+                    or b.epoch != arena.eviction_epoch:
+                # stale rows (growth or eviction since resolution): not
+                # fusable this tick; the injector revalidates on its next
+                # inject and detection resumes
                 return None
             psig = (key[0], key[1], self._keys_digest(b.keys_host),
                     b.generation, tuple(sorted(args)))
@@ -515,6 +519,7 @@ class AutoFuser:
                 rows=pat.rows,
                 keys_host=pat.keys_host,
                 generation=pat.generation,
+                epoch=pat.epoch,
                 # the replayed tick enters the unfused ledger path now,
                 # counted once (its window never ran)
                 inject_tick=self.engine.tick_number))

@@ -38,9 +38,20 @@ steady state the auto-fuser (``tensor/autofuse.py``), offered every tick
 first, runs whole windows of ticks as one program (``tensor/fused.py``;
 on the card one replay of a captured CUDA graph).  The workload-
 attribution plane (``tensor/attribution.py``) folds every executing
-group's destination rows.  Timers, the profiler, checkpoints, collection,
-stream subscriptions, the cross-shard exchange and the cluster router
-belong to later slices of the port.
+group's destination rows.
+
+The grain lifecycle runs on the unfused tick.  With
+``collection_idle_ticks`` set, every ``collection_every_ticks``-th tick
+starts a sweep (``IncrementalCollector``: victims selected on the device
+by K12) and every tick drains a pause-budgeted slice of it, writing the
+victims back to the engine's ``VectorStore`` before their rows free; a
+later message to an evicted grain re-activates it from the store.  The
+timers plane (``tensor/timers_plane.py``) harvests the due timers of each
+tick before its rounds (K15) and delivers them as one batched
+``receive_reminder`` call per type.  As in the JAX package, a tick the
+auto-fuser consumes runs neither: they wait for the next unfused tick.
+The profiler, checkpoints, stream subscriptions, the cross-shard exchange
+and the cluster router belong to later slices of the port.
 
 Every tensor the engine keeps past the call that handed it over — a
 ``send_batch`` slab, a batch spilled past the round cap, a parked
@@ -64,7 +75,7 @@ import numpy as np
 import torch
 
 from orleans_tpu_torch.config import MetricsConfig, TensorEngineConfig
-from orleans_tpu_torch.device import resolve_device
+from orleans_tpu_torch.device import host_upload, resolve_device
 from orleans_tpu_torch.kernels.miss import miss_keys
 from orleans_tpu_torch.kernels.resolve import (
     KEY_SENTINEL,
@@ -138,16 +149,6 @@ def _leaf_to_device(a: Any, device: torch.device) -> Any:
     return a
 
 
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``: on a card through pinned memory,
-    asynchronously (a copy from pageable memory waits for the stream to
-    drain, which stalls the host behind every queued kernel)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def _pad_leaf(a: Any, n: int) -> Any:
     """Zero-pad a lane-aligned leaf to ``n`` lanes (scalars broadcast)."""
     if isinstance(a, torch.Tensor):
@@ -166,9 +167,10 @@ class PendingBatch:
     """One queued slab of messages for a (type, method).
 
     Destination resolution precedence: ``rows`` while its ``generation``
-    still matches the arena (injector fast path), else ``keys_host`` (host
-    resolution, activating unseen keys), else ``keys_wide`` or
-    ``keys_dev`` (device resolution — emits and miss redeliveries)."""
+    and ``epoch`` still match the arena (injector fast path), else
+    ``keys_host`` (host resolution, activating unseen and evicted keys),
+    else ``keys_wide`` or ``keys_dev`` (device resolution — emits, timer
+    fires and miss redeliveries)."""
 
     args: Any                                   # tree of [m, ...] / scalars
     rows: Optional[torch.Tensor] = None         # int32[m] device
@@ -180,6 +182,7 @@ class PendingBatch:
     mask: Optional[torch.Tensor] = None         # bool[m] device (None = all)
     future: Optional[asyncio.Future] = None     # resolves to results[m]
     generation: int = -1                        # arena generation of rows
+    epoch: int = -1                             # arena eviction epoch of rows
     # set on redeliveries whose fan-out already expanded (the wide miss
     # path): expanding again would deliver twice
     no_fanout: bool = False
@@ -301,13 +304,159 @@ def _stack_counts(*xs: torch.Tensor) -> torch.Tensor:
     return torch.stack(xs)
 
 
+class IncrementalCollector:
+    """Chunked, tick-interleaved activation collection under a pause
+    budget: deactivation is a background cost, never a message-pump stall
+    (reference: ActivationCollector.cs:37, Catalog.cs:836).
+
+    A *sweep* selects every arena's idle victims once (K12 on the device,
+    only the victim mask crosses to the host) and parks them as a work
+    list.  *Slices* drain the list in ``collection_chunk_rows`` chunks
+    between ticks, each slice capped at ``collection_pause_budget_s`` of
+    host wall time; each chunk re-validates liveness and idleness before
+    freeing, so rows touched since the sweep are spared.  Victims free
+    only after their columnar write-back returns: a storage fault leaves
+    them live for the retry (the next slice re-attempts; a synchronous
+    ``drain`` raises)."""
+
+    def __init__(self, engine: "TensorEngine") -> None:
+        self.engine = engine
+        # work list: [arena, cutoff, write_back, generation, rows]
+        self._pending: deque = deque()
+        self.sweeps_started = 0
+        self.sweeps_completed = 0
+        self.slices_run = 0
+        self.rows_evicted = 0
+        self.victims_dropped_stale = 0  # generation moved mid-sweep
+        self.write_back_failures = 0
+        self._last_write_error: Optional[BaseException] = None
+        self.last_slices: deque = deque(maxlen=64)
+        self.pause_seconds: deque = deque(maxlen=256)
+        self.max_pause_s = 0.0
+
+    def active(self) -> bool:
+        return bool(self._pending)
+
+    def pending_rows(self) -> int:
+        return sum(len(e[4]) for e in self._pending)
+
+    def start_sweep(self, cutoff: int, write_back: bool = True) -> int:
+        """Select victims across all arenas and park them for sliced
+        draining; a no-op while a sweep is still draining.  Returns the
+        rows selected."""
+        if self._pending:
+            return 0
+        selected = 0
+        for arena in self.engine.arenas.values():
+            victims = arena.select_idle_rows(cutoff)
+            if len(victims):
+                self._pending.append(
+                    [arena, cutoff, write_back, arena.generation, victims])
+                selected += len(victims)
+        if selected:
+            self.sweeps_started += 1
+        return selected
+
+    def run_slice(self, budget_s: float, chunk_rows: int) -> int:
+        """Drain chunks until the pause budget is spent or the sweep is
+        done; ``budget_s <= 0`` is unbounded (the synchronous baseline).
+        Returns the rows evicted this slice."""
+        if not self._pending:
+            return 0
+        t0 = time.perf_counter()
+        chunk_rows = max(1, int(chunk_rows))
+        freed = 0
+        failed = False
+        while self._pending:
+            entry = self._pending[0]
+            arena, cutoff, write_back, gen, rows = entry
+            if arena.generation != gen:
+                # rows moved since selection (growth, compaction): the ids
+                # mean nothing now — drop the rest (counted); the next
+                # sweep re-selects
+                self.victims_dropped_stale += len(rows)
+                self._pending.popleft()
+                continue
+            chunk, entry[4] = rows[:chunk_rows], rows[chunk_rows:]
+            if len(entry[4]) == 0:
+                self._pending.popleft()
+            try:
+                freed += arena.deactivate_idle_rows(chunk, cutoff,
+                                                    write_back)
+            except Exception as exc:  # noqa: BLE001 — a storage fault
+                # must not kill the tick loop: nothing of this chunk was
+                # freed (write-back precedes freeing), so park it back at
+                # the front and retry next slice; drain() raises instead
+                self.write_back_failures += 1
+                self._last_write_error = exc
+                if len(entry[4]):
+                    entry[4] = np.concatenate([chunk, entry[4]])
+                else:
+                    entry[4] = chunk
+                    self._pending.appendleft(entry)
+                failed = True
+                break
+            if budget_s > 0 and time.perf_counter() - t0 >= budget_s:
+                break
+        dt = time.perf_counter() - t0
+        self.slices_run += 1
+        self.rows_evicted += freed
+        self.pause_seconds.append(dt)
+        self.max_pause_s = max(self.max_pause_s, dt)
+        done = not self._pending
+        if done:
+            self.sweeps_completed += 1
+        self.last_slices.append({
+            "tick": self.engine.tick_number,
+            "seconds": round(dt, 6),
+            "evicted": freed,
+            "remaining": self.pending_rows(),
+            "sweep_done": done,
+            "write_back_failed": failed,
+        })
+        return freed
+
+    def drain(self, chunk_rows: int) -> int:
+        """Finish the sweep in progress synchronously (explicit
+        ``collect_idle``); a write-back failure raises here."""
+        total = 0
+        while self._pending:
+            before = self.write_back_failures
+            total += self.run_slice(0.0, chunk_rows)
+            if self.write_back_failures > before:
+                raise self._last_write_error
+        return total
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "sweeps_started": self.sweeps_started,
+            "sweeps_completed": self.sweeps_completed,
+            "slices_run": self.slices_run,
+            "rows_evicted": self.rows_evicted,
+            "victims_dropped_stale": self.victims_dropped_stale,
+            "pending_rows": self.pending_rows(),
+            "write_back_failures": self.write_back_failures,
+            "pause_p99_s": self.pause_p99_s(),
+            "max_pause_s": self.max_pause_s,
+            "last_slices": list(self.last_slices),
+        }
+
+    def pause_p99_s(self) -> float:
+        """p99 over the recent slice pauses."""
+        if not self.pause_seconds:
+            return 0.0
+        return float(np.percentile(np.asarray(self.pause_seconds), 99))
+
+
 class TensorEngine:
 
     def __init__(self, config: Optional[TensorEngineConfig] = None,
                  initial_capacity: int = 1024,
                  device: Optional[Any] = None,
-                 metrics: Optional[MetricsConfig] = None) -> None:
+                 metrics: Optional[MetricsConfig] = None,
+                 store: Optional[Any] = None) -> None:
         from orleans_tpu_torch.tensor.autofuse import AutoFuser
+        from orleans_tpu_torch.tensor.timers_plane import TimersPlane
 
         self.device = resolve_device(device)
         self.config = config or TensorEngineConfig()
@@ -328,7 +477,13 @@ class TensorEngine:
             top_k=mc.attribution_top_k, cms_depth=mc.attribution_cms_depth,
             cms_width=mc.attribution_cms_width, slots=self.slot_registry)
         self.initial_capacity = initial_capacity
+        # VectorStore backing every arena (tensor/persistence.py):
+        # activation reads, eviction write-back
+        self.store = store
         self.arenas: Dict[str, GrainArena] = {}
+        # incremental activation collection: sweeps select on the device,
+        # slices drain between ticks under the pause budget
+        self.collector = IncrementalCollector(self)
         self.queues: Dict[Tuple[str, str], List[PendingBatch]] = \
             defaultdict(list)
         self.tick_number = 0
@@ -337,6 +492,11 @@ class TensorEngine:
         self.activation_passes = 0
         # recent per-tick durations → true latency percentiles
         self.tick_durations: deque = deque(maxlen=self.config.latency_window)
+        # per-stage host wall time (reference: StageAnalysis.cs:81):
+        # cumulative seconds per stage and the last unfused tick's split
+        self.stage_seconds: Dict[str, float] = defaultdict(float)
+        self.last_tick_stages: Dict[str, float] = {}
+        self._tick_stages: Dict[str, float] = defaultdict(float)
         self._step_cache: Dict[Tuple[str, str], Callable] = {}
         self._masks: Dict[int, torch.Tensor] = {}
         self._pending_checks: List[_MissCheck] = []
@@ -348,6 +508,11 @@ class TensorEngine:
         self._tick_fence: Optional[torch.cuda.Event] = None
         # steady-state detection → fused windows
         self.autofuser = AutoFuser(self)
+        # the device timers plane: a timing wheel over per-type slot
+        # columns, harvested each unfused tick into batched
+        # receive_reminder calls (config.timers_plane gates the harvest
+        # only, so armed state survives a toggle)
+        self.timers = TimersPlane(self)
         # the engine loop (start/stop)
         self._running = False
         self._wake: Optional[asyncio.Event] = None
@@ -362,11 +527,39 @@ class TensorEngine:
             if info is None:
                 raise KeyError(f"{type_name!r} is not a @vector_grain type")
             arena = GrainArena(info, self.device,
-                               capacity=self.initial_capacity)
+                               capacity=self.initial_capacity,
+                               store=self.store)
+            arena.compact_fragmentation = \
+                self.config.compact_fragmentation_threshold
             # row moves settle the auto-fuser's chain first
             arena._owner_engine = weakref.ref(self)
             self.arenas[type_name] = arena
         return arena
+
+    # ================= collection =========================================
+
+    def collect_idle(self, max_idle_ticks: int,
+                     write_back: bool = True) -> int:
+        """Deactivate rows idle for > ``max_idle_ticks`` across all arenas
+        and return the count: the explicit run-to-completion sweep
+        (reference: ActivationCollector.cs:37).  A sweep in progress
+        drains first; the tick loop drains the same pipeline in
+        pause-budgeted slices instead."""
+        chunk = self.config.collection_chunk_rows
+        self.collector.drain(chunk)
+        cutoff = self.tick_number - max_idle_ticks
+        total = 0
+        while True:
+            # re-sweep until nothing is selected: a mid-drain threshold
+            # compaction bumps the generation and drops the rest of that
+            # sweep's victim ids, which are still idle
+            if self.collector.start_sweep(cutoff,
+                                          write_back=write_back) == 0:
+                return total
+            evicted = self.collector.drain(chunk)
+            total += evicted
+            if evicted == 0:
+                return total
 
     # ================= ingress ============================================
 
@@ -447,7 +640,7 @@ class TensorEngine:
                         (b.keys_host < 0).any():
                     raise OverflowError(
                         "fanout src keys must be in [0, 2**31-1)")
-                skeys = _upload(b.keys_host.astype(np.int32), self.device)
+                skeys = host_upload(b.keys_host.astype(np.int32), self.device)
             elif b.keys_wide is not None:
                 raise OverflowError(
                     "fanout expansion requires narrow int keys in "
@@ -468,7 +661,7 @@ class TensorEngine:
             if b.no_fanout or b.keys_dev is None:
                 continue
             if isinstance(rows, np.ndarray):  # a stale injector's rows
-                rows = _upload(rows, self.device)
+                rows = host_upload(rows, self.device)
             base = b.mask if b.mask is not None \
                 else self._mask_for(len(b))
             self._route_expand_push(fanout, dst_type, dst_method,
@@ -580,6 +773,26 @@ class TensorEngine:
             return
         t0 = time.perf_counter()
         self.tick_number += 1
+        stages = self._tick_stages = defaultdict(float)
+        cfg = self.config
+        if cfg.collection_idle_ticks and cfg.collection_every_ticks > 0:
+            # incremental collection: the cadence tick selects victims
+            # (K12, mask-only transfer); every tick then drains one
+            # pause-budgeted slice until the sweep finishes
+            if (not self.collector.active()
+                    and self.tick_number % cfg.collection_every_ticks == 0):
+                self.collector.start_sweep(
+                    self.tick_number - cfg.collection_idle_ticks)
+            if self.collector.active():
+                self.collector.run_slice(cfg.collection_pause_budget_s,
+                                         cfg.collection_chunk_rows)
+                stages["collect"] += time.perf_counter() - t0
+        if cfg.timers_plane and self.timers.armed_total:
+            # harvest due timers BEFORE the rounds, so fired batches
+            # deliver within this tick
+            dt_tm = self.timers.advance_to(self.tick_number)
+            if dt_tm:
+                stages["timers"] += dt_tm
         if len(self._pending_checks) + len(self._fanout_checks) \
                 >= self.config.miss_check_cap:
             # bound device memory pinned by parked checks (fan-out checks
@@ -592,7 +805,9 @@ class TensorEngine:
                 break
             self.queues = defaultdict(list)
             for (type_name, method), batches in pending.items():
+                tf = time.perf_counter()
                 self._run_fanout(type_name, method, batches)
+                stages["fanout"] += time.perf_counter() - tf
                 self._run_group(type_name, method, batches)
             rounds += 1
             self.rounds_run += 1
@@ -600,7 +815,11 @@ class TensorEngine:
             # round-cap spill: these run next tick, after the caller may
             # have rewritten the tensors they reference
             batches[:] = [_spill_copy(b) for b in batches]
-        self.tick_durations.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        for k, v in stages.items():
+            self.stage_seconds[k] += v
+        self.last_tick_stages = dict(stages)
+        self.tick_durations.append(dt)
 
     def stats(self) -> Dict[str, Any]:
         """Engine counters: the keys of ``orleans_tpu``'s
@@ -612,11 +831,21 @@ class TensorEngine:
             "rounds": self.rounds_run,
             "messages": self.messages_processed,
             "activation_passes": self.activation_passes,
+            "stages": dict(self.stage_seconds),
+            "last_tick_stages": dict(self.last_tick_stages),
             "tick_latency": self.latency_stats(),
             "autofuse": self.autofuser.snapshot(),
             "arenas": {name: a.live_count for name, a in self.arenas.items()},
+            "evicted": sum(a.evicted_count for a in self.arenas.values()),
+            "restored": sum(a.restored_count for a in self.arenas.values()),
+            "collection": self.collector.snapshot(),
+            "fragmentation": {name: round(a.fragmentation(), 4)
+                              for name, a in self.arenas.items()},
             "latency_ledger": self.ledger.stats(),
             "attribution": self.attribution.stats(),
+            # armed/fired counters, harvest width and lateness (host
+            # mirrors only)
+            "timers": self.timers.snapshot(),
         }
 
     def latency_stats(self) -> Dict[str, float]:
@@ -654,9 +883,13 @@ class TensorEngine:
         next drain the engine activates the unseen keys and delivers
         exactly the dropped messages again (reference: CallbackData
         resend, Dispatcher rerouting)."""
-        if b.rows is not None and b.generation == arena.generation:
+        if b.rows is not None and b.generation == arena.generation \
+                and b.epoch == arena.eviction_epoch:
             return b.rows, b.args
         if b.keys_host is not None:
+            # stale pre-resolved rows fall through to here too: a
+            # generation change moved rows, an epoch change freed some;
+            # host resolution re-activates an evicted key (from the store)
             rows = arena.resolve_rows(b.keys_host, tick=self.tick_number)
             return rows.astype(np.int32), b.args
         keys = b.keys_wide if b.keys_wide is not None else b.keys_dev
@@ -818,6 +1051,8 @@ class TensorEngine:
         the use clock, route the emits."""
         info = vector_type(type_name)
         arena = self.arena_for(type_name)
+        stages = self._tick_stages
+        t_res = time.perf_counter()
         ledger = self.ledger
         if ledger.enabled:
             # latency ledger, host-resolved side: injector and host-key
@@ -878,6 +1113,8 @@ class TensorEngine:
             m_total = rows.shape[0]
         args = _map_tree(lambda a: _leaf_to_device(a, self.device), args)
         self.messages_processed += m_total
+        t_apply = time.perf_counter()
+        stages["resolve"] += t_apply - t_res
         if mask is None:
             mask = self._mask_for(rows.shape[0])
         if self.attribution.enabled:
@@ -899,9 +1136,14 @@ class TensorEngine:
             # device-routed batches never cross to the host: record their
             # traffic on the device-side use clock
             arena.touch_rows_dev(rows, self.tick_number)
+        t_route = time.perf_counter()
+        stages["apply"] += t_route - t_apply
         self._route_emits(emits)
+        stages["route"] += time.perf_counter() - t_route
         if any(b.future is not None for b in batches):
+            t_dr = time.perf_counter()
             self._deliver_results(batches, results)
+            stages["results"] += time.perf_counter() - t_dr
 
     @staticmethod
     def _deliver_results(batches: List[PendingBatch], results: Any) -> None:
@@ -997,8 +1239,10 @@ class BatchInjector:
 
     Resolves the key set once on the host (activating unseen keys), keeps
     the row vector on the device, and thereafter every ``inject`` queues
-    the payload with those rows (re-resolving only after the arena
-    grew)."""
+    the payload with those rows.  After a growth or compaction
+    (generation) it re-resolves; after an eviction elsewhere in the arena
+    (epoch only) one host lookup re-validates the cached rows, and it
+    re-resolves only when one of its own keys lost its row."""
 
     def __init__(self, engine: TensorEngine, type_name: str, method: str,
                  keys: np.ndarray) -> None:
@@ -1009,30 +1253,46 @@ class BatchInjector:
         self._arena = engine.arena_for(type_name)
         # device mirror of the key set: a registered fan-out expands the
         # injected batches with no host→device copy per inject
-        self._keys_dev = _upload(keys.astype(np.int32), engine.device) \
+        self._keys_dev = host_upload(keys.astype(np.int32), engine.device) \
             if len(keys) and keys.max() < KEY_SENTINEL and keys.min() >= 0 \
             else None
         self.rows: Optional[torch.Tensor] = None
+        self._rows_host: Optional[np.ndarray] = None  # epoch re-check
         self.generation = -2
+        self.epoch = -2
         self._refresh()
 
     def _refresh(self) -> None:
-        rows = self._arena.resolve_rows(self.keys,
-                                        tick=self.engine.tick_number)
+        arena = self._arena
+        if (self.rows is not None and self.generation == arena.generation
+                and self.epoch != arena.eviction_epoch):
+            # epoch-only staleness: rows were freed somewhere, none moved.
+            # If every key still resolves to ITS cached row, the device
+            # rows are right: one host lookup and compare, no transfer.
+            # Liveness alone is not enough — a key evicted and activated
+            # again lands in another row.
+            rows, found = arena.lookup_rows(self.keys)
+            if found.all() and np.array_equal(rows, self._rows_host):
+                self.epoch = arena.eviction_epoch
+                return
+        rows = arena.resolve_rows(self.keys, tick=self.engine.tick_number)
+        self._rows_host = rows.astype(np.int32)
         self.rows = torch.from_numpy(rows).to(self.engine.device)
-        self.generation = self._arena.generation
+        self.generation = arena.generation
+        self.epoch = arena.eviction_epoch
 
     def inject(self, args: Any, want_results: bool = False
                ) -> Optional[asyncio.Future]:
-        if self.generation != self._arena.generation:
-            self._refresh()  # rows moved with a growth: re-resolve
+        if self.generation != self._arena.generation \
+                or self.epoch != self._arena.eviction_epoch:
+            self._refresh()  # rows moved (generation) or freed (epoch)
         engine = self.engine
         future = asyncio.get_running_loop().create_future() \
             if want_results else None
         engine.queues[(self.type_name, self.method)].append(
             PendingBatch(args=args, rows=self.rows, keys_host=self.keys,
                          keys_dev=self._keys_dev, future=future,
-                         generation=self.generation,
+                         generation=self.generation, epoch=self.epoch,
                          inject_tick=engine.tick_number))
         engine._wake_up()
         return future

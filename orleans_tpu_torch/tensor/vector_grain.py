@@ -50,6 +50,7 @@ from orleans_tpu_torch.core.grain import (
 )
 from orleans_tpu_torch.ids import type_code_of
 from orleans_tpu_torch.kernels import segment as _segment
+from orleans_tpu_torch.kernels.lifecycle import gather_rows
 from orleans_tpu_torch.kernels.resolve import KEY_SENTINEL  # noqa: F401
 from orleans_tpu_torch.kernels.scatter import Values, row_scatter
 
@@ -166,6 +167,17 @@ def scatter_add_rows(column: torch.Tensor, rows: torch.Tensor,
                      values: Values) -> torch.Tensor:
     """``column[rows] += values`` in place, padding rows dropped."""
     return row_scatter(column, rows, values, "add")
+
+
+def gather_fill(column: torch.Tensor, rows: torch.Tensor,
+                fill) -> torch.Tensor:
+    """``column[rows]`` with ``fill`` for padding rows (-1) and rows past
+    the end (JAX's ``column.at[rows].get(mode="fill")``): one K13 gather
+    and a select."""
+    out = gather_rows(column, rows)
+    ok = (rows >= 0) & (rows < column.shape[0])
+    return torch.where(ok.reshape(-1, *([1] * (column.dim() - 1))), out,
+                       fill)
 
 
 # ---------------------------------------------------------------------------

@@ -830,3 +830,249 @@ def test_wide_presence_window_on_card_matches_cpu(cuda_device):
     tol = 2 * np.maximum(c["updates"] - 1, 0) * 2.0**-24 \
         * np.abs(c["total_score"])
     assert np.all(np.abs(g["total_score"] - c["total_score"]) <= tol)
+
+
+# -- the grain lifecycle and the timers plane (K12–K15) ------------------------
+
+@pytest.mark.parametrize("cutoff", [-2**31 + 1, 0, 37, 2**31 - 1])
+def test_idle_mask_matches_plain(cuda_device, cutoff):
+    from orleans_tpu_torch.kernels import lifecycle
+
+    rng = np.random.default_rng(12)
+    n = 100_003
+    clocks = [rng.integers(0, 80, n).astype(np.int32) for _ in range(2)]
+    clocks[1][::7] = 2**31 - 1
+    args = [torch.from_numpy(c).to(cuda_device) for c in clocks] + [
+        torch.from_numpy(rng.random(n) < 0.6).to(cuda_device)]
+    got = lifecycle.idle_mask(*args, cutoff)
+    assert torch.equal(got, lifecycle.idle_mask_plain(*args, cutoff))
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.int32, ()),
+                                         (torch.float32, ()),
+                                         (torch.float32, (3,))])
+def test_gather_rows_matches_plain(cuda_device, dtype, width):
+    from orleans_tpu_torch.kernels import lifecycle
+
+    rng = np.random.default_rng(13)
+    col = torch.from_numpy(rng.standard_normal((N_ROWS, *width)) * 1e4).to(
+        dtype).to(cuda_device)
+    rows = rng.integers(0, N_ROWS, 5000).astype(np.int32)
+    rows[:5] = [-1, -7, N_ROWS, N_ROWS + 3, KEY_SENTINEL]
+    r = torch.from_numpy(rows).to(cuda_device)
+    assert torch.equal(lifecycle.gather_rows(col, r),
+                       lifecycle.gather_rows_plain(col, r))
+
+
+def test_timers_write_matches_plain(cuda_device):
+    from orleans_tpu_torch.kernels import timers
+
+    rng = np.random.default_rng(14)
+    n, w = 4097, 2048
+
+    def cols():
+        return [torch.from_numpy(rng_cols[i].copy()).to(cuda_device)
+                for i in range(4)]
+
+    rng_cols = [rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64)
+                .astype(np.int32) for _ in range(4)]
+    idx = np.zeros(w, np.int32)
+    idx[:1500] = rng.choice(np.arange(1, n), 1500, replace=False)
+    idx[7] = n + 5  # dropped
+    vals = [np.full(w, KEY_SENTINEL, np.int32)] + [np.zeros(w, np.int32)] * 3
+    vals = [v.copy() for v in vals]
+    for v in vals:
+        v[:1500] = rng.integers(0, 2**31 - 1, 1500)
+    a, b = cols(), cols()
+    args = [torch.from_numpy(x).to(cuda_device) for x in [idx] + vals]
+    timers.timers_write(*a, *args)
+    timers.timers_write_plain(*b, *args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("now", [0, 9, 2**31 - 1, -2**31 + 10])
+@pytest.mark.parametrize("kind", ["random", "edges", "empty"])
+def test_timers_harvest_matches_plain(cuda_device, kind, now):
+    from orleans_tpu_torch.kernels import timers
+
+    rng = np.random.default_rng(15)
+    n = 4096
+    key = rng.integers(0, 1 << 20, n).astype(np.int32)
+    key[0] = KEY_SENTINEL
+    key[rng.random(n) < 0.2] = KEY_SENTINEL
+    if kind == "edges":
+        due = np.resize(np.array([0, -2**31 + 1, 2**31 - 1, -5, 2**31 - 4,
+                                  -2**30, 7], np.int64), n).astype(np.int32)
+        period = np.resize(np.array([0, 1, 2**31 - 1, 3, 2**30 + 5, 7, 2],
+                                    np.int64), n).astype(np.int32)
+    else:
+        due = rng.integers(-50, 50, n).astype(np.int32)
+        period = np.where(rng.random(n) < 0.5, 0,
+                          rng.integers(1, 9, n)).astype(np.int32)
+    name = rng.integers(0, 4, n).astype(np.int32)
+    w = 0 if kind == "empty" else 2048
+    idx = np.zeros(w, np.int32)
+    idx[:w * 3 // 4] = rng.choice(np.arange(1, n), w * 3 // 4,
+                                  replace=False)
+    d = cuda_device
+    ro = [torch.from_numpy(period).to(d), torch.from_numpy(name).to(d)]
+    a = [torch.from_numpy(key).to(d), torch.from_numpy(due).to(d)]
+    b = [x.clone() for x in a]
+    i = torch.from_numpy(idx).to(d)
+    got = timers.timers_harvest(*a, *ro, i, now)
+    want = timers.timers_harvest_plain(*b, *ro, i, now)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def _watchdog_fused_with_eviction(device):
+    """FleetDeviceGrain heartbeating every tick on half the fleet (fused
+    into graph windows on the card), a periodic watch on every device,
+    and an eviction of the silent half between windows; the next watch
+    re-activates them through the store."""
+    import asyncio
+
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples import watchdog  # noqa: F401
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+    from orleans_tpu_torch.tensor.persistence import MemoryVectorStore
+
+    n = 4096
+    engine = TensorEngine(device=device, store=MemoryVectorStore(),
+                          config=TensorEngineConfig(auto_fusion_ticks=4,
+                                                    auto_fusion_window=4))
+    keys = np.arange(n, dtype=np.int64)
+    every = engine.make_injector("FleetDeviceGrain", "heartbeat", keys)
+    every.inject({})
+    engine.run_tick()
+    engine.timers.arm_batch("FleetDeviceGrain", keys,
+                            np.full(n, engine.tick_number + 6), 6, "watch")
+    hot = engine.make_injector("FleetDeviceGrain", "heartbeat",
+                               keys[:n // 2])
+
+    async def beats(ticks):
+        for _ in range(ticks):
+            hot.inject({"beat": np.ones(n // 2, np.int32)})
+            engine.run_tick()
+        await engine.flush()
+
+    asyncio.run(beats(20))
+    evicted = engine.arena_for("FleetDeviceGrain").evict_keys(keys[n // 2:])
+    asyncio.run(beats(20))
+
+    async def quiet(ticks):
+        # ticks with no injection run unfused: the starved watches fire
+        for _ in range(ticks):
+            engine.run_tick()
+        await engine.flush()
+
+    asyncio.run(quiet(8))
+    return engine, evicted
+
+
+def test_eviction_and_harvest_between_graph_windows_on_card(cuda_device):
+    from orleans_tpu_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    gpu, g_evicted = _watchdog_fused_with_eviction(cuda_device)
+    report = _build.launch_report()
+    cpu, c_evicted = _watchdog_fused_with_eviction("cpu")
+    assert g_evicted == c_evicted > 0
+    assert gpu.stats()["restored"] == g_evicted
+    assert gpu.autofuser.snapshot() == cpu.autofuser.snapshot()
+    assert gpu.autofuser.snapshot()["windows_run"] > 0
+    for k in ("ticks", "messages", "evicted", "restored"):
+        assert gpu.stats()[k] == cpu.stats()[k], k
+    gs, cs = gpu.timers.snapshot(), cpu.timers.snapshot()
+    gs.pop("harvest_seconds")
+    cs.pop("harvest_seconds")
+    assert gs == cs
+    ga, ca = gpu.arena_for("FleetDeviceGrain"), cpu.arena_for(
+        "FleetDeviceGrain")
+    np.testing.assert_array_equal(ga._key_of_row, ca._key_of_row)
+    for name in ca.state:
+        np.testing.assert_array_equal(ga.state[name].cpu().numpy(),
+                                      ca.state[name].numpy(), err_msg=name)
+    # evict_keys selects no idle rows (K12 is the sweep's): the gather
+    # of the write-back, the arm and the harvests launched
+    for name in ("gather_rows", "timers_write", "timers_harvest"):
+        assert report[name]["eager"] > 0, name
+    assert report["row_scatter"]["replayed"] > 0
+
+
+def _presence_collection(device):
+    """A Presence slice with collection on (tests/test_torch_lifecycle.py
+    holds the CPU engine against JAX's): all players activate, a hot
+    tenth keeps beating, the collector evicts the rest with write-back,
+    an evicted player re-activates through the store."""
+    import asyncio
+
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples import presence  # noqa: F401
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+    from orleans_tpu_torch.tensor.persistence import MemoryVectorStore
+
+    n, hot = 6000, 600
+    store = MemoryVectorStore()
+    engine = TensorEngine(device=device, store=store,
+                          config=TensorEngineConfig(
+                              auto_fusion_ticks=0, collection_idle_ticks=24,
+                              collection_every_ticks=8,
+                              collection_pause_budget_s=1e-9,
+                              collection_chunk_rows=512))
+    keys = np.arange(n, dtype=np.int64)
+    games = (keys % 60).astype(np.int32)
+
+    def payload(ks, tick):
+        return {"game": games[:len(ks)], "score": np.ones(len(ks),
+                                                          np.float32),
+                "tick": np.full(len(ks), tick, np.int32)}
+
+    async def go():
+        inj = engine.make_injector("PresenceGrain", "heartbeat", keys)
+        for _ in range(4):
+            inj.inject(payload(keys, engine.tick_number))
+            engine.run_tick()
+        await engine.flush()
+        hot_inj = engine.make_injector("PresenceGrain", "heartbeat",
+                                       keys[:hot])
+        for _ in range(60):
+            hot_inj.inject(payload(keys[:hot], engine.tick_number))
+            engine.run_tick()
+        await engine.flush()
+        engine.send_batch("PresenceGrain", "heartbeat",
+                          np.array([n - 1], dtype=np.int64),
+                          payload(keys[:1], 0))
+        await engine.flush()
+
+    asyncio.run(go())
+    return engine, store
+
+
+def test_collection_slice_on_card_matches_cpu(cuda_device):
+    gpu, gstore = _presence_collection(cuda_device)
+    cpu, cstore = _presence_collection("cpu")
+    arena = gpu.arena_for("PresenceGrain")
+    assert arena.evicted_count == cpu.arena_for("PresenceGrain") \
+        .evicted_count == 5400
+    assert arena.restored_count == 1
+    for name in ("PresenceGrain", "GameGrain"):
+        ga, ca = gpu.arena_for(name), cpu.arena_for(name)
+        np.testing.assert_array_equal(ga._key_of_row, ca._key_of_row)
+        np.testing.assert_array_equal(ga._free[0], ca._free[0])
+        for col in ca.state:
+            np.testing.assert_array_equal(ga.state[col].cpu().numpy(),
+                                          ca.state[col].numpy(), err_msg=col)
+        assert gpu.attribution.per_key_totals(name) == \
+            cpu.attribution.per_key_totals(name), name
+    keys = cstore.list_keys("PresenceGrain")
+    np.testing.assert_array_equal(gstore.list_keys("PresenceGrain"), keys)
+    gr = gstore.read_many("PresenceGrain", keys.tolist())
+    cr = cstore.read_many("PresenceGrain", keys.tolist())
+    for k in keys.tolist():
+        for f, v in cr[k].items():
+            np.testing.assert_array_equal(gr[k][f], v)
+    gc, cc = gpu.collector.snapshot(), cpu.collector.snapshot()
+    for k in ("sweeps_started", "sweeps_completed", "rows_evicted",
+              "victims_dropped_stale"):
+        assert gc[k] == cc[k], k

@@ -60,7 +60,13 @@ def test_port_imports_neither_jax_nor_orleans_tpu():
         "orleans_tpu_torch.samples.presence", "orleans_tpu_torch.convert",
         "orleans_tpu_torch.kernels.fanout", "orleans_tpu_torch.tensor.fanout",
         "orleans_tpu_torch.samples.presence_wide",
-        "orleans_tpu_torch.samples.chirper"}
+        "orleans_tpu_torch.samples.chirper",
+        "orleans_tpu_torch.tensor.persistence",
+        "orleans_tpu_torch.tensor.timers_plane",
+        "orleans_tpu_torch.kernels.lifecycle",
+        "orleans_tpu_torch.kernels.timers",
+        "orleans_tpu_torch.samples.auction",
+        "orleans_tpu_torch.samples.watchdog"}
     assert expected <= set(report["modules"])
     assert report["leaked"] == []
     # no card here: the default device must refuse, not fall back
