@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: Presence, WidePresence and Chirper on
-one NVIDIA card.
+"""Chip smoke of the PyTorch/CUDA port: Presence, WidePresence, Chirper, the
+grain lifecycle, the timers plane and the streams plane on one NVIDIA
+card.
 
 Run from the repository root on a machine with an H100 and the CUDA toolkit:
 
@@ -84,7 +85,28 @@ Phases, each of which fails loudly (exit code other than 0):
    held against the same run on the CPU engine (which
    tests/test_torch_timers.py holds against the JAX engine).  Launches
    are counted per path.
-9. One JSON line of the kernels, the card line, and last
+9. The device streams plane (``drive_streams_path``), at bench.py's full
+   ``_streams_tier`` size.  K16 ``seg_pull`` and K17 ``touch_dense``
+   against their plain versions on the card, on the chat headline's pull
+   layout (1,000,000 users, 4,096 rooms, 1.5 memberships: 1,461,322
+   lanes): int32 sums (the checksum lanes, a batch whose running total
+   crosses 2**31, full-range values), an int32 max with ``fill=-1`` over
+   masked lanes and empty rows, a float32 sum within ``2 * k * 2**-24 *
+   sum|x|`` per row of ``k`` lanes, the count mode with a slot total, and
+   K17; each mode timed beside its bound, its plain version and
+   ``torch.segment_reduce`` where it takes the type.  Then chat unfused
+   (8 ticks, the sample's oracle exact in all three fields, every
+   delivery pull-mode) with events/s and a tick's device and host time;
+   the fused chat headline (96 ticks, windows of 16, ``verify() == 0``,
+   every member's ``received``, ``last_msg`` and ``checksum`` equal to a
+   numpy replay of the stacked message ids over ``host_expand``) with a
+   window's device time and the idle share; leaderboards (512 boards,
+   1,000,000 members, 1.5 follows, 24 ticks, oracle on); and the churn
+   exactness of ``_streams_churn_exactness`` at 100,000 users, 256 rooms,
+   2.0 memberships (subscribe, unsubscribe, 10% evicted through a
+   ``MemoryVectorStore`` and their rows reused clean, the plane off and
+   on, exact at every point).  Launches counted per path.
+10. One JSON line of the kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -117,6 +139,11 @@ COLL_IDLE, COLL_EVERY, COLL_BUDGET, COLL_CHUNK = 60, 16, 0.02, 16_384
 # timers (bench.py _timers_tier, full size)
 TIMERS_N, TIMERS_SPREAD = 2_000_000, 64
 AUCTIONS, FLEET, COMPOSED_FLEET = 1_000_000, 500_000, 50_000
+# streams (bench.py _streams_tier and _streams_churn_exactness, full size)
+CHAT_USERS, CHAT_ROOMS, CHAT_MEAN = 1_000_000, 4_096, 1.5
+CHAT_TICKS, CHAT_FUSED_TICKS = 8, 96
+BOARDS, BOARD_MEMBERS, BOARD_MEAN, BOARD_TICKS = 512, 1_000_000, 1.5, 24
+CHURN_USERS, CHURN_ROOMS, CHURN_MEAN = 100_000, 256, 2.0
 
 SOURCES = {
     "resolve_dense": ("orleans_tpu_torch/csrc/resolve.cu",
@@ -151,6 +178,10 @@ SOURCES = {
                      "orleans_tpu/tensor/timers_plane.py:80"),
     "timers_harvest": ("orleans_tpu_torch/csrc/timers.cu",
                        "orleans_tpu/tensor/timers_plane.py:90"),
+    "seg_pull": ("orleans_tpu_torch/csrc/pull.cu",
+                 "orleans_tpu/tensor/vector_grain.py:164"),
+    "touch_dense": ("orleans_tpu_torch/csrc/pull.cu",
+                    "orleans_tpu/tensor/arena.py:43"),
 }
 # the kernels each path must launch (launch counts zeroed before it, read
 # after it)
@@ -167,6 +198,12 @@ TIMERS_KERNELS = ("timers_write", "timers_harvest", "gather_rows",
                   "row_scatter", "resolve_dense")
 COMPOSED_KERNELS = ("idle_mask", "gather_rows", "timers_write",
                     "timers_harvest", "row_scatter", "miss_keys")
+STREAMS_UNFUSED_KERNELS = ("seg_pull", "touch_dense", "seg_sum",
+                           "row_scatter", "hist_count", "attr_fold")
+STREAMS_FUSED_KERNELS = ("seg_pull", "seg_sum", "row_scatter", "hist_count",
+                         "attr_fold")
+STREAMS_CHURN_KERNELS = ("seg_pull", "touch_dense", "gather_rows",
+                         "row_scatter")
 ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
                                  "orleans_tpu/tensor/arena.py:34",
                                  "orleans_tpu/tensor/attribution.py:294",
@@ -176,6 +213,8 @@ ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
                                  "orleans_tpu/tensor/arena.py:768"],
                  "hist_count": ["orleans_tpu/tensor/fused.py:384"],
                  "resolve_wide": ["orleans_tpu/tensor/engine.py:248"],
+                 "seg_pull": ["orleans_tpu/tensor/vector_grain.py:194",
+                              "orleans_tpu/tensor/attribution.py:133"],
                  "attr_fold": ["orleans_tpu/tensor/attribution.py:133",
                                "orleans_tpu/tensor/attribution.py:161",
                                "orleans_tpu/tensor/attribution.py:174",
@@ -2682,6 +2721,427 @@ def drive_composition_path(dev, card: str) -> dict:
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the device streams plane
+# ---------------------------------------------------------------------------
+
+def _chat_engine(dev, fuse: bool = False, store=None):
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    return TensorEngine(device=dev, store=store, config=TensorEngineConfig(
+        auto_fusion_ticks=16 if fuse else 0))
+
+
+def _row_float_tol(values: torch.Tensor, offsets: torch.Tensor
+                   ) -> torch.Tensor:
+    """Per row, ``2 * k * 2**-24 * sum|x|`` over its ``k`` lanes: the
+    kernel sums a row in float32 in lane order, the plain version in
+    float64 rounded once."""
+    from orleans_tpu_torch.kernels import pull as kpull
+
+    k = (offsets[1:] - offsets[:-1]).double()
+    mag = kpull.seg_pull_plain(values.abs(), offsets, "sum").double()
+    return 2 * k * 2.0**-24 * mag
+
+
+def check_pull_kernels(dev, timer, card: str, pull: dict) -> dict:
+    """K16 and K17 against their plain versions on the card, on the chat
+    headline's pull layout (``pull``: 1,000,000 users, 4,096 rooms, 1.5
+    memberships): int32 sums of the checksum lanes and of a batch whose
+    running total crosses 2**31 (and one of full-range values whose row
+    sums wrap), an int32 max with ``fill=-1`` over masked lanes and empty
+    rows, a float32 sum within the stated per-row bound, the count mode
+    with a slot total, and K17.  Each mode timed beside its bound, its
+    plain version and a library yardstick where one PyTorch call computes
+    the same function."""
+    from orleans_tpu_torch.kernels import pull as kpull
+
+    rng = np.random.default_rng(1357)
+    offs, lane = pull["offsets"], pull["src_lane"]
+    m, n_rows = pull["n_edges"], offs.shape[0] - 1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    msg = torch.arange(CHAT_ROOMS, dtype=torch.int32, device=dev) \
+        + 7 * CHAT_ROOMS
+    msg_e = msg.index_select(0, lane)
+    mix = msg_e % 1009 + pull["src_key"] % 97       # the checksum lanes
+    # lanes averaging 2**32 / m: the running total reaches about 2**32
+    wrapping = t(rng.integers(0, min(2**31 - 1, 2**33 // m), m)
+                 .astype(np.int32))
+    full = t(rng.integers(-2**31, 2**31, m, dtype=np.int64)
+             .astype(np.int32))
+    require(int(wrapping.long().sum()) > 2**31, "the wrapping batch's "
+            "total stays below 2**31")
+    for what, v in (("checksum lanes", mix), ("running total past 2**31",
+                                              wrapping),
+                    ("full-range values", full)):
+        require(torch.equal(kpull.seg_pull(v, offs, "sum"),
+                            kpull.seg_pull_plain(v, offs, "sum")),
+                f"seg_pull sum != plain ({what})")
+    masked = torch.where(t(rng.random(m) < 0.9), msg_e, -1)
+    got_max = kpull.seg_pull(masked, offs, "max", fill=-1)
+    require(torch.equal(got_max, kpull.seg_pull_plain(masked, offs, "max",
+                                                      fill=-1)),
+            "seg_pull max != plain")
+    empty = offs[1:] == offs[:-1]
+    require(bool(empty.any()) and bool((got_max[empty] == -1).all()),
+            "empty rows must read the fill")
+    floats = t((rng.standard_normal(m) * 100).astype(np.float32))
+    got_f = kpull.seg_pull(floats, offs, "sum")
+    want_f = kpull.seg_pull_plain(floats, offs, "sum")
+    err = (got_f.double() - want_f.double()).abs()
+    require(bool((err <= _row_float_tol(floats, offs)).all()),
+            "seg_pull float32 sum outside the per-row bound")
+    valid = t(rng.random(m) < 0.8)
+    counts0 = t(rng.integers(0, 1000, n_rows).astype(np.int32))
+    c1, c2 = counts0.clone(), counts0.clone()
+    s1 = torch.zeros(64, dtype=torch.int32, device=dev)
+    s2 = s1.clone()
+    kpull.seg_pull(valid, offs, "sum", out=c1, slots=s1, slot=5)
+    kpull.seg_pull_plain(valid, offs, "sum", out=c2, slots=s2, slot=5)
+    require(torch.equal(c1, c2) and torch.equal(s1, s2)
+            and int(s1[5]) == int(valid.sum()),
+            "seg_pull count mode != plain")
+    clock = t(rng.integers(0, 50, n_rows).astype(np.int32))
+    k1, k2 = clock.clone(), clock.clone()
+    kpull.touch_dense(k1, offs, 77)
+    kpull.touch_dense_plain(k2, offs, 77)
+    require(torch.equal(k1, k2), "touch_dense != plain")
+
+    offs64 = offs.long()
+    lib = {}
+    for name_, v in (("int32", mix), ("float32", floats)):
+        try:
+            torch.segment_reduce(v, "sum", offsets=offs64, unsafe=True)
+            lib[name_] = v
+        except (RuntimeError, NotImplementedError) as exc:
+            lib[name_] = exc
+
+    def library(v, reduce="sum", **kw):
+        return lambda: torch.segment_reduce(v, reduce, offsets=offs64,
+                                            unsafe=True, **kw)
+
+    def cumsum_diff():
+        z = torch.cumsum(mix, 0, dtype=torch.int32)
+        hi = z.index_select(0, (offs64[1:] - 1).clamp(min=0))
+        lo = z.index_select(0, (offs64[:-1] - 1).clamp(min=0))
+        return hi - lo
+
+    seg_bytes = 4 * m + 4 * (n_rows + 1) + 4 * n_rows
+    modes = {
+        "sum_int32": dict(bound=bound(seg_bytes), **measure(
+            timer, lambda: kpull.seg_pull(mix, offs, "sum"),
+            lambda: kpull.seg_pull_plain(mix, offs, "sum"),
+            library(mix) if isinstance(lib["int32"], torch.Tensor)
+            else None)),
+        "max_int32": dict(bound=bound(seg_bytes), **measure(
+            timer, lambda: kpull.seg_pull(masked, offs, "max", fill=-1),
+            lambda: kpull.seg_pull_plain(masked, offs, "max", fill=-1),
+            library(masked, "max", initial=-1)
+            if isinstance(lib["int32"], torch.Tensor) else None)),
+        "sum_float32": dict(bound=bound(seg_bytes), **measure(
+            timer, lambda: kpull.seg_pull(floats, offs, "sum"),
+            lambda: kpull.seg_pull_plain(floats, offs, "sum"),
+            library(floats) if isinstance(lib["float32"], torch.Tensor)
+            else None)),
+        "count_slot": dict(
+            bound=bound(m + 4 * (n_rows + 1) + 8 * n_rows + 8), **measure(
+                timer, lambda: kpull.seg_pull(valid, offs, "sum", out=c1,
+                                              slots=s1, slot=5),
+                lambda: kpull.seg_pull_plain(valid, offs, "sum", out=c2,
+                                             slots=s2, slot=5), None)),
+    }
+    composite_ms = timer(cumsum_diff)
+    head = modes["sum_int32"]
+    int_note = ("torch.segment_reduce on the int32 lanes" if head[
+        "library_ms"] is not None else
+        f"no single PyTorch call: torch.segment_reduce refused int32 "
+        f"({lib['int32']}); cumsum(dtype=int32) + two index_select + a "
+        f"subtraction take {composite_ms:.4f} ms")
+    results = {"seg_pull": dict(
+        max_abs_err=float(err.max()), library=int_note,
+        bound=head["bound"], ms=head["ms"], host_ms=head["host_ms"],
+        plain_ms=head["plain_ms"], library_ms=head["library_ms"],
+        per={k: {kk: (vv if kk != "bound" else list(vv))
+                 for kk, vv in v.items()} for k, v in modes.items()},
+        composite_ms=composite_ms)}
+    results["seg_pull"]["per"]["sum_int32"]["library_note"] = int_note
+    results["touch_dense"] = dict(
+        max_abs_err=0, library=None,
+        library_note="no single PyTorch call: the shortest expression is "
+                     "the plain version, maximum(last_use, where(offsets[1:]"
+                     " > offsets[:-1], tick, 0)), timed as plain_ms",
+        bound=bound(4 * (n_rows + 1) + 8 * n_rows),
+        **measure(timer, lambda: kpull.touch_dense(k1, offs, 78),
+                  lambda: kpull.touch_dense_plain(k2, offs, 78), None))
+    for key, v in modes.items():
+        lib_ms = f"{v['library_ms']:.4f}" if v["library_ms"] is not None \
+            else "none"
+        print(f"kernel seg_pull {key}: {v['ms']:.4f} ms on the device, host "
+              f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
+              f"{lib_ms}, bound {v['bound'][0]:.4f} by {v['bound'][1]}); "
+              f"{m} lanes, {n_rows} rows; on {card}", flush=True)
+    v = results["touch_dense"]
+    print(f"kernel touch_dense: {v['ms']:.4f} ms on the device, host "
+          f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, bound "
+          f"{v['bound'][0]:.4f} by {v['bound'][1]}); int32 cumsum "
+          f"composite {composite_ms:.4f} ms; float32 max |kernel - plain| "
+          f"{float(err.max()):.3e}; on {card}", flush=True)
+    return results
+
+
+def chat_replay(subs, n_users: int, n_windows: int, window: int) -> dict:
+    """The expected member columns after ``run_chat_load_fused``: every
+    window ``b`` (0 the warm one) delivers message ``(t + b) * rooms +
+    room`` of each tick ``t`` over ``host_expand`` (a numpy replay of the
+    stacked message ids)."""
+    rooms = np.arange(CHAT_ROOMS, dtype=np.int64)
+    dsts, srcs = subs.host_expand(rooms)
+    steps = (np.arange(window)[:, None]
+             + np.arange(n_windows + 1)[None, :]).reshape(-1)
+    msgs = steps[None, :] * CHAT_ROOMS + rooms[:, None]     # [rooms, k]
+    per_room = (msgs % 1009).sum(axis=1) + len(steps) * (rooms % 97)
+    received = np.zeros(n_users, np.int64)
+    last = np.full(n_users, -1, np.int64)
+    checksum = np.zeros(n_users, np.int64)
+    np.add.at(received, dsts, len(steps))
+    np.maximum.at(last, dsts, msgs.max(axis=1)[srcs])
+    np.add.at(checksum, dsts, per_room[srcs])
+    return {"received": received, "last_msg": last, "checksum": checksum}
+
+
+def check_members(engine, want: dict, n_users: int) -> None:
+    arena = engine.arena_for("ChatUserGrain")
+    rows, ok = arena.lookup_rows(np.arange(n_users, dtype=np.int64))
+    require(ok.all(), "a chat member is not live")
+    for name, col in want.items():
+        got = arena.state[name].cpu().numpy()[rows]
+        require(np.array_equal(got, col), f"fused chat {name} != the numpy "
+                f"replay ({int((got != col).sum())} members differ)")
+
+
+def streams_churn(dev) -> dict:
+    """bench.py ``_streams_churn_exactness`` at its full size (100,000
+    users, 256 rooms, 2.0 memberships): exact after subscribe, after
+    unsubscribe, after evicting 10% of the members through a
+    ``MemoryVectorStore`` and reusing their rows with fresh keys (the
+    reused rows must be clean), with the plane switched off (the host
+    path) and back on."""
+    from orleans_tpu_torch.samples.streams import (
+        _HostMirror,
+        build_membership,
+        run_chat_load,
+    )
+    from orleans_tpu_torch.tensor.persistence import MemoryVectorStore
+    from orleans_tpu_torch.tensor.streams_plane import DeviceSubscriptions
+
+    n_users, n_rooms = CHURN_USERS, CHURN_ROOMS
+    engine = _chat_engine(dev, store=MemoryVectorStore())
+    subs = DeviceSubscriptions(engine, "ChatUserGrain", "receive")
+    subs.subscribe_many(*build_membership(n_rooms, n_users, CHURN_MEAN,
+                                          seed=7))
+    mirror = _HostMirror(subs, n_users)
+    points = {}
+    rng = np.random.default_rng(7)
+
+    def publish_and_check(tag: str) -> None:
+        st = asyncio.run(run_chat_load(
+            engine, n_rooms=n_rooms, n_users=n_users, n_ticks=3,
+            seed=len(points) + 1, subs=subs, verify=True, mirror=mirror))
+        points[tag] = st["oracle"]
+        require(all(v for k, v in st["oracle"].items()
+                    if k.endswith("_exact")), f"churn {tag}: {st['oracle']}")
+
+    publish_and_check("subscribe")
+    subs.subscribe_many(*build_membership(n_rooms, n_users, 0.5, seed=11))
+    drop = subs.subscribers_of(3)
+    subs.unsubscribe_many(np.full(len(drop) // 2, 3), drop[:len(drop) // 2])
+    publish_and_check("unsubscribe")
+    arena = engine.arena_for("ChatUserGrain")
+    victims = rng.choice(n_users, n_users // 10, replace=False) \
+        .astype(np.int64)
+    arena.evict_keys(victims, write_back=True)
+    mirror.evict_keys(victims)
+    fresh = np.arange(n_users, n_users + len(victims), dtype=np.int64)
+    arena.resolve_rows(fresh)
+    publish_and_check("evict_and_reuse")
+    rows, ok = arena.lookup_rows(fresh)
+    require(ok.all() and not arena.state["received"].cpu().numpy()[
+        rows].any(), "a reused row received a dead subscription's events")
+    engine.config.stream_plane = False
+    publish_and_check("plane_disabled_host_path")
+    engine.config.stream_plane = True
+    publish_and_check("plane_reenabled")
+    return {"points": points, "evicted": int(len(victims)),
+            "plane": engine.stats()["streams"]}
+
+
+def drive_streams_path(dev, card: str, timer) -> dict:
+    """Phase 9: the streams plane at the JAX bench's full size: K16/K17
+    against their plain versions on the chat layout; chat unfused
+    (1,000,000 users, 4,096 rooms, 1.5 memberships, 8 ticks, oracle on)
+    with its timings; the fused chat headline (96 ticks, windows of 16)
+    against a numpy replay, with a window's device time and the idle
+    share; leaderboards (512 boards, 1,000,000 members, 24 ticks, oracle
+    on); the churn exactness at 100,000 users.  Launches counted per
+    path."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples.streams import (
+        run_chat_load,
+        run_chat_load_fused,
+        run_leaderboard_load,
+        wire_chat,
+    )
+
+    out = {"counts": {}, "report": {}}
+    gc.collect()
+    t0 = time.perf_counter()
+    engine = _chat_engine(dev)
+    subs = wire_chat(engine, CHAT_ROOMS, CHAT_USERS, CHAT_MEAN, seed=0)
+    pull = subs.pull_layout(engine.arena_for("ChatUserGrain"))
+    require(pull is not None, "the chat layout is cold")
+    edges, lanes = subs.edge_count, pull["n_edges"]
+    require(lanes == edges, f"{edges} edges but {lanes} pull lanes")
+    wire_s = time.perf_counter() - t0
+    out["kernels"] = check_pull_kernels(dev, timer, card, pull)
+    del pull
+
+    # chat unfused, oracle on
+    _build.reset_launch_counts()
+    st = asyncio.run(run_chat_load(engine, n_rooms=CHAT_ROOMS,
+                                   n_users=CHAT_USERS,
+                                   mean_memberships=CHAT_MEAN,
+                                   n_ticks=CHAT_TICKS, subs=subs,
+                                   verify=True))
+    require(all(v for k, v in st["oracle"].items() if k.endswith("_exact")),
+            f"chat unfused oracle {st['oracle']}")
+    require(subs.pull_deliveries == CHAT_TICKS and subs.push_deliveries == 0,
+            f"chat unfused took {subs.pull_deliveries} pull and "
+            f"{subs.push_deliveries} push deliveries")
+    out["counts"]["chat_unfused"] = _build.launch_counts()
+    out["report"]["chat_unfused"] = _build.launch_report()
+    require_launched(out["counts"]["chat_unfused"], "chat unfused",
+                     STREAMS_UNFUSED_KERNELS)
+    events_per_tick = CHAT_ROOMS + edges
+    msg_d = torch.arange(CHAT_ROOMS, dtype=torch.int32, device=dev)
+    inj = engine.make_injector("ChatRoomGrain", "publish",
+                               np.arange(CHAT_ROOMS, dtype=np.int64))
+    run = LoadRun(engine, inj, lambda t: {"msg_id": msg_d + 100_000 + t})
+    timings = path_timings(run, events_per_tick, TICKS)
+    require(subs.push_deliveries == 0, "a timed chat tick went push")
+    out["unfused"] = dict(oracle=st["oracle"], seconds=st["seconds"],
+                          edges=edges, wire_s=wire_s, **timings)
+    del run, inj, engine, subs
+    gc.collect()
+
+    # chat fused: the headline
+    _build.reset_launch_counts()
+    engine = _chat_engine(dev, fuse=True)
+    t0 = time.perf_counter()
+    fused = asyncio.run(run_chat_load_fused(
+        engine, n_rooms=CHAT_ROOMS, n_users=CHAT_USERS,
+        mean_memberships=CHAT_MEAN, n_ticks=CHAT_FUSED_TICKS, window=16))
+    fused_total_s = time.perf_counter() - t0
+    out["counts"]["chat_fused"] = _build.launch_counts()
+    out["report"]["chat_fused"] = _build.launch_report()
+    require_launched(out["counts"]["chat_fused"], "chat fused",
+                     STREAMS_FUSED_KERNELS)
+    require(out["report"]["chat_fused"]["seg_pull"]["replayed"] > 0,
+            "seg_pull never replayed")
+    subs = engine._stream_routes[("ChatRoomGrain", "publish")]
+    check_members(engine, chat_replay(subs, CHAT_USERS,
+                                      CHAT_FUSED_TICKS // 16, 16),
+                  CHAT_USERS)
+    # a window's device time and the idle share of pipelined windows
+    rooms = np.arange(CHAT_ROOMS, dtype=np.int64)
+    prog = engine.fuse_ticks("ChatRoomGrain", "publish", rooms)
+    base = torch.arange(16, dtype=torch.int32, device=dev)[:, None] \
+        * CHAT_ROOMS + msg_d[None]
+    stacked = {"msg_id": base}
+    prog.run(stacked)  # the build
+    engine.wait_completion()
+    dev_ms, host_ms = held_device_ms(lambda: prog.run(stacked), reps=3)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    engine.wait_completion()
+    ev[0].record()
+    for _ in range(6):
+        prog.run(stacked)
+    ev[1].record()
+    ev[1].synchronize()
+    stream_ms = ev[0].elapsed_time(ev[1])
+    require(prog.verify() == 0, "a timed chat window missed deliveries")
+    out["fused"] = dict(fused, window_device_ms=dev_ms,
+                        window_host_ms=host_ms, total_s=fused_total_s,
+                        idle_share=1 - 6 * dev_ms / stream_ms,
+                        stream_ms_6_windows=stream_ms,
+                        per_replay=dict(prog._per_replay),
+                        rebuilds=dict(prog.rebuilds))
+    del prog, engine, subs, stacked, base
+    gc.collect()
+
+    # leaderboards, unfused, oracle on
+    _build.reset_launch_counts()
+    engine = _chat_engine(dev)
+    t0 = time.perf_counter()
+    boards = asyncio.run(run_leaderboard_load(
+        engine, n_boards=BOARDS, n_members=BOARD_MEMBERS,
+        mean_follows=BOARD_MEAN, n_ticks=BOARD_TICKS, verify=True))
+    boards["total_s"] = time.perf_counter() - t0
+    require(all(v for k, v in boards["oracle"].items()
+                if k.endswith("_exact")), f"leaderboards {boards['oracle']}")
+    route = engine.stats()["streams"]["LeaderboardGrain.post"]
+    require(route["pull_deliveries"] == BOARD_TICKS
+            and route["push_deliveries"] == 0, f"leaderboards {route}")
+    out["counts"]["leaderboards"] = _build.launch_counts()
+    out["report"]["leaderboards"] = _build.launch_report()
+    require_launched(out["counts"]["leaderboards"], "leaderboards",
+                     STREAMS_UNFUSED_KERNELS)
+    out["leaderboards"] = boards
+    del engine
+    gc.collect()
+
+    # churn exactness
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["churn"] = streams_churn(dev)
+    out["churn"]["seconds"] = time.perf_counter() - t0
+    out["counts"]["streams_churn"] = _build.launch_counts()
+    out["report"]["streams_churn"] = _build.launch_report()
+    require_launched(out["counts"]["streams_churn"], "streams churn",
+                     STREAMS_CHURN_KERNELS)
+
+    u, f = out["unfused"], out["fused"]
+    print(f"chat unfused {CHAT_USERS} users / {CHAT_ROOMS} rooms / "
+          f"{edges} edges: oracle {json.dumps(u['oracle'])} over "
+          f"{CHAT_TICKS} ticks ({u['seconds']:.3f} s with the numpy "
+          f"oracle); {u['messages_per_sec']:.1f} events/s pipelined over "
+          f"{TICKS} ticks, one tick {u['tick_device_ms']:.4f} ms on the "
+          f"device, {u['tick_host_ms']:.4f} ms on the host; wiring "
+          f"{u['wire_s']:.2f} s; on {card}", flush=True)
+    print(f"chat fused {CHAT_FUSED_TICKS} ticks in windows of 16: "
+          f"{f['events_per_sec']:.1f} events/s ({f['seconds']:.4f} s for "
+          f"the windows after the warm one, verify() == 0, members equal "
+          f"the numpy replay); one window {f['window_device_ms']:.4f} ms on "
+          f"the device, {f['window_host_ms']:.4f} ms on the host; idle "
+          f"share over 6 pipelined windows {f['idle_share']:.4f}; one "
+          f"replay = {json.dumps(f['per_replay'])}; on {card}", flush=True)
+    print(f"leaderboards {BOARDS} boards / {BOARD_MEMBERS} members / "
+          f"{boards['edges']} edges, {BOARD_TICKS} ticks: oracle "
+          f"{json.dumps(boards['oracle'])}, {boards['events_per_sec']:.1f} "
+          f"events/s with the numpy oracle; streams churn "
+          f"{CHURN_USERS} users / {CHURN_ROOMS} rooms: every point exact "
+          f"({', '.join(out['churn']['points'])}), "
+          f"{out['churn']['evicted']} evicted, {out['churn']['seconds']:.2f}"
+          f" s; plane {json.dumps(out['churn']['plane'])}; on {card}",
+          flush=True)
+    for path, c in out["counts"].items():
+        print(f"launches on the {path} path: {json.dumps(c)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -2726,10 +3186,13 @@ def main() -> int:
     t7 = time.perf_counter()
     composed = drive_composition_path(dev, card)
     t8 = time.perf_counter()
+    streams = drive_streams_path(dev, card, timer)
+    results.update(streams["kernels"])
+    t9 = time.perf_counter()
     print(f"phase seconds: kernels {t1 - t0:.1f}, unfused {t2 - t1:.1f}, "
           f"fused {t3 - t2:.1f}, wide {t4 - t3:.1f}, chirper "
           f"{t5 - t4:.1f}, collection {t6 - t5:.1f}, timers {t7 - t6:.1f}, "
-          f"composition {t8 - t7:.1f}", flush=True)
+          f"composition {t8 - t7:.1f}, streams {t9 - t8:.1f}", flush=True)
     plane = runs["plane_ms"]
     fused_added = (fused["window_device_ms"]
                    - fused["window_off_device_ms"]) / 16
@@ -2750,13 +3213,15 @@ def main() -> int:
              "presence_fused": fused["counts"],
              **wide_out["counts"], **chirper_out["counts"],
              "collection": collection["counts"], "timers": timers["counts"],
-             "composition": composed["counts"]}
+             "composition": composed["counts"], **streams["counts"]}
     reports = {"presence_fused": fused["report"], **wide_out["report"],
                **chirper_out["report"], "collection": collection["report"],
-               "timers": timers["report"], "composition": composed["report"]}
+               "timers": timers["report"], "composition": composed["report"],
+               **streams["report"]}
     per_replay = {"presence_fused": fused["per_replay"],
                   "wide_fused": wide_out["fused"]["per_replay"],
-                  "chirper_fused": chirper_out["fused"]["per_replay"]}
+                  "chirper_fused": chirper_out["fused"]["per_replay"],
+                  "chat_fused": streams["fused"]["per_replay"]}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]

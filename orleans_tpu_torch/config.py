@@ -67,6 +67,13 @@ class TensorEngineConfig:
     # tick jump beyond which advance_to rebuilds the wheel from the live
     # slot mirrors (O(armed)) instead of stepping tick by tick
     timers_catchup_jump: int = 4096
+    # device streams plane (tensor/streams_plane.py): registered
+    # stream-subscription routes expand on the device — pull-mode (one
+    # payload gather per edge + the row-range reductions of K16) when the
+    # publish pattern is the bound key set, push-mode (K11) otherwise.
+    # Off = the host-expansion baseline (a device→host copy per publish
+    # and a numpy adjacency walk).  A live toggle rebuilds fused windows.
+    stream_plane: bool = True
 
 
 @dataclass

@@ -20,9 +20,11 @@ snapshot and per-key totals.  ``timers_from_jax`` loads a JAX timers
 plane's host mirrors (slot for slot: key, name, due, period, stamp, the
 index and the free slots) into a port plane, rebuilding its wheel and
 device columns, after which both fire the same timers on the same ticks;
-``store_from_jax`` copies a JAX ``MemoryVectorStore``'s records.  Both
-read the JAX objects' attributes only: nothing of the JAX package is
-imported.
+``store_from_jax`` copies a JAX ``MemoryVectorStore``'s records.
+``subscriptions_from_jax`` builds a port ``DeviceSubscriptions`` from a
+JAX one (its merged edge table, its buffered mutations, its bound key set
+and its counters), after which both deliver the same events.  These read
+the JAX objects' attributes only: nothing of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from orleans_tpu_torch.tensor.attribution import WorkloadAttribution
 from orleans_tpu_torch.tensor.fanout import DeviceFanout
 from orleans_tpu_torch.tensor.ledger import MAX_SLOTS, DeviceLatencyLedger
 from orleans_tpu_torch.tensor.persistence import MemoryVectorStore
+from orleans_tpu_torch.tensor.streams_plane import DeviceSubscriptions
 from orleans_tpu_torch.tensor.timers_plane import TimersPlane
 
 
@@ -238,3 +241,27 @@ def store_from_jax(store) -> MemoryVectorStore:
     return MemoryVectorStore({
         (t, int(k)): {n: np.array(v, copy=True) for n, v in rec.items()}
         for (t, k), rec in store._store.items()})
+
+
+def subscriptions_from_jax(source, engine) -> DeviceSubscriptions:
+    """A port ``DeviceSubscriptions`` on ``engine`` (or None) carrying a JAX
+    one's delivery edge, merged edge table, buffered subscribe and
+    unsubscribe batches, bound publish key set and host counters (copies
+    of each).  Its device layouts build at the first publish, against the
+    port arena's rows."""
+    subs = DeviceSubscriptions(engine, source.type_name, source.method)
+    subs._edges = np.array(source._edges, dtype=np.int64).reshape(-1, 2)
+    subs._sub_keys_sorted = np.unique(subs._edges[:, 1])
+    subs._pending_add = [np.array(p, dtype=np.int64)
+                         for p in source._pending_add]
+    subs._pending_remove = [np.array(p, dtype=np.int64)
+                            for p in source._pending_remove]
+    subs._host_dirty = bool(subs._pending_add or subs._pending_remove)
+    subs.mutation_version = source.mutation_version
+    if source._bound_keys is not None:
+        subs.bind(source._bound_keys)
+    for name in ("published_events", "delivered_events", "pull_deliveries",
+                 "push_deliveries", "rebuilds", "retired_edges",
+                 "dropped_lanes", "redeliveries"):
+        setattr(subs, name, int(getattr(source, name)))
+    return subs

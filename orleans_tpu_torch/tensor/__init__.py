@@ -13,9 +13,11 @@ from orleans_tpu_torch.tensor.vector_grain import (
     vector_grain,
 )
 from orleans_tpu_torch.tensor.engine import TensorEngine
+from orleans_tpu_torch.tensor.streams_plane import DeviceSubscriptions
 
 __all__ = [
     "Batch",
+    "DeviceSubscriptions",
     "Emit",
     "TensorEngine",
     "VectorGrain",

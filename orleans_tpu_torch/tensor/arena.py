@@ -25,6 +25,9 @@ the generation stands and only ``eviction_epoch`` bumps.  Past the
 fragmentation threshold the block repacks (``_compact``: rows move, the
 generation bumps).  A later activation of an evicted key reads its row
 back from the store (reference: Catalog.SetupActivationState :731).
+Before freed rows return to the free list, the owning engine's
+attribution plane and stream routes retire them (``on_evict``), so a
+reused row inherits neither traffic counts nor subscriptions.
 
 Keys span ``[0, 2**63)``.  Keys that fit int32 resolve on the device
 through the dense or the sorted mirror; an arena holding a wider key
@@ -44,6 +47,7 @@ import torch
 
 from orleans_tpu_torch.device import fetch_host, host_upload
 from orleans_tpu_torch.kernels.lifecycle import gather_rows, idle_mask
+from orleans_tpu_torch.kernels.pull import touch_dense
 from orleans_tpu_torch.kernels.resolve import KEY_SENTINEL
 from orleans_tpu_torch.kernels.scatter import row_scatter
 from orleans_tpu_torch.tensor.vector_grain import StateField, VectorGrainInfo
@@ -173,6 +177,16 @@ class GrainArena:
         return att if att is not None and att.has_state(self.info.name) \
             else None
 
+    def _stream_routes(self) -> list:
+        """The owning engine's stream-subscription routes whose
+        subscribers live in this arena (``tensor/streams_plane.py``)."""
+        ref = self._owner_engine
+        engine = ref() if ref is not None else None
+        if engine is None:
+            return []
+        return [r for r in engine._stream_routes.values()
+                if r.type_name == self.info.name]
+
     def last_use(self, rows) -> np.ndarray:
         """Host last-use tick of live ``rows``: the later of the host
         stamp and the end of the latest fused window, which counts every
@@ -194,6 +208,12 @@ class GrainArena:
         """Record device-routed traffic for collection (scatter-max in
         place, stays on the device; padding rows -1 dropped)."""
         row_scatter(self.last_use_dev, rows, int(tick), "max")
+
+    def touch_rows_dense(self, segments: torch.Tensor, tick: int) -> None:
+        """A pull-mode delivery's touch: its row-aligned offsets know which
+        rows received, so one elementwise pass (K17) stamps them — no
+        lane-sized scatter."""
+        touch_dense(self.last_use_dev, segments, int(tick))
 
     def adopt_state(self, new_state: Dict[str, Any]) -> None:
         """Make a step's output columns the live state, after checking
@@ -531,6 +551,12 @@ class GrainArena:
             # retire the victims' traffic per key BEFORE their rows free:
             # a reused row must never inherit the evicted grain's counts
             att.on_evict(self, victims, keys)
+        for route in self._stream_routes():
+            # retire subscribed victims from the pull layout BEFORE their
+            # rows can be reused (a reused row must never receive a dead
+            # subscription's events); with none subscribed the route's
+            # stamp adopts the epoch bumped below
+            route.on_evict(self, victims, keys)
         if write_back and self.store is not None:
             self.store.write_many_columnar(
                 self.info.name, keys.tolist(), self.rows_to_host(victims))

@@ -43,9 +43,10 @@ by copy at a chain's start and restores it in place on rollback.
 Snapshots run K9 per arena and read every arena's outputs, the slot
 counts and the stale counter with one device-to-host copy.  An eviction
 retires the victims' counts to a host mirror by key (``on_evict``: a K13
-gather, one copy, then K3 zeroes the rows in place).  Mesh resharding and
-the pull-mode ``segments`` fold belong to later slices of the port
-(``fold_type`` and ``relocate`` raise).
+gather, one copy, then K3 zeroes the rows in place).  A pull-mode
+delivery of the streams plane folds its row-aligned lanes through K16's
+count mode (``fold_counts`` with ``segments``).  Mesh resharding belongs
+to a later slice of the port (``fold_type`` and ``relocate`` raise).
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from orleans_tpu_torch.kernels.attr import (
     snapshot_size,
 )
 from orleans_tpu_torch.kernels.lifecycle import gather_rows
+from orleans_tpu_torch.kernels.pull import seg_pull
 from orleans_tpu_torch.kernels.scatter import row_scatter
 from orleans_tpu_torch.tensor.ledger import MAX_SLOTS, SlotRegistry
 
@@ -94,11 +96,12 @@ def pow2ceil(n: int) -> int:
 def fold_counts(counts, slots, slot: int, rows, valid,
                 segments=None) -> None:
     """The fused window's per-tick fold: counts and the slot counter, no
-    sketch (K7)."""
+    sketch (K7).  A pull-mode delivery (``segments``, its row-aligned
+    offsets) folds through K16's count mode instead: each row adds the
+    count of its valid lanes, and the slot every valid lane."""
     if segments is not None:
-        raise NotImplementedError(
-            "the pull-mode segments fold belongs to the streams slice of "
-            "the port (orleans_tpu/tensor/streams_plane.py)")
+        seg_pull(valid, segments, "sum", out=counts, slots=slots, slot=slot)
+        return
     attr_fold(counts, None, (), rows, valid, total=slots, slot=slot)
 
 

@@ -28,6 +28,15 @@ Data movement:
   source method applies into messages for its subscribers on the card
   (K11); lanes past the expansion width park and expand again at the
   drain, with their original stamp.
+* a registered stream route (``register_subscriptions``: a
+  ``DeviceSubscriptions``, ``tensor/streams_plane.py``) fans every message
+  of a stream's ingress method out to the stream's subscribers.  A
+  publish of the route's bound key set queues ONE pull-mode delivery:
+  the payload gathered per edge, the lanes grouped by subscriber row
+  with row-aligned ``segments``, applied without resolution and reduced
+  by K16, the use clock stamped by K17.  Any other publish expands
+  push-mode through K11.  With ``config.stream_plane`` off the adjacency
+  walks on the host instead.
 
 Each step runs its handler eagerly (PyTorch has no trace to cache) and
 records a ``torch.cuda.Event`` after it as the step's completion fence.
@@ -50,8 +59,8 @@ timers plane (``tensor/timers_plane.py``) harvests the due timers of each
 tick before its rounds (K15) and delivers them as one batched
 ``receive_reminder`` call per type.  As in the JAX package, a tick the
 auto-fuser consumes runs neither: they wait for the next unfused tick.
-The profiler, checkpoints, stream subscriptions, the cross-shard exchange
-and the cluster router belong to later slices of the port.
+The profiler, checkpoints, the cross-shard exchange and the cluster
+router belong to later slices of the port.
 
 Every tensor the engine keeps past the call that handed it over — a
 ``send_batch`` slab, a batch spilled past the round cap, a parked
@@ -190,6 +199,12 @@ class PendingBatch:
     # emitted (-1 = unstamped, not counted).  Miss redeliveries carry the
     # ORIGINAL stamp, so their latency includes the redelivery wait.
     inject_tick: int = -1
+    # pull-mode stream delivery (tensor/streams_plane.py): row-aligned
+    # edge offsets int32[capacity + 1] — the lanes are grouped by
+    # destination row, ``rows`` holds each edge's row and the step's
+    # reductions take K16.  Valid only while (generation, epoch) still
+    # match the arena; a stale batch is delivered again by ``keys_dev``.
+    segments: Optional[torch.Tensor] = None
 
     def __len__(self) -> int:
         for c in (self.rows, self.keys_host, self.keys_dev):
@@ -288,6 +303,17 @@ def _spill_copy(b: PendingBatch) -> PendingBatch:
         b, args=_map_tree(_park_copy, b.args), rows=_park_copy(b.rows),
         keys_dev=_park_copy(b.keys_dev), mask=_park_copy(b.mask),
         keys_wide=_map_tree(_park_copy, b.keys_wide))
+
+
+def _gather_lanes(a: Any, index: torch.Tensor) -> Any:
+    """A payload leaf gathered by source lane: host scalars and 0-d
+    tensors broadcast; arrays move to the index's device first."""
+    a = _leaf_to_device(a, index.device)
+    if not isinstance(a, torch.Tensor) or a.dim() == 0:
+        return a
+    if a.shape[0] == 0:  # no source lanes: every slot is invalid anyway
+        return a.new_zeros((index.shape[0], *a.shape[1:]))
+    return a.index_select(0, index)
 
 
 def _host_take(a: Any, idx: np.ndarray) -> Any:
@@ -503,6 +529,11 @@ class TensorEngine:
         # (src_type, src_method) → (DeviceFanout, dst_type, dst_method)
         self._fanouts: Dict[Tuple[str, str], Tuple[Any, str, str]] = {}
         self._fanout_checks: List[_FanoutCheck] = []
+        # (src_type, src_method) → DeviceSubscriptions: the streams plane
+        # (tensor/streams_plane.py) — stream-ingress messages fan out to
+        # the streams' subscribers, pull-mode when the publish pattern is
+        # the bound key set, push-mode otherwise
+        self._stream_routes: Dict[Tuple[str, str], Any] = {}
         # completion fence of the latest step or fused window (a CUDA
         # event; None on CPU)
         self._tick_fence: Optional[torch.cuda.Event] = None
@@ -535,6 +566,19 @@ class TensorEngine:
             arena._owner_engine = weakref.ref(self)
             self.arenas[type_name] = arena
         return arena
+
+    def _streams_live(self) -> bool:
+        """True when stream-subscription routes expand on the device
+        (``config.stream_plane``); off = the host-expansion baseline.  The
+        unfused dispatch and the fused window's rebuild check share it."""
+        return bool(self.config.stream_plane)
+
+    def _stream_routes_signature(self) -> Tuple:
+        """What a fused window bakes of the stream routes: the registered
+        routes and their layout and mutation versions (a rebuild allocates
+        new layout tensors)."""
+        return tuple((key, id(r), r.layout_version, r.mutation_version)
+                     for key, r in sorted(self._stream_routes.items()))
 
     # ================= collection =========================================
 
@@ -605,6 +649,18 @@ class TensorEngine:
             fanout, self._type_name(dst_interface), dst_method)
         fanout.bind_owner(self)
 
+    def register_subscriptions(self, src_interface, src_method: str,
+                               subscriptions) -> None:
+        """The streams plane's engine edge (``tensor/streams_plane.py``):
+        every message delivered to (src_interface, src_method) — the
+        stream-ingress method, rows = streams — also fans out to the
+        stream's subscribers through ``subscriptions`` into its delivery
+        edge.  Publishes of the bound key set take the pull path (one
+        payload gather per edge, K16 in the subscriber's reductions);
+        any other publish expands push-mode to subscriber keys (K11)."""
+        self._stream_routes[(self._type_name(src_interface), src_method)] \
+            = subscriptions
+
     def _route_expand_push(self, expander, dst_type: str, dst_method: str,
                            skeys: torch.Tensor, args: Any,
                            mask: Optional[torch.Tensor],
@@ -621,6 +677,8 @@ class TensorEngine:
         self.queues[(dst_type, dst_method)].append(
             PendingBatch(args=gargs, keys_dev=dst, mask=valid,
                          inject_tick=self.tick_number))
+        if hasattr(expander, "push_deliveries"):
+            expander.push_deliveries += 1
 
     def _run_fanout(self, type_name: str, method: str,
                     batches: List[PendingBatch]) -> None:
@@ -667,6 +725,124 @@ class TensorEngine:
             self._route_expand_push(fanout, dst_type, dst_method,
                                     b.keys_dev, b.args, base & (rows >= 0),
                                     b.inject_tick)
+
+    # -- stream-subscription routes (tensor/streams_plane.py) ---------------
+
+    def _to_host_batch(self, b: PendingBatch) -> PendingBatch:
+        """A device-key batch as a host-key batch (the plane-disabled
+        baseline pays the device→host copy; masked lanes are dropped on
+        the host — host-key batches carry no mask)."""
+        if b.keys_host is not None and b.mask is None:
+            return b
+        keys = b.keys_host if b.keys_host is not None \
+            else b.keys_dev.cpu().numpy().astype(np.int64)
+        args = _map_tree(lambda a: a if np.ndim(a) == 0 else _host_array(a),
+                         b.args)
+        if b.mask is not None:
+            sel = b.mask.cpu().numpy()
+            keys = keys[sel]
+            args = _map_tree(lambda a: a if np.ndim(a) == 0 else a[sel], args)
+        return PendingBatch(args=args, keys_host=keys, no_fanout=b.no_fanout,
+                            inject_tick=b.inject_tick)
+
+    def _run_stream_routes_pre(self, type_name: str, method: str,
+                               batches: List[PendingBatch]
+                               ) -> List[PendingBatch]:
+        """The pre-resolution half of a stream route: host-key publishes
+        expand here (they activate inside the group), device-key publishes
+        after resolution.  With the plane off this is the HOST baseline:
+        publishes become host batches and the adjacency walks in numpy."""
+        route = self._stream_routes.get((type_name, method))
+        if route is None:
+            return batches
+
+        def expand_on_host(b2: PendingBatch) -> None:
+            route.published_events += len(b2)
+            dst_keys, src_idx = route.host_expand(b2.keys_host)
+            if len(dst_keys) == 0:
+                return
+            gargs = _map_tree(lambda a: a if np.ndim(a) == 0
+                              else _host_array(a)[src_idx], b2.args)
+            if isinstance(gargs, dict) and "src_key" not in gargs:
+                gargs = {**gargs,
+                         "src_key": (b2.keys_host[src_idx]
+                                     % np.int64(KEY_SENTINEL))
+                         .astype(np.int32)}
+            self.queues[(route.type_name, route.method)].append(
+                PendingBatch(args=gargs, keys_host=dst_keys.astype(np.int64),
+                             inject_tick=self.tick_number))
+            route.delivered_events += len(dst_keys)
+
+        if not self._streams_live():
+            out: List[PendingBatch] = []
+            for b in batches:
+                if b.no_fanout or (b.keys_host is None
+                                   and b.keys_dev is None):
+                    out.append(b)
+                    continue
+                b2 = self._to_host_batch(b)
+                out.append(b2)
+                expand_on_host(b2)
+            return out
+        for b in batches:
+            if b.no_fanout or b.keys_dev is not None \
+                    or b.keys_host is None:
+                continue  # device-key publishes expand post-resolve
+            if (b.keys_host >= KEY_SENTINEL).any() \
+                    or (b.keys_host < 0).any():
+                # wide stream keys: the device CSR is int31-keyed — expand
+                # on the host instead of failing mid-tick
+                expand_on_host(b)
+                continue
+            route.published_events += len(b)
+            self._route_expand_push(
+                route, route.type_name, route.method,
+                host_upload(b.keys_host.astype(np.int32), self.device),
+                b.args, b.mask, b.inject_tick)
+        return batches
+
+    def _expand_resolved_stream_routes(self, route,
+                                       batches: List[PendingBatch],
+                                       resolved: List[Tuple[Any, Any]]
+                                       ) -> None:
+        """Device-key publishes, gated by the resolution the step applies.
+        A publish of the route's BOUND key set takes the pull path: the
+        deliveries queue as ONE row-addressed batch with segment offsets
+        (the payload gathered per edge; nothing to resolve, no scatter
+        downstream).  Any other publish expands push-mode to keys."""
+        dst_arena = self.arena_for(route.type_name)
+        for b, (rows, _args) in zip(batches, resolved):
+            if b.no_fanout or b.keys_dev is None \
+                    or b.segments is not None:
+                continue
+            if isinstance(rows, np.ndarray):  # a stale injector's rows
+                rows = host_upload(rows, self.device)
+            base = b.mask if b.mask is not None \
+                else self._mask_for(len(b))
+            gate = base & (rows >= 0)
+            route.published_events += len(b)
+            pull = route.pull_layout(dst_arena) \
+                if route._matches_bound(b.keys_host) else None
+            if pull is not None and pull["n_edges"] > 0:
+                lane = pull["src_lane"]
+                gargs = _map_tree(lambda a: _gather_lanes(a, lane), b.args)
+                if isinstance(gargs, dict) and "src_key" not in gargs:
+                    gargs = {**gargs, "src_key": pull["src_key"]}
+                self.queues[(route.type_name, route.method)].append(
+                    PendingBatch(
+                        args=gargs, rows=pull["rows"],
+                        keys_dev=pull["dst_key"],
+                        mask=gate.index_select(0, lane),
+                        segments=pull["offsets"],
+                        generation=dst_arena.generation,
+                        epoch=dst_arena.eviction_epoch,
+                        inject_tick=self.tick_number))
+                route.pull_deliveries += 1
+                route.delivered_events += pull["n_edges"]
+            else:
+                self._route_expand_push(
+                    route, route.type_name, route.method, b.keys_dev,
+                    b.args, gate, b.inject_tick)
 
     def make_injector(self, interface, method: str,
                       keys: np.ndarray) -> "BatchInjector":
@@ -757,9 +933,11 @@ class TensorEngine:
             if not requeued:
                 break
         # fold un-taken expansion drops (direct expand() users) into the
-        # fan-outs' host stats
+        # fan-outs' and stream routes' host stats
         for fanout, _, _ in self._fanouts.values():
             fanout.overflow_check()
+        for route in self._stream_routes.values():
+            route.overflow_check()
 
     def wait_completion(self) -> None:
         """Block until the latest step has completed on the device."""
@@ -807,6 +985,8 @@ class TensorEngine:
             for (type_name, method), batches in pending.items():
                 tf = time.perf_counter()
                 self._run_fanout(type_name, method, batches)
+                batches = self._run_stream_routes_pre(type_name, method,
+                                                      batches)
                 stages["fanout"] += time.perf_counter() - tf
                 self._run_group(type_name, method, batches)
             rounds += 1
@@ -846,6 +1026,9 @@ class TensorEngine:
             # armed/fired counters, harvest width and lateness (host
             # mirrors only)
             "timers": self.timers.snapshot(),
+            # the streams plane's routes ({} when none is registered)
+            "streams": {f"{t}.{m}": r.snapshot()
+                        for (t, m), r in self._stream_routes.items()},
         }
 
     def latency_stats(self) -> Dict[str, float]:
@@ -1048,7 +1231,16 @@ class TensorEngine:
     def _run_group(self, type_name: str, method: str,
                    batches: List[PendingBatch]) -> None:
         """Execute one (type, method) group: resolve, run the step, touch
-        the use clock, route the emits."""
+        the use clock, route the emits.  Pull-mode stream deliveries run
+        one by one first: their lanes are grouped by row against one
+        layout stamp, which merging would break."""
+        seg_batches = [b for b in batches if b.segments is not None]
+        if seg_batches:
+            for b in seg_batches:
+                self._run_segments_batch(type_name, method, b)
+            batches = [b for b in batches if b.segments is None]
+            if not batches:
+                return
         info = vector_type(type_name)
         arena = self.arena_for(type_name)
         stages = self._tick_stages
@@ -1076,6 +1268,9 @@ class TensorEngine:
         fan = self._fanouts.get((type_name, method))
         if fan is not None:
             self._expand_resolved_fanout(fan, batches, resolved)
+        route = self._stream_routes.get((type_name, method))
+        if route is not None and self._streams_live():
+            self._expand_resolved_stream_routes(route, batches, resolved)
         if ledger.enabled:
             # device side: count exactly the lanes the step applies (mask
             # ∧ resolved, one K5 launch per batch); unresolved lanes count
@@ -1145,6 +1340,49 @@ class TensorEngine:
             self._deliver_results(batches, results)
             stages["results"] += time.perf_counter() - t_dr
 
+    def _run_segments_batch(self, type_name: str, method: str,
+                            b: PendingBatch) -> None:
+        """One pull-mode stream delivery: the lanes are grouped by
+        destination row with row-aligned offsets, so there is nothing to
+        resolve and the step's reductions take K16.  The rows are exact
+        while the arena's (generation, epoch) stamps hold; a stale batch
+        (rows moved or freed since it was queued) is delivered again by
+        key, whose device resolution re-activates evicted subscribers."""
+        arena = self.arena_for(type_name)
+        if b.generation != arena.generation \
+                or b.epoch != arena.eviction_epoch:
+            self.queues[(type_name, method)].append(PendingBatch(
+                args=b.args, keys_dev=b.keys_dev, mask=b.mask,
+                inject_tick=b.inject_tick))
+            return
+        info = vector_type(type_name)
+        stages = self._tick_stages
+        t0 = time.perf_counter()
+        if self.ledger.enabled and b.inject_tick >= 0:
+            self.ledger.record_rows(type_name, method,
+                                    self.tick_number - b.inject_tick,
+                                    b.rows, b.mask)
+        if self.attribution.enabled:
+            # the layout's key column is the delta-plan memo's identity:
+            # one tensor per layout build
+            self.attribution.record_group(arena, type_name, method, b.rows,
+                                          b.mask, ident=b.keys_dev)
+        self.messages_processed += len(b)
+        t_apply = time.perf_counter()
+        stages["resolve"] += t_apply - t0
+        step = self._get_step(info, method)
+        new_state, _results, emits, fence = step(arena.state, b.rows, b.args,
+                                                 b.mask, b.segments)
+        arena.adopt_state(new_state)
+        self._tick_fence = fence
+        # the offsets know which rows received: one dense pass (K17), not
+        # a lane-sized scatter
+        arena.touch_rows_dense(b.segments, self.tick_number)
+        t_route = time.perf_counter()
+        stages["apply"] += t_route - t_apply
+        self._route_emits(emits)
+        stages["route"] += time.perf_counter() - t_route
+
     @staticmethod
     def _deliver_results(batches: List[PendingBatch], results: Any) -> None:
         start = 0
@@ -1205,13 +1443,13 @@ class TensorEngine:
             return step
         handler = info.handlers[method]
 
-        def step(state, rows, args, mask):
+        def step(state, rows, args, mask, segments=None):
             n_rows = next(iter(state.values())).shape[0]
             if not self.config.donate_state:
                 # undonated: the handler's in-place scatters hit copies
                 state = {k: v.clone() for k, v in state.items()}
-            out = handler(state, Batch(rows=rows, args=args, mask=mask),
-                          n_rows)
+            out = handler(state, Batch(rows=rows, args=args, mask=mask,
+                                       segments=segments), n_rows)
             # normalize handler returns: state | (state,) |
             # (state, results) | (state, results, emits)
             if isinstance(out, dict):

@@ -37,7 +37,7 @@ import torch
 
 from orleans_tpu_torch.kernels.fanout import fanout_expand
 from orleans_tpu_torch.kernels.resolve import KEY_SENTINEL
-from orleans_tpu_torch.tensor.engine import _leaf_to_device, _map_tree
+from orleans_tpu_torch.tensor.engine import _gather_lanes, _map_tree
 from orleans_tpu_torch.tensor.vector_grain import ones_mask
 
 Csr = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -58,17 +58,6 @@ def _group_ranges(sorted_vals: np.ndarray
 class FanoutOverflowError(RuntimeError):
     """More STORED edges than the configured budget (a rebuild-time config
     error).  Per-round expansion overflow parks lanes instead."""
-
-
-def _gather(a: Any, index: torch.Tensor) -> Any:
-    """A payload leaf gathered by source lane: host scalars and 0-d
-    tensors broadcast; arrays move to the index's device first."""
-    a = _leaf_to_device(a, index.device)
-    if not isinstance(a, torch.Tensor) or a.dim() == 0:
-        return a
-    if a.shape[0] == 0:  # no source lanes: every slot is invalid anyway
-        return a.new_zeros((index.shape[0], *a.shape[1:]))
-    return a.index_select(0, index)
 
 
 class DeviceFanout:
@@ -226,9 +215,9 @@ class DeviceFanout:
         dst, src_index, out_valid, _total, src_dropped, count = \
             fanout_expand(ck, co, cd, src_keys, mask, n_dropped)
         self._pending_drops.append((count, src_dropped))
-        gathered = _map_tree(lambda a: _gather(a, src_index), args)
+        gathered = _map_tree(lambda a: _gather_lanes(a, src_index), args)
         if isinstance(gathered, dict) and "src_key" not in gathered:
-            gathered = {**gathered, "src_key": _gather(src_keys, src_index)}
+            gathered = {**gathered, "src_key": _gather_lanes(src_keys, src_index)}
         return dst, gathered, out_valid
 
     def take_drop(self) -> Tuple[torch.Tensor, torch.Tensor]:

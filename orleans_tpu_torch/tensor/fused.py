@@ -48,8 +48,20 @@ the expansion width add into the miss total (the chain then rolls back
 and the unfused replay parks and redelivers them).  The window bakes the
 fan-out's CSR tensors, so a rebuild of the follow graph rebuilds the
 window (cause ``fanout_rebuild``); the JAX window keeps the graph it was
-traced with (ROADMAP queue C).  Exchange and stream routes belong to later
-slices of the port.
+traced with (ROADMAP queue C).
+
+A registered stream route (``tensor/streams_plane.py``) fans each applied
+stream-ingress group out inside the window.  A source of the route's bound
+key set takes the pull path: the payload is gathered per edge and the
+subscriber group applies with the layout's ``segments``, so its reductions
+and its in-window attribution fold take K16.  Any other source expands
+push-mode through K11, its dropped lanes added into the miss total.  With
+the plane switched off every routed source lane counts as a miss, so
+``verify()`` fails and the unfused replay delivers through the host path.
+The window warms every route's layouts before it captures and bakes their
+tensors: a layout rebuild or a buffered mutation rebuilds the window
+(cause ``stream_rebuild``), a toggle of the plane too (``config_toggle``).
+The exchange belongs to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from orleans_tpu_torch.kernels.scatter import _is_host_scalar
 from orleans_tpu_torch.tensor.attribution import fold_cms_dense, fold_counts
 from orleans_tpu_torch.tensor.engine import (
     _host_array,
+    _gather_lanes,
     _leaf_to_device,
     _map_tree,
     resolve_rows_on_device,
@@ -84,6 +97,7 @@ CAUSE_SHAPE_CHANGE = "shape_change"
 CAUSE_MIRROR_REBUILD = "mirror_rebuild"
 CAUSE_STATIC_CHANGE = "static_change"
 CAUSE_FANOUT_REBUILD = "fanout_rebuild"
+CAUSE_STREAM_REBUILD = "stream_rebuild"
 
 
 def plan_windows(window: int, n_ticks: int) -> Tuple[int, int, int]:
@@ -261,6 +275,10 @@ class FusedTickProgram:
         self._fanout_regs: Dict[Tuple[str, str], Tuple[Any, str, str]] = {}
         self._fanout_versions: Dict[int, Tuple[Any, int]] = {}
         self._key_cols: Dict[str, torch.Tensor] = {}
+        # stream routes: the plane's toggle and the routes' signature the
+        # window was built with
+        self._streams_on = False
+        self._stream_sig: Optional[Tuple] = None
         self._discovering = False
         # device [1, 2] int32: (misses, delivered) since the last verify,
         # added into in place by every window (one address for graphs)
@@ -309,16 +327,21 @@ class FusedTickProgram:
                      type_name: str, method: str, rows: torch.Tensor,
                      args: Any, mask: torch.Tensor, depth: int,
                      acc: Tuple[torch.Tensor, Optional[torch.Tensor],
-                                Optional[Dict[str, Any]]]
+                                Optional[Dict[str, Any]]],
+                     segments: Optional[torch.Tensor] = None,
+                     host_keys: Optional[np.ndarray] = None
                      ) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Apply one (type, method) batch and recurse into its emits — the
-        unrolled multi-round tick.  ``acc`` is (totals [1, 2], ledger
-        hist or None, attribution {"delta": {type: column}, "slots"} or
-        None), all added into in place: K1/K2 add each resolve's misses
-        into totals[0, 0], K5 the delivered lanes into totals[0, 1],
-        round-cap spills into totals[0, 0] and the applied lanes into
-        hist[slot, 0]; K7 folds the applied rows into the type's delta
-        column and the lanes into the attribution slot."""
+        """Apply one (type, method) batch and recurse into its emits, its
+        fan-out and its stream route — the unrolled multi-round tick.
+        ``acc`` is (totals [1, 2], ledger hist or None, attribution
+        {"delta": {type: column}, "slots"} or None), all added into in
+        place: K1/K2 add each resolve's misses into totals[0, 0], K5 the
+        delivered lanes into totals[0, 1], round-cap spills into
+        totals[0, 0] and the applied lanes into hist[slot, 0]; K7 (K16 for
+        a pull-mode delivery) folds the applied rows into the type's delta
+        column and the lanes into the attribution slot.  ``segments``
+        marks a pull-mode delivery; ``host_keys`` is a static source's key
+        set, which a stream route matches against its bound key set."""
         engine = self.engine
         info = vector_type(type_name)
         handler = info.handlers[method]
@@ -326,8 +349,8 @@ class FusedTickProgram:
             states[type_name] = self._discover_state(type_name)
         n_rows = next(iter(states[type_name].values())).shape[0]
         state2, _results, emits = _normalize(handler(
-            states[type_name], Batch(rows=rows, args=args, mask=mask),
-            n_rows))
+            states[type_name], Batch(rows=rows, args=args, mask=mask,
+                                     segments=segments), n_rows))
         states[type_name] = state2
         totals, hist, attr = acc
         if hist is not None:
@@ -345,7 +368,7 @@ class FusedTickProgram:
                     n_rows, dtype=torch.int32, device=engine.device)
             fold_counts(delta, attr["slots"],
                         engine.attribution.slots.slot_for(type_name, method),
-                        rows, mask)
+                        rows, mask, segments=segments)
         at_cap = depth >= engine.config.max_rounds_per_tick
 
         out_batches = []
@@ -379,6 +402,43 @@ class FusedTickProgram:
             # deliveries: count its source lanes as misses
             hist_count(totals, 0, 0, mask)
 
+        route = engine._stream_routes.get((type_name, method)) \
+            if self._streams_on else None
+        if route is not None and not at_cap:
+            dst_arena = engine.arena_for(route.type_name)
+            self._note_arena(route.type_name, dst_arena)
+            pull = route.pull_layout(dst_arena) \
+                if route._matches_bound(host_keys) else None
+            if pull is not None and pull["n_edges"] > 0:
+                # the pull path: the payload gathered per edge, the
+                # subscriber group applied with the layout's offsets
+                lane = pull["src_lane"]
+                gargs = _map_tree(lambda a: _gather_lanes(a, lane), args)
+                if isinstance(gargs, dict) and "src_key" not in gargs:
+                    gargs = {**gargs, "src_key": pull["src_key"]}
+                emask = mask.index_select(0, lane)
+                hist_count(totals, 0, 1, emask)
+                states = self._apply_group(
+                    states, route.type_name, route.method, pull["rows"],
+                    gargs, emask, depth + 1, acc, segments=pull["offsets"])
+            else:
+                # the push path: expand to subscriber keys, resolve like
+                # an emit; lanes past the width add into the miss total
+                dkeys, dargs, dvalid = route.expand(
+                    self._src_keys_for(type_name, rows), args, mask,
+                    n_dropped=totals[0, 0])
+                route.take_drop()
+                out_batches.append((route.type_name, route.method, dkeys,
+                                    dargs, dvalid))
+        elif route is not None or (
+                not self._streams_on
+                and (type_name, method) in engine._stream_routes):
+            # a route the round cap keeps from running, or one whose
+            # deliveries belong to the host path (the plane is off): its
+            # source lanes count as misses, so verify() fails and the
+            # unfused replay delivers them
+            hist_count(totals, 0, 0, mask)
+
         if at_cap:
             # the unfused engine SPILLS round-cap emits to the next tick;
             # a window cannot, so they count as misses: verify() then
@@ -409,8 +469,9 @@ class FusedTickProgram:
                 mask_i = args_i.pop("__mask__")
             else:
                 rows_i, mask_i = src.rows, src.mask
-            states = self._apply_group(states, src.type_name, src.method,
-                                       rows_i, args_i, mask_i, 1, acc)
+            states = self._apply_group(
+                states, src.type_name, src.method, rows_i, args_i, mask_i, 1,
+                acc, host_keys=None if src.stacked_rows else src.keys)
         return states
 
     def _run_ticks(self, states, statics, stackeds, n_ticks: int, acc):
@@ -543,6 +604,10 @@ class FusedTickProgram:
                 fan.current_version() != v
                 for fan, v in self._fanout_versions.values()):
             return CAUSE_FANOUT_REBUILD
+        if self._streams_on != engine._streams_live():
+            return CAUSE_CONFIG_TOGGLE
+        if self._stream_sig != engine._stream_routes_signature():
+            return CAUSE_STREAM_REBUILD
         if self._graph is None:
             return None
         for buf, st in zip(self._in, stackeds):
@@ -614,6 +679,13 @@ class FusedTickProgram:
         self._touched, self._resolved = [], []
         self._fanout_regs = dict(engine._fanouts)
         self._fanout_versions, self._key_cols = {}, {}
+        # stream routes: warm every layout now — the window bakes their
+        # tensors, and a rebuild during the capture would raise
+        self._streams_on = engine._streams_live()
+        if self._streams_on:
+            for route in engine._stream_routes.values():
+                route.pull_layout(engine.arena_for(route.type_name))
+                route.push_csr(dev)
         for s in self.sources:
             self._note_arena(s.type_name, s.arena)
         states = {s.type_name: {k: v.clone() for k, v in
@@ -639,6 +711,7 @@ class FusedTickProgram:
                 for n in self._touched}
         self._mirrors = {(n, wide): _mirror_of(engine.arena_for(n), wide)
                          for n, wide in self._resolved}
+        self._stream_sig = engine._stream_routes_signature()
         self._built = True
         if self.on_card:
             self._capture(stackeds, statics, n_ticks)

@@ -49,6 +49,7 @@ from orleans_tpu_torch.core.grain import (
     method_id_of,
 )
 from orleans_tpu_torch.ids import type_code_of
+from orleans_tpu_torch.kernels import pull as _pull
 from orleans_tpu_torch.kernels import segment as _segment
 from orleans_tpu_torch.kernels.lifecycle import gather_rows
 from orleans_tpu_torch.kernels.resolve import KEY_SENTINEL  # noqa: F401
@@ -82,13 +83,20 @@ class Batch(NamedTuple):
     """The messages for one (type, method) this round.
 
     ``rows`` is -1 for padding and unresolved lanes; the scatter helpers
-    drop them, so handlers rarely need ``mask``.  ``segments`` is the
-    pull-mode fan-in layout of the streams plane, not part of this port
-    yet (the reductions raise when it is given)."""
+    drop them, so handlers rarely need ``mask``.
+
+    ``segments`` is the pull-mode fan-in layout of the streams plane
+    (``tensor/streams_plane.py``): the lanes are grouped by destination
+    row and ``segments`` (int32 ``[n_rows + 1]``) gives arena row ``r``
+    the lanes ``[segments[r], segments[r + 1])``.  ``seg_sum`` and
+    ``seg_max`` then reduce each row's range (K16) instead of
+    scattering."""
 
     rows: torch.Tensor         # int32[M], -1 = padding
     args: Any                  # dict of [M, ...] tensors / host scalars
     mask: torch.Tensor         # bool[M]
+    # row-aligned pull-mode offsets (int32[n_rows + 1]); None = lanes in
+    # any order, reductions take the scatter path
     segments: Optional[torch.Tensor] = None
 
 
@@ -114,18 +122,18 @@ class Emit:
 # segment helpers (fan-in combiners)
 # ---------------------------------------------------------------------------
 
-def _no_pull_mode(segments) -> None:
-    if segments is not None:
-        raise NotImplementedError(
-            "pull-mode segments (Batch.segments) belong to the streams-plane"
-            " slice of the port, not yet ported")
-
-
 def seg_sum(values: torch.Tensor, rows: torch.Tensor, n_rows: int,
             segments: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum ``values`` per destination row; padding rows (-1) are dropped
-    (the batched analog of a mailbox drain of commutative updates)."""
-    _no_pull_mode(segments)
+    (the batched analog of a mailbox drain of commutative updates).
+
+    With ``segments`` (``Batch.segments``) the reduction is pull-mode:
+    each row sums its own lane range (K16) and ``rows`` is not read.
+    int32 sums wrap as JAX's do; a float32 row sum is taken in lane order,
+    within ``2**-24 * sum|x|`` of the row's exact sum (JAX's prefix-sum
+    difference drifts with the batch's total instead)."""
+    if segments is not None:
+        return _pull.seg_pull(values, segments, "sum")
     return _segment.seg_sum(values, rows, n_rows)
 
 
@@ -134,9 +142,10 @@ def seg_max(values: torch.Tensor, rows: torch.Tensor, n_rows: int,
             fill=0) -> torch.Tensor:
     """Max of ``values`` per destination row (padding rows dropped).  Rows
     with no lanes read the dtype's minimum (``-inf`` for floats), which is
-    ``jax.ops.segment_max``'s identity; ``fill`` applies to the pull-mode
-    path only, as in the JAX package."""
-    _no_pull_mode(segments)
+    ``jax.ops.segment_max``'s identity; on the pull-mode path
+    (``segments``, K16) they read ``fill``, as in the JAX package."""
+    if segments is not None:
+        return _pull.seg_pull(values, segments, "max", fill=fill)
     if values.dtype.is_floating_point:
         lowest = float("-inf")
     else:

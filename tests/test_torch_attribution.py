@@ -147,9 +147,20 @@ def test_fold_counts_matches_jax():
     pattr.fold_counts(*got, 9, _t(rows), _t(valid))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    with pytest.raises(NotImplementedError, match="streams"):
-        pattr.fold_counts(*got, 9, _t(rows), _t(valid),
-                          segments=_t(np.arange(3)))
+    # the pull-mode form (K16's count mode): the lanes grouped by row
+    # under row-aligned offsets, a few lanes past the last offset
+    live = np.sort(rows[(rows >= 0) & (rows < CAP)])
+    seg = np.zeros(CAP + 1, np.int32)
+    seg[1:] = np.cumsum(np.bincount(live, minlength=CAP))
+    lanes = np.concatenate([live, np.full(5, -1, np.int32)])
+    ok = valid[:len(lanes)]
+    want = jattr.fold_counts(jnp.asarray(counts), jnp.asarray(slots),
+                             jnp.int32(9), jnp.asarray(lanes),
+                             jnp.asarray(ok), segments=jnp.asarray(seg))
+    got = (_t(counts), _t(slots))
+    pattr.fold_counts(*got, 9, _t(lanes), _t(ok), segments=_t(seg))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_fold_cms_dense_matches_jax():

@@ -1076,3 +1076,115 @@ def test_collection_slice_on_card_matches_cpu(cuda_device):
     for k in ("sweeps_started", "sweeps_completed", "rows_evicted",
               "victims_dropped_stale"):
         assert gc[k] == cc[k], k
+
+
+# -- K16 seg_pull and K17 touch_dense (the streams plane) --------------------
+
+def _pull_case(rng, dev, n_rows=8192, m=12_000):
+    rows = np.sort(rng.integers(0, n_rows, m))
+    rows = rows[rows % 9 != 0]            # some empty rows
+    seg = np.zeros(n_rows + 1, np.int32)
+    seg[1:] = np.cumsum(np.bincount(rows, minlength=n_rows))
+    return torch.from_numpy(seg).to(dev), len(rows)
+
+
+@pytest.mark.parametrize("mode", ["sum_int32", "sum_wrapping", "max_int32",
+                                  "sum_float32", "count_slot",
+                                  "short_offsets"])
+def test_seg_pull_matches_plain(cuda_device, mode):
+    """K16 against its plain version: int32 sums bit for bit (a batch whose
+    row sums wrap too), the max with ``fill`` over empty rows, float32
+    within ``2 * k * 2**-24 * sum|x|`` per row, the count mode adding
+    into a column and a slot, lanes past ``offsets[-1]``."""
+    from orleans_tpu_torch.kernels import pull as kpull
+
+    rng = np.random.default_rng(len(mode))
+    seg, m = _pull_case(rng, cuda_device)
+    extra = 29 if mode == "short_offsets" else 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+
+    if mode == "sum_float32":
+        v = t((rng.standard_normal(m + extra) * 100).astype(np.float32))
+        got = kpull.seg_pull(v, seg, "sum")
+        want = kpull.seg_pull_plain(v, seg, "sum")
+        k = (seg[1:] - seg[:-1]).double()
+        mag = kpull.seg_pull_plain(v.abs(), seg, "sum").double()
+        assert bool(((got.double() - want.double()).abs()
+                     <= 2 * k * 2.0**-24 * mag).all())
+        return
+    if mode == "count_slot":
+        v = t(rng.random(m + 13) < 0.7)
+        c = t(rng.integers(0, 99, seg.shape[0] - 1).astype(np.int32))
+        s = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+        c2, s2 = c.clone(), s.clone()
+        kpull.seg_pull(v, seg, "sum", out=c, slots=s, slot=3)
+        kpull.seg_pull_plain(v, seg, "sum", out=c2, slots=s2, slot=3)
+        assert torch.equal(c, c2) and torch.equal(s, s2)
+        assert int(s[3]) == int(v.sum())
+        return
+    hi = 2**31 - 1 if mode == "sum_wrapping" else 1000
+    lo = -2**31 if mode == "sum_wrapping" else -1000
+    v = t(rng.integers(lo, hi, m + extra, dtype=np.int64).astype(np.int32))
+    if mode == "max_int32":
+        got = kpull.seg_pull(v, seg, "max", fill=-7)
+        assert torch.equal(got, kpull.seg_pull_plain(v, seg, "max", fill=-7))
+        empty = seg[1:] == seg[:-1]
+        assert bool(empty.any()) and bool((got[empty] == -7).all())
+        return
+    assert torch.equal(kpull.seg_pull(v, seg, "sum"),
+                       kpull.seg_pull_plain(v, seg, "sum"))
+
+
+def test_touch_dense_matches_plain(cuda_device):
+    from orleans_tpu_torch.kernels import pull as kpull
+
+    rng = np.random.default_rng(17)
+    seg, _m = _pull_case(rng, cuda_device)
+    clock = torch.from_numpy(rng.integers(-5, 60, seg.shape[0] - 1)
+                             .astype(np.int32)).to(cuda_device)
+    a, b = clock.clone(), clock.clone()
+    kpull.touch_dense(a, seg, 41)
+    kpull.touch_dense_plain(b, seg, 41)
+    assert torch.equal(a, b)
+
+
+def _chat(device, fused: bool):
+    import asyncio
+
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples.streams import run_chat_load
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    engine = TensorEngine(device=device, config=TensorEngineConfig(
+        auto_fusion_ticks=3 if fused else 0, auto_fusion_window=4))
+    stats = asyncio.run(run_chat_load(engine, n_rooms=64, n_users=3000,
+                                      mean_memberships=1.5, n_ticks=24,
+                                      verify=True))
+    return engine, stats
+
+
+def test_fused_chat_window_on_card_matches_unfused(cuda_device):
+    """Chat auto-fused on the card (K16 captured into the graph windows,
+    its count mode folding the attribution) equals the unfused engine on
+    the CPU: every member column, the oracle, the ledger and the
+    attribution totals."""
+    from orleans_tpu_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    gpu, gstats = _chat(cuda_device, fused=True)
+    report = _build.launch_report()["seg_pull"]
+    cpu, cstats = _chat("cpu", fused=False)
+    assert gpu.autofuser.snapshot()["ticks_fused"] > 0
+    assert report["captured"] > 0 and report["replayed"] > 0
+    assert all(v for k, v in gstats["oracle"].items() if k.endswith("_exact"))
+    for name in ("ChatUserGrain", "ChatRoomGrain"):
+        ga, ca = gpu.arena_for(name), cpu.arena_for(name)
+        np.testing.assert_array_equal(ga._key_of_row, ca._key_of_row)
+        for col in ca.state:
+            np.testing.assert_array_equal(ga.state[col].cpu().numpy(),
+                                          ca.state[col].numpy(), err_msg=col)
+        assert gpu.attribution.per_key_totals(name) == \
+            cpu.attribution.per_key_totals(name), name
+    assert gpu.ledger.fetch_counts().sum() == cpu.ledger.fetch_counts().sum()

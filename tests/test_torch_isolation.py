@@ -66,7 +66,10 @@ def test_port_imports_neither_jax_nor_orleans_tpu():
         "orleans_tpu_torch.kernels.lifecycle",
         "orleans_tpu_torch.kernels.timers",
         "orleans_tpu_torch.samples.auction",
-        "orleans_tpu_torch.samples.watchdog"}
+        "orleans_tpu_torch.samples.watchdog",
+        "orleans_tpu_torch.kernels.pull",
+        "orleans_tpu_torch.tensor.streams_plane",
+        "orleans_tpu_torch.samples.streams"}
     assert expected <= set(report["modules"])
     assert report["leaked"] == []
     # no card here: the default device must refuse, not fall back

@@ -234,9 +234,19 @@ def test_segment_reductions_match_jax(fn, dtype):
 
 
 def test_pull_mode_segments_not_ported():
-    with pytest.raises(NotImplementedError, match="streams-plane"):
-        seg_sum(torch.ones(2), torch.zeros(2, dtype=torch.int32), 1,
-                    segments=torch.tensor([0, 2], dtype=torch.int32))
+    """The pull-mode ``segments`` branches are ported now (K16; the full
+    differential is tests/test_torch_streams.py): a small case against
+    JAX, an empty row reading ``fill`` included."""
+    vals = np.array([3, -1, 4, 1, 5], np.int32)
+    seg = np.array([0, 2, 2, 5], np.int32)
+    rows = np.array([0, 0, 2, 2, 2], np.int32)
+    for fn, jfn, kw in ((seg_sum, jax_seg_sum, {}),
+                        (seg_max, jax_seg_max, {"fill": -7})):
+        want = np.asarray(jfn(jnp.asarray(vals), jnp.asarray(rows), 3,
+                              segments=jnp.asarray(seg), **kw))
+        got = fn(torch.from_numpy(vals), torch.from_numpy(rows), 3,
+                 segments=torch.from_numpy(seg), **kw)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 # -- K1 / K2 resolve ----------------------------------------------------------
