@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: Presence, WidePresence, Chirper, the
-grain lifecycle, the timers plane and the streams plane on one NVIDIA
+grain lifecycle, the timers plane, the streams plane, hot-grain replicas
+(the routing sample), GPSTracker and TwitterSentiment on one NVIDIA
 card.
 
 Run from the repository root on a machine with an H100 and the CUDA toolkit:
@@ -106,7 +107,32 @@ Phases, each of which fails loudly (exit code other than 0):
    2.0 memberships (subscribe, unsubscribe, 10% evicted through a
    ``MemoryVectorStore`` and their rows reused clean, the plane off and
    on, exact at every point).  Launches counted per path.
-10. One JSON line of the kernels, the card line, and last
+10. Hot-grain replicas, GPSTracker and TwitterSentiment.  K18
+   ``spread_replicas`` against its plain version and the arena's host
+   twin ``spread_rows_host``, bit for bit, on 1,048,576 lanes with
+   misses over G = 1, 3 and 9 replica groups of k = 2 and 8 rows, timed
+   at the hot-grain shape beside its bound, its plain version and the
+   searchsorted + index_select + where composite.  The routing sample at
+   bench.py ``_single_hot_grain_tier``'s shape with 1,048,576 sources (the
+   tier's 131,072 was sized for a CPU mesh) and 256 sinks, ledger and
+   attribution plane on: five unfused arms (uniform; every source to one
+   sink unreplicated, at k = 2 and at k = 8; uniform through the live
+   k = 8 group), each with its device and host ms per tick, K4's share
+   (K4 timed alone on the arm's rows) and K18's launches; then fused
+   windows of 16 at k = 8 with a demote and a re-promote between them,
+   each a graph rebuild (cause ``replica_change``).  ``received`` equals
+   ``expected_sink_state`` through the fold and ``total`` lies within
+   ``2 * n * 2**-24 * sum|x|`` after every arm, promote and demote, and a
+   demoted sink's one row equals its fold.  GPSTracker at 200,000
+   devices (unfused 20 ticks; fused 20 ticks in windows of 10) against a
+   numpy oracle: moves, fixes and notifier counts exact, speed within a
+   relative 1e-5.  TwitterSentiment at 100,000 tweets / 20,000 hashtags
+   (unfused and fused, 20 ticks) and the grouped pull path at 50,000 /
+   10,000 (10 ticks): sums, ``counted`` and the counter exact against a
+   numpy oracle, ``last_score`` one of its tag's last-tick scores on the
+   scatter path and its last lane exactly on the grouped path, grouped
+   equal to ungrouped.  Every earlier path must count 0 K18 launches.
+11. One JSON line of the kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -144,6 +170,15 @@ CHAT_USERS, CHAT_ROOMS, CHAT_MEAN = 1_000_000, 4_096, 1.5
 CHAT_TICKS, CHAT_FUSED_TICKS = 8, 96
 BOARDS, BOARD_MEMBERS, BOARD_MEAN, BOARD_TICKS = 512, 1_000_000, 1.5, 24
 CHURN_USERS, CHURN_ROOMS, CHURN_MEAN = 100_000, 256, 2.0
+# hot-grain replicas: bench.py _single_hot_grain_tier's routing shape (all
+# sources to one of 256 sinks) at the Presence-scale population
+HOT_SOURCES, HOT_SINKS, HOT_TICKS, HOT_WINDOWS = 1_048_576, 256, 20, 4
+SPREAD_LANES = 1_048_576
+# GPSTracker (bench.py --devices) and TwitterSentiment (bench.py
+# --tweets-per-tick / --hashtags; _streams_twitter for the grouped path)
+GPS_DEVICES, GPS_TICKS, GPS_WINDOW = 200_000, 20, 10
+TW_TWEETS, TW_TAGS, TW_TICKS, TW_WINDOW = 100_000, 20_000, 20, 10
+TWG_TWEETS, TWG_TAGS, TWG_TICKS = 50_000, 10_000, 10
 
 SOURCES = {
     "resolve_dense": ("orleans_tpu_torch/csrc/resolve.cu",
@@ -182,6 +217,8 @@ SOURCES = {
                  "orleans_tpu/tensor/vector_grain.py:164"),
     "touch_dense": ("orleans_tpu_torch/csrc/pull.cu",
                     "orleans_tpu/tensor/arena.py:43"),
+    "spread_replicas": ("orleans_tpu_torch/csrc/replicas.cu",
+                        "orleans_tpu/tensor/arena.py:61"),
 }
 # the kernels each path must launch (launch counts zeroed before it, read
 # after it)
@@ -204,6 +241,16 @@ STREAMS_FUSED_KERNELS = ("seg_pull", "seg_sum", "row_scatter", "hist_count",
                          "attr_fold")
 STREAMS_CHURN_KERNELS = ("seg_pull", "touch_dense", "gather_rows",
                          "row_scatter")
+ROUTING_HOT_KERNELS = ("spread_replicas", "resolve_sorted", "seg_sum",
+                       "row_scatter", "hist_count", "attr_fold")
+GPS_KERNELS = ("gather_rows", "row_scatter", "seg_sum", "resolve_dense",
+               "hist_count", "attr_fold")
+TWITTER_UNFUSED_KERNELS = ("resolve_dense", "seg_sum", "row_scatter",
+                           "hist_count", "attr_fold")
+TWITTER_KERNELS = ("resolve_sorted", "resolve_dense", "seg_sum",
+                   "row_scatter", "hist_count", "attr_fold")
+TWITTER_GROUPED_KERNELS = ("seg_pull", "resolve_sorted", "seg_sum",
+                           "hist_count", "attr_fold")
 ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
                                  "orleans_tpu/tensor/arena.py:34",
                                  "orleans_tpu/tensor/attribution.py:294",
@@ -3142,6 +3189,638 @@ def drive_streams_path(dev, card: str, timer) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: hot-grain replicas (K18), GPSTracker, TwitterSentiment
+# ---------------------------------------------------------------------------
+
+def _route_engine(dev):
+    """A routing engine at the default config (ledger and attribution
+    plane on), auto-fusion off (the fused windows are driven by hand)."""
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples import routing  # noqa: F401
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    return TensorEngine(device=dev, config=TensorEngineConfig(
+        auto_fusion_ticks=0))
+
+
+def check_replica_kernels(dev, timer, card: str) -> dict:
+    """K18 against its plain version and the arena's host twin, bit for
+    bit: 1,048,576 lanes (a quarter aimed at the primaries, 5% misses,
+    the rest other sink rows) over G = 1, 3 and 9 groups (the mirror
+    padded to 1, 4 and 16) of k = 2 and 8 rows promoted on a RouteSink
+    arena on the card; then, at G = 1 and k = 8, the hot-grain path's own
+    rows (every lane aimed at the one primary), which are also what is
+    timed, beside the bound, the plain version and the composite of
+    ``torch.searchsorted`` + ``index_select`` + ``torch.where`` (no single
+    PyTorch call computes it)."""
+    from orleans_tpu_torch.kernels import replicas as krep
+    from orleans_tpu_torch.samples import routing
+
+    rng = np.random.default_rng(18)
+    sinks = routing.sink_keys(HOT_SINKS)
+    m = SPREAD_LANES
+    timed = None
+    for n_groups in (1, 3, 9):
+        for k in (2, 8):
+            eng = _route_engine(dev)
+            arena = eng.arena_for("RouteSink")
+            arena.reserve(HOT_SINKS)
+            arena.resolve_rows(sinks)
+            hot = rng.choice(sinks, n_groups, replace=False)
+            for key in hot.tolist():
+                require(eng.replicate_key("RouteSink", key, k) == k,
+                        f"promote to {k}")
+            prim_rows = arena.lookup_rows(hot)[0]
+            rows = rng.integers(0, HOT_SINKS, m).astype(np.int32)
+            aim = rng.random(m) < 0.25
+            rows[aim] = prim_rows[rng.integers(0, n_groups, aim.sum())]
+            rows[rng.random(m) < 0.05] = -1
+            mirror = arena.replica_mirror()
+            rows_d = torch.from_numpy(rows).to(dev)
+            got = krep.spread_replicas(*mirror, rows_d)
+            want = krep.spread_replicas_plain(*mirror, rows_d)
+            require(torch.equal(got, want),
+                    f"spread_replicas != plain (G={n_groups}, k={k})")
+            require(np.array_equal(got.cpu().numpy(),
+                                   arena.spread_rows_host(rows)),
+                    f"spread_replicas != spread_rows_host (G={n_groups}, "
+                    f"k={k})")
+            require(int((got != rows_d).sum()) > 0,
+                    "the spread moved no lane")
+            if n_groups == 1 and k == 8:
+                # the hot-grain path's rows: every lane hits the primary
+                rows_d = torch.full((m,), int(prim_rows[0]),
+                                    dtype=torch.int32, device=dev)
+                got = krep.spread_replicas(*mirror, rows_d)
+                require(torch.equal(
+                    got, krep.spread_replicas_plain(*mirror, rows_d)),
+                    "spread_replicas != plain (every lane hot)")
+                require(np.array_equal(got.cpu().numpy(),
+                                       arena.spread_rows_host(
+                                           rows_d.cpu().numpy())),
+                        "spread_replicas != spread_rows_host (every lane "
+                        "hot)")
+                require(int(torch.unique(got).numel()) == k,
+                        "the hot lanes did not reach all k rows")
+                timed = (mirror, rows_d, got)
+            del eng, arena
+    (prim, counts, table), rows_d, got = timed
+    lanes = torch.arange(m, dtype=torch.int64, device=dev)
+    flat = table.reshape(-1)
+    width = table.shape[1]
+
+    def composite():
+        idx = torch.searchsorted(prim, rows_d).clamp_(max=prim.shape[0] - 1)
+        hit = (prim.index_select(0, idx) == rows_d) & (rows_d >= 0)
+        choice = (((lanes * krep.LANE_HASH) & 0xFFFFFFFF) >> 8) \
+            % counts.index_select(0, idx)
+        alt = flat.index_select(0, idx * width + choice)
+        return torch.where(hit & (alt >= 0), alt, rows_d)
+
+    require(torch.equal(composite(), got), "the composite != K18")
+    r = dict(bound=bound(8 * m), **measure(
+        timer, lambda: krep.spread_replicas(prim, counts, table, rows_d),
+        lambda: krep.spread_replicas_plain(prim, counts, table, rows_d),
+        None))
+    r["composite_ms"] = timer(composite)
+    note = (f"no single PyTorch call: torch.searchsorted + index_select + "
+            f"torch.where (the lane hash between) take "
+            f"{r['composite_ms']:.4f} ms")
+    r.update(max_abs_err=0, library=None, library_note=note)
+    print(f"kernel spread_replicas: {r['ms']:.4f} ms on the device, host "
+          f"{r['host_ms']:.4f} (plain {r['plain_ms']:.4f}, composite "
+          f"{r['composite_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+          f"{r['bound'][1]}); {m} lanes all on the primary, G = 1, k = 8; "
+          f"bit-exact against "
+          f"the plain version and spread_rows_host at G = 1, 3, 9 and "
+          f"k = 2, 8; on {card}", flush=True)
+    return {"spread_replicas": r}
+
+
+def _sink_folds(engine, sinks: np.ndarray):
+    """(received int64, total float64) per sink key: the state columns
+    read once, a replicated sink through ``read_row``'s fold."""
+    arena = engine.arena_for("RouteSink")
+    rows, found = arena.lookup_rows(sinks)
+    require(bool(found.all()), "sinks live")
+    recv = arena.state["received"].cpu().numpy()[rows].astype(np.int64)
+    total = arena.state["total"].cpu().numpy()[rows].astype(np.float64)
+    for key in list(arena._replicas):
+        i = int(np.searchsorted(sinks, key))
+        fold = arena.read_row(key)
+        recv[i], total[i] = int(fold["received"]), float(fold["total"])
+    return recv, total
+
+
+def _check_sinks(engine, sinks, want_recv, want_total, depth: int,
+                 what: str) -> None:
+    """``received`` equal to ``expected_sink_state`` through the fold;
+    ``total`` within ``2 * d * 2**-24 * sum|x|`` of it, d the depth of
+    float32 additions into a sink: ``depth`` (one per tick, plus k per
+    demote) and the k rows of a live group's fold.  A tick's sum into one
+    row is exact (integer values, below 2**24 in all), so rounding enters
+    only there.  Higham's bound over the n lanes summed would be no check
+    here: at the hot sink n * 2**-24 passes 1."""
+    recv, total = _sink_folds(engine, sinks)
+    require(np.array_equal(recv, want_recv),
+            f"{what}: received != expected_sink_state")
+    groups = engine.arena_for("RouteSink")._replicas
+    d = depth + max((len(g) for g in groups.values()), default=0)
+    err = np.abs(total - want_total)
+    require(bool(np.all(err <= 2 * d * 2.0**-24 * want_total)),
+            f"{what}: total beyond 2 d 2**-24 sum|x|, d = {d} (max err "
+            f"{float(err.max())})")
+
+
+def _demote_checked(engine, hot: int) -> int:
+    """Demote the hot sink and hold its one row to the fold it had;
+    returns the group's k (the additions the fold took)."""
+    arena = engine.arena_for("RouteSink")
+    k = len(arena._replicas[hot])
+    fold = arena.read_row(hot)
+    require(engine.demote_key("RouteSink", hot) > 0, "demote freed nothing")
+    row = int(arena.lookup_rows(np.array([hot], np.int64))[0][0])
+    for col in ("received", "total"):
+        require(arena.state[col][row].item() == fold[col].item(),
+                f"the demoted sink's row != its fold ({col})")
+    return k
+
+
+def drive_hot_grain_path(dev, card: str) -> dict:
+    """The routing sample at ``_single_hot_grain_tier``'s shape, 1,048,576
+    sources and 256 sinks, ledger and attribution plane on.  Five
+    unfused arms (uniform; every source to one sink, unreplicated, at
+    k = 2 and at k = 8; uniform through the live k = 8 group), then the
+    uniform pair again in turn (demoted, re-promoted), each 3 warm ticks,
+    20 timed ticks and the held timing's blocks; then 4 fused windows of
+    16 at k = 8 with a demote before window 3 and a re-promote before
+    window 4, each a graph rebuild, and 7 more timed windows.
+    ``received`` exact and ``total`` within its bound after every arm and
+    every change."""
+    from orleans_tpu_torch.kernels import _build, segment
+    from orleans_tpu_torch.samples import routing
+    from orleans_tpu_torch.tensor.fused import CAUSE_REPLICA_CHANGE
+
+    sources = np.arange(HOT_SOURCES, dtype=np.int64)
+    sinks = routing.sink_keys(HOT_SINKS)
+    uniform = routing.build_ratio_destinations(sources, sinks, 1, 0.0,
+                                               seed=3)
+    hot = int(sinks[0])
+    hot_dst = np.full(HOT_SOURCES, hot, np.int64)
+    values = np.random.default_rng(20260806).integers(
+        1, 8, HOT_SOURCES).astype(np.float32)
+    values_d = torch.from_numpy(values).to(dev)
+    eng = _route_engine(dev)
+    eng.arena_for("RouteSource").reserve(HOT_SOURCES)
+    eng.arena_for("RouteSink").reserve(HOT_SINKS)
+    eng.arena_for("RouteSource").resolve_rows(sources)
+    eng.arena_for("RouteSink").resolve_rows(sinks)
+    sink_arena = eng.arena_for("RouteSink")
+    inj = eng.make_injector("RouteSource", "send", sources)
+    want_recv = np.zeros(HOT_SINKS, np.int64)
+    want_total = np.zeros(HOT_SINKS, np.float64)
+    # float32 additions into a sink row: one a tick (the tick's own sum,
+    # up to 7 * 2**20, is exact) and k for each demote's fold
+    require(float(values.sum()) < 2**24, "a tick's hot-sink sum inexact")
+    depth = [0]
+
+    def expect(dst, n_ticks):
+        t, r = routing.expected_sink_state(sources, dst, values, sinks,
+                                           n_ticks)
+        want_total[:] += t
+        want_recv[:] += r
+        depth[0] += n_ticks
+
+    def check(what: str) -> None:
+        _check_sinks(eng, sinks, want_recv, want_total, depth[0], what)
+
+    def demote() -> None:
+        depth[0] += _demote_checked(eng, hot)
+
+    out = {"counts": {}, "report": {}, "arms": {}}
+    arm_rows = {}
+    # the last two arms repeat the uniform pair in turn (demoted, then
+    # k = 8 again), so the spread's cost is read beside its neighbour
+    # and apart from the arm's place in the run
+    arms = (("uniform", uniform, None), ("hot", hot_dst, None),
+            ("hot_k2", hot_dst, 2), ("hot_k8", hot_dst, 8),
+            ("uniform_k8", uniform, None), ("uniform_again", uniform, 1),
+            ("uniform_k8_again", uniform, 8))
+    gc.collect()
+    _build.reset_launch_counts()
+    for name, dst, k in arms:
+        if k == 1:
+            demote()
+            check("after the demote from k = 8")
+        if k == 2:
+            require(eng.replicate_key("RouteSink", hot, 2) == 2, "k = 2")
+        if k == 8:
+            if sink_arena._replicas:
+                demote()
+                check("after the demote from k = 2")
+            require(eng.replicate_key("RouteSink", hot, 8) == 8, "k = 8")
+        dst_d = torch.from_numpy(dst.astype(np.int32)).to(dev)
+        c0 = _build.launch_counts()
+        run = LoadRun(eng, inj, lambda t, d=dst_d: {
+            "dst": d, "v": values_d, "tick": np.int32(t)})
+        timings = path_timings(run, 2 * HOT_SOURCES, HOT_TICKS)
+        c1 = _build.launch_counts()
+        expect(dst, run.ticks)
+        check(f"arm {name}")
+        group = sink_arena._replicas.get(hot)
+        arm_rows[name] = sink_arena.spread_rows_host(
+            sink_arena.lookup_rows(dst)[0])
+        a = out["arms"][name] = dict(
+            timings, ticks=run.ticks,
+            k=1 if group is None else len(group),
+            spread_launches=c1["spread_replicas"] - c0["spread_replicas"])
+        require((a["spread_launches"] > 0) == (group is not None),
+                f"arm {name}: K18 launched {a['spread_launches']} times")
+    out["counts"]["hot_grain_unfused"] = _build.launch_counts()
+    out["report"]["hot_grain_unfused"] = _build.launch_report()
+    require_launched(out["counts"]["hot_grain_unfused"], "hot-grain unfused",
+                     ROUTING_HOT_KERNELS)
+
+    # fused: 4 windows of 16 at k = 8, a demote before window 3, a
+    # re-promote before window 4
+    _build.reset_launch_counts()
+    prog = eng.fuse_ticks("RouteSource", "send", sources)
+    static = {"dst": torch.from_numpy(hot_dst.astype(np.int32)).to(dev),
+              "v": values_d}
+    ticks_d = torch.arange(16, dtype=torch.int32, device=dev)
+    fused = {"ticks": 0, "counted": 0}
+
+    def window():
+        prog.run({"tick": ticks_d + fused["ticks"]}, static_args=static)
+        fused["ticks"] += 16
+
+    def settle(what: str) -> None:
+        eng.wait_completion()
+        require(prog.verify() == 0, f"{what}: a window missed deliveries")
+        expect(hot_dst, fused["ticks"] - fused["counted"])
+        fused["counted"] = fused["ticks"]
+        check(what)
+
+    rebuilds = []
+    for w in range(HOT_WINDOWS):
+        if w == 2:
+            settle("fused windows 1-2 at k = 8")
+            demote()
+        if w == 3:
+            require(eng.replicate_key("RouteSink", hot, 8) == 8, "k = 8")
+        window()
+        rebuilds.append(dict(prog.rebuilds))
+    settle("fused windows 3-4 (demoted, then k = 8)")
+    require(dict(prog.rebuilds) == {"new_window": 1,
+                                    CAUSE_REPLICA_CHANGE: 2},
+            f"hot-grain window rebuilds {dict(prog.rebuilds)}")
+    dev_ms, host_ms = held_device_ms(window, reps=3)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    eng.wait_completion()
+    ev[0].record()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        window()
+    ev[1].record()
+    ev[1].synchronize()
+    elapsed = time.perf_counter() - t0
+    stream_ms = ev[0].elapsed_time(ev[1])
+    settle("timed windows at k = 8")
+    out["counts"]["hot_grain_fused"] = _build.launch_counts()
+    out["report"]["hot_grain_fused"] = _build.launch_report()
+    require_launched(out["counts"]["hot_grain_fused"], "hot-grain fused",
+                     ROUTING_HOT_KERNELS)
+    require(out["report"]["hot_grain_fused"]["spread_replicas"]["replayed"]
+            > 0, "spread_replicas never replayed")
+    out["fused"] = dict(
+        window_device_ms=dev_ms, window_host_ms=host_ms,
+        messages_per_sec=2 * HOT_SOURCES * 64 / elapsed,
+        idle_share=1 - 4 * dev_ms / stream_ms, rebuilds=dict(prog.rebuilds),
+        rebuilds_by_window=rebuilds, per_replay=dict(prog._per_replay),
+        ticks=fused["ticks"])
+    demote()
+    check("the last demote")
+    require(not sink_arena._replicas, "a group outlived the last demote")
+
+    # K4's share of each arm's tick: the tick's two seg_sum launches timed
+    # alone on the arm's spread rows (L2 flushed) over the tick's device
+    # time — an estimate from kernel timings, not a trace
+    timer = Timer(dev)
+    ones_d = torch.ones(HOT_SOURCES, dtype=torch.int32, device=dev)
+    n_rows = sink_arena.capacity
+    for name, rows in arm_rows.items():
+        rows_d = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        k4 = timer(lambda: segment.seg_sum(values_d, rows_d, n_rows)) \
+            + timer(lambda: segment.seg_sum(ones_d, rows_d, n_rows))
+        a = out["arms"][name]
+        a.update(k4_ms=k4, k4_share=k4 / a["tick_device_ms"])
+    for name, a in out["arms"].items():
+        print(f"hot-grain arm {name} (k = {a['k']}): "
+              f"{a['tick_device_ms']:.4f} ms per tick on the device, "
+              f"{a['tick_host_ms']:.4f} on the host; K4 {a['k4_ms']:.4f} ms "
+              f"= {a['k4_share']:.3f} of the tick; {a['messages_per_sec']:.1f}"
+              f" messages/s pipelined over {HOT_TICKS} ticks; "
+              f"{a['spread_launches']} K18 launches in {a['ticks']} ticks; "
+              f"exact; on {card}", flush=True)
+    f = out["fused"]
+    print(f"hot-grain fused, k = 8: one window of 16 "
+          f"{f['window_device_ms']:.4f} ms on the device, "
+          f"{f['window_host_ms']:.4f} ms on the host, "
+          f"{f['messages_per_sec']:.1f} messages/s over 4 pipelined windows, "
+          f"idle share {f['idle_share']:.4f}; rebuilds "
+          f"{json.dumps(f['rebuilds'])}; one replay = "
+          f"{json.dumps(f['per_replay'])}; {HOT_SOURCES} sources / "
+          f"{HOT_SINKS} sinks, exact after every arm, promote and demote; "
+          f"on {card}", flush=True)
+    return out
+
+
+def gps_oracle(lon: np.ndarray, fixes: list) -> dict:
+    """The GPS columns after ``fixes`` ([(lat float32 [n], ts)] in tick
+    order, ``lon`` fixed): per device moves, the last fix and speed (0 for
+    the first fix and an unmoved one; else |dlat| in radians times R over
+    dt, in float64 from the float32 fixes, lon never moving); per
+    notifier the forwarded count, the ticks with traffic and the speed
+    sum."""
+    from orleans_tpu_torch.samples.gpstracker import EARTH_R, N_NOTIFIERS
+
+    n = len(lon)
+    notif = np.arange(n) % N_NOTIFIERS
+    moves = np.zeros(n, np.int64)
+    fwd = np.zeros(N_NOTIFIERS, np.int64)
+    batches = np.zeros(N_NOTIFIERS, np.int64)
+    ssum = np.zeros(N_NOTIFIERS, np.float64)
+    prev_lat = prev_ts = speed = None
+    for lat, ts in fixes:
+        if prev_lat is None:
+            moved = np.ones(n, bool)
+            speed = np.zeros(n)
+        else:
+            moved = lat != prev_lat
+            dlat = np.abs(lat.astype(np.float64) - prev_lat)
+            speed = np.where(moved, np.deg2rad(dlat) * EARTH_R
+                             / float(ts - prev_ts), 0.0)
+        moves += moved
+        cnt = np.bincount(notif, weights=moved, minlength=N_NOTIFIERS)
+        fwd += cnt.astype(np.int64)
+        batches += cnt > 0
+        ssum += np.bincount(notif, weights=speed, minlength=N_NOTIFIERS)
+        prev_lat, prev_ts = lat, ts
+    return dict(moves=moves, lat=prev_lat, ts=prev_ts, speed=speed,
+                forwarded=fwd, batches=batches, speed_sum=ssum)
+
+
+def check_gps(engine, want: dict, what: str) -> float:
+    """The engine's GPS columns against ``gps_oracle``: moves, lat, ts and
+    the notifier counts exact, speed within a relative 1e-5 (cos and sqrt
+    by an ulp, the constants' float32 roundings), speed_sum within 1e-5 of
+    itself plus Higham's bound.  Returns the largest relative speed
+    error."""
+    from orleans_tpu_torch.samples.gpstracker import N_NOTIFIERS
+
+    n = len(want["moves"])
+    da = engine.arena_for("DeviceGrain")
+    rows, found = da.lookup_rows(np.arange(n, dtype=np.int64))
+    require(bool(found.all()), f"{what}: devices live")
+    cols = {c: da.state[c].cpu().numpy()[rows] for c in da.state}
+    require(np.array_equal(cols["moves"], want["moves"]), f"{what}: moves")
+    require(np.array_equal(cols["lat"], want["lat"]), f"{what}: lat")
+    require(bool(np.all(cols["ts"] == want["ts"])), f"{what}: ts")
+    err = np.abs(cols["speed"] - want["speed"])
+    require(bool(np.all(err <= 1e-5 * np.abs(want["speed"]))),
+            f"{what}: speed beyond a relative 1e-5")
+    na = engine.arena_for("PushNotifierGrain")
+    nrows, nfound = na.lookup_rows(np.arange(N_NOTIFIERS, dtype=np.int64))
+    require(bool(nfound.all()), f"{what}: notifiers live")
+    ncols = {c: na.state[c].cpu().numpy()[nrows] for c in na.state}
+    require(np.array_equal(ncols["forwarded"], want["forwarded"]),
+            f"{what}: forwarded")
+    require(np.array_equal(ncols["batches"], want["batches"]),
+            f"{what}: batches")
+    serr = np.abs(ncols["speed_sum"] - want["speed_sum"])
+    stol = (1e-5 + 2 * want["forwarded"] * 2.0**-24) * want["speed_sum"]
+    require(bool(np.all(serr <= stol)), f"{what}: speed_sum")
+    moved = want["speed"] > 0
+    return float((err[moved] / want["speed"][moved]).max())
+
+
+def drive_gps_path(dev, card: str) -> dict:
+    """GPSTracker at bench.py's default of 200,000 devices: unfused
+    (``run_gps_load``, 20 ticks, auto-fusion off) and fused
+    (``run_gps_load_fused``, a warm window and 20 ticks in windows of
+    10), each against the numpy oracle of its seeded fixes."""
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples import gpstracker as gps
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    out = {"counts": {}, "report": {}}
+    n = GPS_DEVICES
+    gc.collect()
+    _build.reset_launch_counts()
+    eng = TensorEngine(device=dev, config=TensorEngineConfig(
+        auto_fusion_ticks=0))
+    # the notifiers active first, as the fused loader has them: a cold
+    # notifier's first deliveries would land at a later drain, and the
+    # oracle's per-tick ``batches`` assumes every tick delivers in itself
+    eng.arena_for("PushNotifierGrain").resolve_rows(
+        np.arange(gps.N_NOTIFIERS, dtype=np.int64))
+    st = asyncio.run(gps.run_gps_load(eng, n_devices=n, n_ticks=GPS_TICKS,
+                                      seed=0))
+    out["counts"]["gps_unfused"] = _build.launch_counts()
+    require_launched(out["counts"]["gps_unfused"], "gps unfused",
+                     GPS_KERNELS)
+    rng = np.random.default_rng(0)
+    lat = 47.6 + rng.random(n, dtype=np.float32) * 0.1
+    lon = -122.1 + rng.random(n, dtype=np.float32) * 0.1
+    fixes = []
+    for t in range(GPS_TICKS):
+        moving = rng.random(n) < 0.7
+        lat = lat + np.where(moving, 1e-4, 0.0).astype(np.float32)
+        fixes.append((lat, np.float32(t + 1)))
+    want = gps_oracle(lon, fixes)
+    st["speed_rel_err"] = check_gps(eng, want, "gps unfused")
+    require(st["notified"] == int(want["forwarded"].sum()),
+            "gps unfused: notified")
+    out["unfused"] = st
+    del eng
+    gc.collect()
+
+    _build.reset_launch_counts()
+    eng = TensorEngine(device=dev)
+    fs = asyncio.run(gps.run_gps_load_fused(
+        eng, n_devices=n, n_ticks=GPS_TICKS, window=GPS_WINDOW, seed=0))
+    out["counts"]["gps_fused"] = _build.launch_counts()
+    out["report"]["gps_fused"] = _build.launch_report()
+    require_launched(out["counts"]["gps_fused"], "gps fused", GPS_KERNELS)
+    require(out["report"]["gps_fused"]["gather_rows"]["replayed"] > 0,
+            "gather_rows never replayed")
+    lon, windows = gps.gps_windows(n, GPS_TICKS // GPS_WINDOW + 1,
+                                   GPS_WINDOW, 0.7, 0)
+    fixes = [(w["lat"][t], w["ts"][t][0]) for w in windows
+             for t in range(GPS_WINDOW)]
+    want = gps_oracle(lon, fixes)
+    fs["speed_rel_err"] = check_gps(eng, want, "gps fused")
+    require(fs["forwarded_total"] == int(want["forwarded"].sum()),
+            "gps fused: forwarded")
+    out["fused"] = fs
+    print(f"gps {n} devices: unfused {st['messages_per_sec']:.1f} "
+          f"messages/s over {GPS_TICKS} ticks ({st['seconds']:.4f} s), "
+          f"fused {fs['messages_per_sec']:.1f} messages/s over "
+          f"{GPS_TICKS} ticks in windows of {GPS_WINDOW} "
+          f"({fs['seconds']:.4f} s); moves, fixes and notifier counts "
+          f"exact, speed within "
+          f"{max(st['speed_rel_err'], fs['speed_rel_err']):.2e} relative; "
+          f"on {card}", flush=True)
+    return out
+
+
+def twitter_oracle(payloads: list, tag_keys: np.ndarray) -> dict:
+    """Per tag (``tag_keys`` order): total, positive, negative, counted,
+    the scores of its last tick (a [tags, 3] flag set over -1, 0, +1) and
+    its last lane's score; the counter (tags ever touched)."""
+    order = np.argsort(tag_keys)
+    n = len(tag_keys)
+    total = np.zeros(n, np.int64)
+    pos = np.zeros(n, np.int64)
+    neg = np.zeros(n, np.int64)
+    flags = np.zeros((n, 3), bool)
+    last = np.zeros(n, np.int64)
+    for keys, scores in payloads:
+        idx = order[np.searchsorted(tag_keys[order], keys)]
+        hits = np.bincount(idx, minlength=n)
+        total += hits
+        pos += np.bincount(idx[scores > 0], minlength=n)
+        neg += np.bincount(idx[scores < 0], minlength=n)
+        tick = np.zeros((n, 3), bool)
+        tick[idx, scores + 1] = True
+        flags[hits > 0] = tick[hits > 0]
+        last[idx] = scores  # numpy fancy assignment: the last lane wins
+    counted = (total > 0).astype(np.int64)
+    return dict(total=total, positive=pos, negative=neg, counted=counted,
+                flags=flags, last=last, counter=int(counted.sum()))
+
+
+def check_twitter(engine, tag_keys, want: dict, what: str,
+                  last_exact: bool = False) -> None:
+    """Sums, counted and the counter exact; ``last_score`` one of the
+    scores of the tag's last tick (0 for an untouched tag), or its last
+    lane exactly when ``last_exact``."""
+    from orleans_tpu_torch.samples.twitter_sentiment import COUNTER_KEY
+
+    arena = engine.arena_for("HashtagGrain")
+    rows, found = arena.lookup_rows(tag_keys)
+    live = want["total"] > 0
+    require(bool(found[live].all()), f"{what}: touched tags live")
+    cols = {c: np.where(found, arena.state[c].cpu().numpy()[
+        np.where(found, rows, 0)], 0) for c in arena.state}
+    for c in ("total", "positive", "negative", "counted"):
+        require(np.array_equal(cols[c], want[c]), f"{what}: {c}")
+    last = cols["last_score"]
+    if last_exact:
+        require(np.array_equal(last, want["last"]), f"{what}: last_score")
+    else:
+        in_set = want["flags"][np.arange(len(last)),
+                               np.clip(last + 1, 0, 2)] & (np.abs(last) <= 1)
+        require(bool(np.where(live, in_set, last == 0).all()),
+                f"{what}: last_score outside its last tick's scores")
+    counter = engine.arena_for("TweetCounterGrain").read_row(COUNTER_KEY)
+    require(int(counter["hashtags"]) == want["counter"], f"{what}: counter")
+
+
+def drive_twitter_path(dev, card: str) -> dict:
+    """TwitterSentiment at bench.py's defaults (100,000 tweets per tick,
+    20,000 hashtags, 2 tags a tweet): unfused (20 ticks, auto-fusion off)
+    and fused (windows of 10, the warm window rolled back), both against
+    the numpy oracle of the Zipf payloads; then the grouped pull-mode
+    path at ``_streams_twitter``'s 50,000 / 10,000, 10 ticks in one
+    window, against the ungrouped unfused run and a numpy replay of each
+    tag's last lane."""
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples import twitter_sentiment as tw
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    def unfused_engine():
+        return TensorEngine(device=dev, config=TensorEngineConfig(
+            auto_fusion_ticks=0))
+
+    out = {"counts": {}, "report": {}}
+    tag_keys, payloads = tw._zipf_payloads(TW_TAGS, 2 * TW_TWEETS, TW_TICKS,
+                                           1.4, 0)
+    want = twitter_oracle(payloads, tag_keys)
+    gc.collect()
+    _build.reset_launch_counts()
+    eng = unfused_engine()
+    st = asyncio.run(tw.run_twitter_load(eng, n_tweets_per_tick=TW_TWEETS,
+                                         n_hashtags=TW_TAGS,
+                                         n_ticks=TW_TICKS))
+    out["counts"]["twitter_unfused"] = _build.launch_counts()
+    require_launched(out["counts"]["twitter_unfused"], "twitter unfused",
+                     TWITTER_UNFUSED_KERNELS)
+    check_twitter(eng, tag_keys, want, "twitter unfused")
+    out["unfused"] = st
+    del eng
+    gc.collect()
+
+    _build.reset_launch_counts()
+    eng = TensorEngine(device=dev)
+    fs = asyncio.run(tw.run_twitter_load_fused(
+        eng, n_tweets_per_tick=TW_TWEETS, n_hashtags=TW_TAGS,
+        n_ticks=TW_TICKS, window=TW_WINDOW))
+    out["counts"]["twitter_fused"] = _build.launch_counts()
+    out["report"]["twitter_fused"] = _build.launch_report()
+    require_launched(out["counts"]["twitter_fused"], "twitter fused",
+                     TWITTER_KERNELS)
+    require(out["report"]["twitter_fused"]["resolve_sorted"]["replayed"]
+            > 0, "resolve_sorted never replayed")
+    check_twitter(eng, tag_keys, want, "twitter fused")
+    out["fused"] = fs
+    del eng
+    gc.collect()
+
+    gkeys, gpay = tw._zipf_payloads(TWG_TAGS, 2 * TWG_TWEETS, TWG_TICKS,
+                                    1.4, 0)
+    gwant = twitter_oracle(gpay, gkeys)
+    _build.reset_launch_counts()
+    eng = TensorEngine(device=dev)
+    gs = asyncio.run(tw.run_twitter_load_grouped(
+        eng, n_tweets_per_tick=TWG_TWEETS, n_hashtags=TWG_TAGS,
+        n_ticks=TWG_TICKS, window=TWG_TICKS))
+    out["counts"]["twitter_grouped"] = _build.launch_counts()
+    out["report"]["twitter_grouped"] = _build.launch_report()
+    require_launched(out["counts"]["twitter_grouped"], "twitter grouped",
+                     TWITTER_GROUPED_KERNELS)
+    require(out["report"]["twitter_grouped"]["seg_pull"]["replayed"] > 0,
+            "seg_pull never replayed on the grouped path")
+    check_twitter(eng, gkeys, gwant, "twitter grouped", last_exact=True)
+    ung = unfused_engine()
+    asyncio.run(tw.run_twitter_load(ung, n_tweets_per_tick=TWG_TWEETS,
+                                    n_hashtags=TWG_TAGS, n_ticks=TWG_TICKS))
+    check_twitter(ung, gkeys, gwant, "twitter ungrouped")
+    a1, a2 = eng.arena_for("HashtagGrain"), ung.arena_for("HashtagGrain")
+    r1 = a1.lookup_rows(gkeys)[0]
+    r2, ok2 = a2.lookup_rows(gkeys)
+    for c in ("total", "positive", "negative", "counted"):
+        x1 = a1.state[c].cpu().numpy()[r1]
+        x2 = a2.state[c].cpu().numpy()[np.where(ok2, r2, 0)]
+        require(np.array_equal(x1[ok2], x2[ok2])
+                and not np.any(x1[~ok2]), f"grouped != ungrouped ({c})")
+    out["grouped"] = gs
+    print(f"twitter {TW_TWEETS} tweets / {TW_TAGS} tags per tick: unfused "
+          f"{st['messages_per_sec']:.1f} messages/s over {TW_TICKS} ticks "
+          f"({st['seconds']:.4f} s), fused {fs['messages_per_sec']:.1f} "
+          f"messages/s in windows of {TW_WINDOW} ({fs['seconds']:.4f} s); "
+          f"sums, counted and the counter exact against the numpy oracle, "
+          f"last_score within its last tick's scores; grouped "
+          f"{TWG_TWEETS} / {TWG_TAGS}, {TWG_TICKS} ticks: "
+          f"{gs['messages_per_sec']:.1f} messages/s ({gs['seconds']:.4f} "
+          f"s), equal to the ungrouped run, last_score exact; on {card}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -3189,10 +3868,17 @@ def main() -> int:
     streams = drive_streams_path(dev, card, timer)
     results.update(streams["kernels"])
     t9 = time.perf_counter()
+    results.update(check_replica_kernels(dev, timer, card))
+    hot = drive_hot_grain_path(dev, card)
+    t10 = time.perf_counter()
+    gps = drive_gps_path(dev, card)
+    twitter = drive_twitter_path(dev, card)
+    t11 = time.perf_counter()
     print(f"phase seconds: kernels {t1 - t0:.1f}, unfused {t2 - t1:.1f}, "
           f"fused {t3 - t2:.1f}, wide {t4 - t3:.1f}, chirper "
           f"{t5 - t4:.1f}, collection {t6 - t5:.1f}, timers {t7 - t6:.1f}, "
-          f"composition {t8 - t7:.1f}, streams {t9 - t8:.1f}", flush=True)
+          f"composition {t8 - t7:.1f}, streams {t9 - t8:.1f}, hot grain "
+          f"{t10 - t9:.1f}, gps and twitter {t11 - t10:.1f}", flush=True)
     plane = runs["plane_ms"]
     fused_added = (fused["window_device_ms"]
                    - fused["window_off_device_ms"]) / 16
@@ -3214,14 +3900,22 @@ def main() -> int:
              **wide_out["counts"], **chirper_out["counts"],
              "collection": collection["counts"], "timers": timers["counts"],
              "composition": composed["counts"], **streams["counts"]}
+    # K18 launches only on arenas that hold replicas: every earlier path
+    # must count none
+    for path, c in paths.items():
+        require(c.get("spread_replicas", 0) == 0,
+                f"spread_replicas launched on the {path} path")
+    paths.update({**hot["counts"], **gps["counts"], **twitter["counts"]})
     reports = {"presence_fused": fused["report"], **wide_out["report"],
                **chirper_out["report"], "collection": collection["report"],
                "timers": timers["report"], "composition": composed["report"],
-               **streams["report"]}
+               **streams["report"], **hot["report"], **gps["report"],
+               **twitter["report"]}
     per_replay = {"presence_fused": fused["per_replay"],
                   "wide_fused": wide_out["fused"]["per_replay"],
                   "chirper_fused": chirper_out["fused"]["per_replay"],
-                  "chat_fused": streams["fused"]["per_replay"]}
+                  "chat_fused": streams["fused"]["per_replay"],
+                  "hot_grain_fused": hot["fused"]["per_replay"]}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]

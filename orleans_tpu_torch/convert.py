@@ -9,7 +9,8 @@ plane and its fan-out graphs.
 ``jax_arena._key_of_row`` and ``{k: np.asarray(v) for k, v in
 jax_arena.state.items()}`` — into a port arena, after which both packages
 compute the same next tick (an arena holding keys beyond int32 resolves
-through its wide mirror, as the JAX arena does).
+through its wide mirror, as the JAX arena does; one holding hot-grain
+replica groups spreads its deliveries over them, as the JAX arena does).
 ``fanout_from_adjacency`` builds a port ``DeviceFanout`` from a JAX one's
 adjacency lists and budget (``jax_fanout._adj``, ``jax_fanout.budget``),
 after which both expand the same messages into the same slots.  ``ledger_state_from_numpy`` loads a ledger's
@@ -51,7 +52,11 @@ def arena_state_from_numpy(arena: GrainArena, key_of_row: np.ndarray,
                            last_use_dev: Optional[np.ndarray] = None,
                            eviction_epoch: Optional[int] = None,
                            evicted_count: int = 0,
-                           restored_count: int = 0) -> None:
+                           restored_count: int = 0,
+                           replicas: Optional[Mapping[int, Sequence[int]]]
+                           = None,
+                           replica_counts: Tuple[int, int, int] = (0, 0, 0)
+                           ) -> None:
     """Replace ``arena``'s rows and state with ``key_of_row`` (int64
     ``[capacity]``, -1 = free row) and ``columns`` (one ``[capacity, ...]``
     array per declared field, of the field's dtype).  The arena takes the
@@ -63,7 +68,11 @@ def arena_state_from_numpy(arena: GrainArena, key_of_row: np.ndarray,
     order), ``shard_next`` (``jax_arena._shard_next[0]``; default: past
     the last live row), both use clocks (``jax_arena.last_use_tick``,
     ``np.asarray(jax_arena.last_use_dev)``; default zero), the eviction
-    epoch and the evicted/restored counts."""
+    epoch and the evicted/restored counts.  So do its hot-grain replica
+    groups: ``replicas`` (``jax_arena._replicas``: key → rows, the primary
+    first) and ``replica_counts`` (``(replica_promotions,
+    replica_demotions, replica_folds)``); the secondary mask derives from
+    the groups."""
     key_of_row = np.asarray(key_of_row, dtype=np.int64)
     capacity = key_of_row.shape[0]
     fields = arena.info.state_fields
@@ -102,6 +111,19 @@ def arena_state_from_numpy(arena: GrainArena, key_of_row: np.ndarray,
         arena.eviction_epoch = int(eviction_epoch)
     arena.evicted_count = int(evicted_count)
     arena.restored_count = int(restored_count)
+    arena._replicas = {int(k): np.array(r, dtype=np.int64)
+                       for k, r in (replicas or {}).items()}
+    arena._replica_secondary = np.zeros(capacity, dtype=bool)
+    for key, rws in arena._replicas.items():
+        if not np.all(key_of_row[rws] == key):
+            raise ValueError(f"replica group of key {key}: rows {rws} do "
+                             f"not all hold the key")
+        arena._replica_secondary[rws[1:]] = True
+    (arena.replica_promotions, arena.replica_demotions,
+     arena.replica_folds) = (int(c) for c in replica_counts)
+    arena._dev_replicas_stale = True
+    # secondaries are rows of their key but not live grains
+    arena.live_count = len(live) - int(arena._replica_secondary.sum())
     arena._dirty = True
     arena.generation += 1
 

@@ -34,8 +34,18 @@ through the dense or the sorted mirror; an arena holding a wider key
 resolves through the two-level wide mirror (``device_index_wide``): wide
 keys ride as ``(hi, lo)`` int32 word pairs, hashed into 30-bit buckets
 and checked against the full words (reference key breadth:
-UniqueKey.cs:34).  Replicas, migration, resharding and the checkpoint
-layout belong to later slices of the port.
+UniqueKey.cs:34).
+
+Hot-grain replicas (``promote_replicas``): a grain whose handlers are
+commutative can take k rows of the block, its PRIMARY (the row the
+directory resolves to) and k - 1 secondaries that carry its key but stay
+out of the directory index, ``keys()`` and ``live_count``.  Delivery
+spreads each lane aimed at a primary over the group by lane hash (K18 on
+the device, ``spread_rows_host`` on the host, against one mirror), so
+one hot row's same-address updates split over k rows; reads fold the
+group (sum: Σ − (k − 1)·init; max, min), and ``demote_replicas`` writes
+the fold back to the primary and frees the secondaries.  Migration,
+resharding and the checkpoint layout belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -156,6 +166,20 @@ class GrainArena:
         # True once an activated key does not fit the int32 device keys:
         # narrow emits to this arena then resolve through the wide mirror
         self.has_wide_keys = False
+        # hot-grain replicas: key → int64 rows, rows[0] the PRIMARY (the
+        # row the directory resolves to), rows[1:] the secondaries, which
+        # carry the key in ``_key_of_row`` but stay out of the directory
+        # index (``_replica_secondary``), so key → row stays a bijection
+        # onto primaries and the spread is an explicit remap after it
+        self._replicas: Dict[int, np.ndarray] = {}
+        self._replica_secondary = np.zeros(self.capacity, dtype=bool)
+        self.replica_promotions = 0
+        self.replica_demotions = 0
+        self.replica_folds = 0
+        # device mirror of the spread map (K18's prim, counts, table),
+        # cached until a promote, a demote or a row move stales it
+        self._dev_replicas: Optional[Tuple[torch.Tensor, ...]] = None
+        self._dev_replicas_stale = True
 
     def _settle_owner_chain(self) -> None:
         """Rows are about to move (growth): settle the owning engine's
@@ -238,7 +262,12 @@ class GrainArena:
     # -- key → row resolution ----------------------------------------------
 
     def _rebuild_index(self) -> None:
-        rows = np.nonzero(self._key_of_row >= 0)[0].astype(np.int32)
+        # replica secondaries stay out: the index is a bijection onto
+        # primaries, and delivery reaches the group through the spread
+        live = self._key_of_row >= 0
+        if self._replicas:
+            live &= ~self._replica_secondary
+        rows = np.nonzero(live)[0].astype(np.int32)
         keys = self._key_of_row[rows]
         order = np.argsort(keys, kind="stable")
         self._sorted_keys = keys[order]
@@ -439,6 +468,11 @@ class GrainArena:
         key_of_row[:old] = self._key_of_row
         last_use_tick = np.zeros(new_capacity, dtype=np.int64)
         last_use_tick[:old] = self.last_use_tick
+        # replica groups keep their rows; only the mask widens
+        secondary = np.zeros(new_capacity, dtype=bool)
+        secondary[:old] = self._replica_secondary
+        self._replica_secondary = secondary
+        self._dev_replicas_stale = True
         att = self._attribution()
         if att is not None:
             # traffic counts move with their rows (which keep their index)
@@ -529,9 +563,16 @@ class GrainArena:
 
     def evict_keys(self, keys: np.ndarray, write_back: bool = True) -> int:
         """Deactivate specific keys (write-back first when a store is
-        attached; reference: GrainDirectoryHandoffManager.cs:141)."""
+        attached; reference: GrainDirectoryHandoffManager.cs:141).  A
+        replicated key folds back to its primary first, so the write-back
+        stores the merged state and the secondaries free by demotion."""
         self._settle_owner_chain()
-        rows, found = self.lookup_rows(np.asarray(keys, dtype=np.int64))
+        keys = np.asarray(keys, dtype=np.int64)
+        if self._replicas:
+            for k in keys.tolist():
+                if int(k) in self._replicas:
+                    self.demote_replicas(int(k))
+        rows, found = self.lookup_rows(keys)
         return self._deactivate_rows(rows[found].astype(np.int64),
                                      write_back)
 
@@ -543,6 +584,10 @@ class GrainArena:
         ``eviction_epoch`` bumps.  Callers settle the owner chain before
         they compute victims."""
         victims = np.asarray(victims, dtype=np.int64)
+        if self._replicas:
+            # replica members never collect one by one: demotion is their
+            # only exit (evict_keys demotes first)
+            victims = victims[~self._replica_member_mask(victims)]
         if len(victims) == 0:
             return 0
         keys = self._key_of_row[victims]
@@ -614,12 +659,191 @@ class GrainArena:
         att = self._attribution()
         if att is not None:
             att.remap_rows(self, old_rows, new_rows, self.capacity)
+        if self._replicas:
+            remap = np.full(self.capacity, -1, dtype=np.int64)
+            remap[old_rows] = new_rows
+            self._replicas = {k: remap[r] for k, r in self._replicas.items()}
+            secondary = np.zeros(self.capacity, dtype=bool)
+            secondary[new_rows] = self._replica_secondary[old_rows]
+            self._replica_secondary = secondary
+            self._dev_replicas_stale = True
         self._dirty = True
         self.generation += 1
+
+    # -- hot-grain replicas (the JAX arena's promote/demote at one block) ---
+    # A grain too hot for one row, whose state folds commutatively
+    # (StateField.fold), promotes to k rows; delivery scatters its lanes
+    # over the group by lane hash and reads fold the group back.
+
+    REPLICA_TABLE_WIDTH = 8  # the mirror's row width; k is capped to it
+
+    def _replica_mirror_host(self) -> Tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]:
+        """(prim, counts, table) as host arrays — the one construction both
+        the device mirror and the host twin derive from, so the two
+        spreads agree bit for bit."""
+        items = sorted(self._replicas.items(), key=lambda kv: int(kv[1][0]))
+        alloc = 1 << max(0, len(items) - 1).bit_length()
+        kmax = self.REPLICA_TABLE_WIDTH
+        prim = np.full(alloc, KEY_SENTINEL, dtype=np.int32)
+        counts = np.ones(alloc, dtype=np.int32)
+        table = np.full((alloc, kmax), -1, dtype=np.int32)
+        for i, (_, rws) in enumerate(items):
+            k = min(len(rws), kmax)
+            prim[i] = int(rws[0])
+            counts[i] = k
+            table[i, :k] = rws[:k]
+        return prim, counts, table
+
+    def replica_mirror(self) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+        """K18's mirror on the device, row-keyed (any key width), cached
+        until a promote, a demote or a row move stales it.  A fused window
+        bakes these tensors; every change that stales them bumps the
+        generation, which rebuilds the window."""
+        if self._dev_replicas_stale or self._dev_replicas is None:
+            self._dev_replicas = tuple(
+                self._to_device(a) for a in self._replica_mirror_host())
+            self._dev_replicas_stale = False
+        return self._dev_replicas
+
+    def spread_rows_host(self, rows: np.ndarray) -> np.ndarray:
+        """Host twin of K18: the same lane-hash replica choice applied to
+        host-resolved rows (the injector's refresh, the host resolution of
+        a batch, a fused window's static source rows)."""
+        rows = np.asarray(rows)
+        if not self._replicas or len(rows) == 0:
+            return rows
+        prim, counts, table = self._replica_mirror_host()
+        r = rows.astype(np.int64)
+        idx = np.clip(np.searchsorted(prim, r), 0, len(prim) - 1)
+        hit = (prim[idx].astype(np.int64) == r) & (r >= 0)
+        lanes = np.arange(len(r), dtype=np.uint32)
+        h = (lanes * np.uint32(2654435761)) >> np.uint32(8)
+        choice = (h % counts[idx].astype(np.uint32)).astype(np.int64)
+        alt = table[idx, choice].astype(np.int64)
+        out = np.where(hit & (alt >= 0), alt, r)
+        return out.astype(rows.dtype)
+
+    def _replica_member_mask(self, rows: np.ndarray) -> np.ndarray:
+        """True for rows inside any replica group (primary or secondary):
+        those never collect or evict one by one."""
+        rows = np.asarray(rows, dtype=np.int64)
+        mask = self._replica_secondary[rows].copy()
+        if self._replicas:
+            prim = np.fromiter((int(r[0]) for r in self._replicas.values()),
+                               np.int64, len(self._replicas))
+            mask |= np.isin(rows, prim)
+        return mask
+
+    def promote_replicas(self, key: int, k: int) -> int:
+        """Promote ``key`` to ``k`` replica rows (2 ≤ k ≤ 8): its row stays
+        the primary, k - 1 secondaries come off the block (free list
+        first, then the bump pointer).  They hold field inits — the fold
+        identity — so a fresh replica adds nothing to the merge.  The
+        generation bumps (a fused window rebuilds; the next checkpoint is
+        a full one) and so does the eviction epoch (held rows re-check).
+        Returns the group size; a key already promoted keeps its group."""
+        k = int(max(2, min(k, self.REPLICA_TABLE_WIDTH)))
+        self._settle_owner_chain()
+        key = int(key)
+        if key in self._replicas:
+            return len(self._replicas[key])
+        _, found = self.lookup_rows(np.array([key], dtype=np.int64))
+        if not found[0]:
+            raise KeyError(f"arena {self.info.name}: cannot replicate key "
+                           f"{key} — not live")
+        self._ensure_capacity(k - 1)
+        # look the primary up again: growth may have rebuilt the index
+        prow, found = self.lookup_rows(np.array([key], dtype=np.int64))
+        assert found[0]
+        prow = int(prow[0])
+        sec = self._take_rows(k - 1)
+        self._key_of_row[sec] = key
+        self._replica_secondary[sec] = True
+        self._replicas[key] = np.concatenate(
+            [np.array([prow], dtype=np.int64), sec])
+        self.last_use_tick[sec] = self.last_use_tick[prow]
+        self.replica_promotions += 1
+        self._dirty = True
+        self._dev_replicas_stale = True
+        self.generation += 1
+        self.eviction_epoch += 1
+        return k
+
+    def _fold_replica_host(self, rws: np.ndarray) -> Dict[str, np.ndarray]:
+        """One group's merged state on the host (its rows gathered by
+        K13): fold "sum" as Σ rows − (k − 1)·init, exact for integer
+        columns; "max" and "min" directly (their identity is the init by
+        declaration)."""
+        rws = np.asarray(rws, dtype=np.int64)
+        host = self.rows_to_host(rws)
+        k = len(rws)
+        out: Dict[str, np.ndarray] = {}
+        for name, f in self.info.state_fields.items():
+            vals = host[name]
+            if f.fold == "max":
+                out[name] = vals.max(axis=0)
+            elif f.fold == "min":
+                out[name] = vals.min(axis=0)
+            else:
+                dtype = _NP_DTYPE[self.state[name].dtype]
+                init = np.asarray(f.init, dtype=dtype)
+                out[name] = (vals.sum(axis=0, dtype=vals.dtype)
+                             - np.asarray(k - 1, dtype=dtype) * init
+                             ).astype(dtype)
+        return out
+
+    def demote_replicas(self, key: int) -> int:
+        """Fold ``key``'s group back into its primary and free the
+        secondaries: the merged row is written with K3 SET, the clocks
+        merge (the primary takes the group's latest use), the attribution
+        plane retires the secondaries' counts under the key, and the rows
+        return to the free list scrubbed.  Not an eviction: no write-back
+        and no stream-route retirement.  Returns the secondaries freed (0
+        for a key not replicated)."""
+        # settle first: a replay may grow or compact and remap the group
+        self._settle_owner_chain()
+        key = int(key)
+        rws = self._replicas.pop(key, None)
+        if rws is None:
+            return 0
+        rws = np.asarray(rws, dtype=np.int64)
+        prow = int(rws[0])
+        sec = rws[1:]
+        merged = self._fold_replica_host(rws)
+        dst = host_upload(np.array([prow], dtype=np.int32), self.device)
+        for name, f in self.info.state_fields.items():
+            col = self.state[name]
+            val = np.asarray(merged[name], dtype=_NP_DTYPE[col.dtype])
+            row_scatter(col, dst, host_upload(
+                val.reshape((1, *f.shape)), self.device), "set")
+        idx = host_upload(rws.astype(np.int32), self.device)
+        dev = fetch_host({"c": gather_rows(self.last_use_dev, idx)})["c"]
+        row_scatter(self.last_use_dev, dst, int(dev.max()), "max")
+        self.last_use_tick[prow] = int(self.last_use_tick[rws].max())
+        att = self._attribution()
+        if att is not None:
+            # the secondaries' traffic retires under the key before their
+            # rows can be reused: totals survive a demote as an eviction
+            att.on_evict(self, sec, np.full(len(sec), key, dtype=np.int64))
+        self._key_of_row[sec] = -1
+        self._replica_secondary[sec] = False
+        self._free_rows(sec)
+        self.replica_demotions += 1
+        self.replica_folds += 1
+        self._dirty = True
+        self._dev_replicas_stale = True
+        self.generation += 1
+        self.eviction_epoch += 1
+        return len(sec)
 
     # -- host access --------------------------------------------------------
 
     def read_row(self, key: int) -> Optional[Dict[str, np.ndarray]]:
+        if int(key) in self._replicas:
+            # a replicated grain's observable state is its fold
+            return self._fold_replica_host(self._replicas[int(key)])
         rows, found = self.lookup_rows(np.array([key], dtype=np.int64))
         if not found[0]:
             return None
@@ -627,4 +851,7 @@ class GrainArena:
         return {name: col[r].cpu().numpy() for name, col in self.state.items()}
 
     def keys(self) -> np.ndarray:
-        return self._key_of_row[self._key_of_row >= 0]
+        live = self._key_of_row >= 0
+        if self._replicas:
+            live &= ~self._replica_secondary
+        return self._key_of_row[live]

@@ -37,6 +37,12 @@ Data movement:
   by K16, the use clock stamped by K17.  Any other publish expands
   push-mode through K11.  With ``config.stream_plane`` off the adjacency
   walks on the host instead.
+* an arena holding hot-grain replicas (``replicate_key``) spreads every
+  resolved row vector after resolution: lanes aimed at a replicated
+  primary re-point to one of its replica rows by lane hash (K18 on the
+  device; the arena's host twin for host-resolved rows, the same
+  choice), so one hot grain's updates split over k rows.  Arenas without
+  replicas never launch it.
 
 Each step runs its handler eagerly (PyTorch has no trace to cache) and
 records a ``torch.cuda.Event`` after it as the step's completion fence.
@@ -86,6 +92,7 @@ import torch
 from orleans_tpu_torch.config import MetricsConfig, TensorEngineConfig
 from orleans_tpu_torch.device import host_upload, resolve_device
 from orleans_tpu_torch.kernels.miss import miss_keys
+from orleans_tpu_torch.kernels.replicas import spread_replicas
 from orleans_tpu_torch.kernels.resolve import (
     KEY_SENTINEL,
     resolve_dense,
@@ -259,24 +266,39 @@ def resolve_rows_on_device(arena: GrainArena, keys: Any,
     and int32 keys into an arena holding wide keys (the key ``k`` is the
     wide key ``(0, k)``), through the wide mirror (K10); other int32 keys
     with one gather from the dense direct map when the key space affords
-    it (K1), else a binary search of the sorted mirror (K2).  Returns
+    it (K1), else a binary search of the sorted mirror (K2).  An arena
+    holding hot-grain replicas then spreads the rows (K18).  Returns
     (rows, miss count); the count adds into ``misses`` when given (a fused
     window's total)."""
     if isinstance(keys, tuple):
         hi, lo = keys
-        return resolve_wide(*arena.device_index_wide(), hi, lo, valid,
-                            misses)
-    if arena.has_wide_keys:
+        rows, misses = resolve_wide(*arena.device_index_wide(), hi, lo,
+                                    valid, misses)
+    elif arena.has_wide_keys:
         # the narrow mirror cannot hold the arena's keys; keys at or above
         # the sentinel stay padding (K10's narrow mode), so a padding lane
         # never aliases a live grain whose key is 2**31 - 1
-        return resolve_wide(*arena.device_index_wide(), None, keys, valid,
-                            misses)
-    dense = arena.dense_index()
-    if dense is not None:
-        return resolve_dense(dense, keys, valid, misses)
-    sorted_keys, sorted_rows = arena.device_index()
-    return resolve_sorted(sorted_keys, sorted_rows, keys, valid, misses)
+        rows, misses = resolve_wide(*arena.device_index_wide(), None, keys,
+                                    valid, misses)
+    else:
+        dense = arena.dense_index()
+        if dense is not None:
+            rows, misses = resolve_dense(dense, keys, valid, misses)
+        else:
+            sorted_keys, sorted_rows = arena.device_index()
+            rows, misses = resolve_sorted(sorted_keys, sorted_rows, keys,
+                                          valid, misses)
+    return _spread_resolved(arena, rows), misses
+
+
+def _spread_resolved(arena: GrainArena, rows: torch.Tensor) -> torch.Tensor:
+    """The hot-grain replica spread of resolved rows (K18) when the arena
+    holds replicas; the rows as they are otherwise.  The mirror is the
+    arena's cached device copy (row-keyed, so the spread composes with
+    every key width)."""
+    if not arena._replicas:
+        return rows
+    return spread_replicas(*arena.replica_mirror(), rows)
 
 
 def _miss_keys(keys: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
@@ -516,6 +538,10 @@ class TensorEngine:
         self.rounds_run = 0
         self.messages_processed = 0
         self.activation_passes = 0
+        # hot-grain replication (replicate_key / demote_key)
+        self.replications = 0
+        self.grains_replicated = 0
+        self.replica_demotions = 0
         # recent per-tick durations → true latency percentiles
         self.tick_durations: deque = deque(maxlen=self.config.latency_window)
         # per-stage host wall time (reference: StageAnalysis.cs:81):
@@ -579,6 +605,41 @@ class TensorEngine:
         new layout tensors)."""
         return tuple((key, id(r), r.layout_version, r.mutation_version)
                      for key, r in sorted(self._stream_routes.items()))
+
+    # ================= hot-grain replicas =================================
+
+    def replicate_key(self, type_name: str, key: int, k: int) -> int:
+        """Promote one hot grain to ``k`` replica rows
+        (``GrainArena.promote_replicas``): delivery then scatters its lanes
+        over the group by lane hash and reads see the fold.  Parked miss
+        and fan-out checks drain FIRST, so their redeliveries resolve (and
+        spread) against the new table.  Returns the group size (0 for an
+        unknown type)."""
+        arena = self.arenas.get(type_name)
+        if arena is None:
+            return 0
+        if self._pending_checks or self._fanout_checks:
+            self._drain_checks()
+        if int(key) in arena._replicas:
+            return len(arena._replicas[int(key)])
+        got = arena.promote_replicas(key, k)
+        self.replications += 1
+        self.grains_replicated += 1
+        return got
+
+    def demote_key(self, type_name: str, key: int) -> int:
+        """Fold a replicated grain back into one row
+        (``GrainArena.demote_replicas``), after the same drain.  Returns
+        the secondary rows freed."""
+        arena = self.arenas.get(type_name)
+        if arena is None:
+            return 0
+        if self._pending_checks or self._fanout_checks:
+            self._drain_checks()
+        freed = arena.demote_replicas(key)
+        if freed:
+            self.replica_demotions += 1
+        return freed
 
     # ================= collection =========================================
 
@@ -1018,6 +1079,14 @@ class TensorEngine:
             "arenas": {name: a.live_count for name, a in self.arenas.items()},
             "evicted": sum(a.evicted_count for a in self.arenas.values()),
             "restored": sum(a.restored_count for a in self.arenas.values()),
+            # hot-grain replication (replicate_key / demote_key)
+            "replications": self.replications,
+            "grains_replicated": self.grains_replicated,
+            "replica_demotions": self.replica_demotions,
+            "replica_folds": sum(a.replica_folds
+                                 for a in self.arenas.values()),
+            "replicated_now": sum(len(a._replicas)
+                                  for a in self.arenas.values()),
             "collection": self.collector.snapshot(),
             "fragmentation": {name: round(a.fragmentation(), 4)
                               for name, a in self.arenas.items()},
@@ -1073,7 +1142,8 @@ class TensorEngine:
             # stale pre-resolved rows fall through to here too: a
             # generation change moved rows, an epoch change freed some;
             # host resolution re-activates an evicted key (from the store)
-            rows = arena.resolve_rows(b.keys_host, tick=self.tick_number)
+            rows = arena.spread_rows_host(
+                arena.resolve_rows(b.keys_host, tick=self.tick_number))
             return rows.astype(np.int32), b.args
         keys = b.keys_wide if b.keys_wide is not None else b.keys_dev
         valid = b.mask if b.mask is not None else self._mask_for(len(b))
@@ -1514,7 +1584,13 @@ class BatchInjector:
                 self.epoch = arena.eviction_epoch
                 return
         rows = arena.resolve_rows(self.keys, tick=self.engine.tick_number)
+        # the host copy stays unspread (lookup_rows resolves to primaries,
+        # so the epoch re-check above compares like with like); only the
+        # device rows take the replica spread.  A promote or demote bumps
+        # the generation, so spread rows never survive one through the
+        # epoch-only path.
         self._rows_host = rows.astype(np.int32)
+        rows = arena.spread_rows_host(rows)
         self.rows = torch.from_numpy(rows).to(self.engine.device)
         self.generation = arena.generation
         self.epoch = arena.eviction_epoch

@@ -61,6 +61,12 @@ the plane switched off every routed source lane counts as a miss, so
 The window warms every route's layouts before it captures and bakes their
 tensors: a layout rebuild or a buffered mutation rebuilds the window
 (cause ``stream_rebuild``), a toggle of the plane too (``config_toggle``).
+
+An arena holding hot-grain replicas spreads every resolved emit inside the
+window (K18, captured with the rest), and a static source's rows take the
+arena's host spread when they resolve.  The graph bakes the replica
+mirror's tensors: a promote or a demote rebuilds the window first (cause
+``replica_change``), so a replay never reads a stale table.
 The exchange belongs to a later slice of the port.
 """
 
@@ -98,6 +104,7 @@ CAUSE_MIRROR_REBUILD = "mirror_rebuild"
 CAUSE_STATIC_CHANGE = "static_change"
 CAUSE_FANOUT_REBUILD = "fanout_rebuild"
 CAUSE_STREAM_REBUILD = "stream_rebuild"
+CAUSE_REPLICA_CHANGE = "replica_change"
 
 
 def plan_windows(window: int, n_ticks: int) -> Tuple[int, int, int]:
@@ -122,11 +129,19 @@ def _normalize(out):
 def _mirror_of(arena, wide: bool) -> Tuple[torch.Tensor, ...]:
     """The directory mirror a window resolves against (built if stale):
     the wide mirror for wide keys and for an arena holding wide keys,
-    else the dense or the sorted one (``resolve_rows_on_device``)."""
+    else the dense or the sorted one (``resolve_rows_on_device``).  The
+    replica mirror changes only with a promote, a demote or a row move,
+    which ``_replica_sig`` and the generation catch."""
     if wide or arena.has_wide_keys:
         return arena.device_index_wide()
     dense = arena.dense_index()
     return (dense,) if dense is not None else arena.device_index()
+
+
+def _replica_sig(arena) -> Tuple[int, int]:
+    """What a window depends on of an arena's replica groups: its promote
+    and demote counts (each change also bumps the generation)."""
+    return arena.replica_promotions, arena.replica_demotions
 
 
 class _Source:
@@ -178,7 +193,8 @@ class _Source:
         snapshots come after; the ``prepare()`` contract)."""
         device = self.engine.device
         if not self.stacked_rows:
-            rows = self.arena.resolve_rows(self.keys)
+            rows = self.arena.spread_rows_host(
+                self.arena.resolve_rows(self.keys))
             self.rows = torch.from_numpy(rows.astype(np.int32)).to(device)
             self.mask = ones_mask(len(self.keys), device)
             return
@@ -264,6 +280,8 @@ class FusedTickProgram:
         self._built = False
         self._generations: Dict[str, int] = {}
         self._epochs: Dict[str, int] = {}
+        # (promotions, demotions) of each touched arena at the build
+        self._replica_sigs: Dict[str, Tuple[int, int]] = {}
         self._touched: List[str] = []
         # (arena, wide keys) pairs whose directory mirror the window
         # resolves against, and the mirror tensors it was built with
@@ -517,6 +535,7 @@ class FusedTickProgram:
         if name not in self._generations:
             self._generations[name] = arena.generation
             self._epochs[name] = arena.eviction_epoch
+            self._replica_sigs[name] = _replica_sig(arena)
             self._touched.append(name)
 
     def _discover_state(self, type_name: str) -> Dict[str, torch.Tensor]:
@@ -582,6 +601,9 @@ class FusedTickProgram:
         engine = self.engine
         if not self._built:
             return CAUSE_NEW_WINDOW
+        if any(_replica_sig(engine.arena_for(n)) != sig
+               for n, sig in self._replica_sigs.items()):
+            return CAUSE_REPLICA_CHANGE
         if any(engine.arena_for(n).generation != g
                for n, g in self._generations.items()):
             return CAUSE_GENERATION_REPACK
@@ -675,7 +697,7 @@ class FusedTickProgram:
         # (and of the accumulators) — finds the destination arenas,
         # builds their directory mirrors, and on the card launches every
         # kernel once before capture
-        self._generations, self._epochs = {}, {}
+        self._generations, self._epochs, self._replica_sigs = {}, {}, {}
         self._touched, self._resolved = [], []
         self._fanout_regs = dict(engine._fanouts)
         self._fanout_versions, self._key_cols = {}, {}

@@ -1188,3 +1188,122 @@ def test_fused_chat_window_on_card_matches_unfused(cuda_device):
         assert gpu.attribution.per_key_totals(name) == \
             cpu.attribution.per_key_totals(name), name
     assert gpu.ledger.fetch_counts().sum() == cpu.ledger.fetch_counts().sum()
+
+
+# -- K18 and the hot-grain replicas (the routing sample) ----------------------
+
+@pytest.mark.parametrize("n_groups", [1, 3, 9])
+def test_spread_replicas_matches_plain(cuda_device, n_groups):
+    """K18 against its plain version: G groups of k = 2..8 rows (9 groups
+    pad the mirror to 16, so the padding is searched), 300,000 lanes aimed
+    at primaries, other rows and -1; the lane hash wraps uint32."""
+    from orleans_tpu_torch.kernels.replicas import (
+        spread_replicas,
+        spread_replicas_plain,
+    )
+
+    rng = np.random.default_rng(n_groups)
+    g = 1 << max(0, n_groups - 1).bit_length()
+    rows_all = rng.permutation(1 << 20)[:n_groups * 8].astype(np.int32)
+    prim = np.full(g, KEY_SENTINEL, np.int32)
+    counts = np.ones(g, np.int32)
+    table = np.full((g, 8), -1, np.int32)
+    order = np.argsort(rows_all[:n_groups])
+    for i, j in enumerate(order):
+        k = 2 + j % 7
+        prim[i] = rows_all[j]
+        counts[i] = k
+        table[i, 0] = rows_all[j]
+        table[i, 1:k] = rows_all[n_groups + 7 * j:n_groups + 7 * j + k - 1]
+    m = 300_000
+    rows = rng.integers(-1, 1 << 20, m).astype(np.int32)
+    aim = rng.random(m) < 0.5
+    rows[aim] = prim[rng.integers(0, n_groups, aim.sum())]
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (prim, counts, table, rows)]
+    got = spread_replicas(*args)
+    want = spread_replicas_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int((got != args[3]).sum()) > 0
+
+
+def _routing_engine(device, fused: bool):
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples import routing
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    eng = TensorEngine(device=device, config=TensorEngineConfig(
+        auto_fusion_ticks=8 if fused else 0))
+    sources = np.arange(5000, dtype=np.int64)
+    sinks = routing.sink_keys(32)
+    eng.arena_for("RouteSource").reserve(5000)
+    eng.arena_for("RouteSink").reserve(32)
+    eng.arena_for("RouteSource").resolve_rows(sources)
+    eng.arena_for("RouteSink").resolve_rows(sinks)
+    return eng, sources, sinks
+
+
+def _hot_sink_run(device, fused: bool):
+    """5,000 sources all sending to one of 32 sinks for 24 ticks, the sink
+    promoted to 8 rows before tick 8, demoted before tick 18 and promoted
+    to 2 rows before tick 20; the fold checked against
+    ``expected_sink_state``.  Returns the engine."""
+    from orleans_tpu_torch.samples import routing
+
+    eng, sources, sinks = _routing_engine(device, fused)
+    hot = int(sinks[0])
+    dst = torch.full((5000,), hot, dtype=torch.int32, device=device)
+    values = torch.from_numpy(np.random.default_rng(1).integers(
+        1, 8, 5000).astype(np.float32)).to(device)
+    inj = eng.make_injector("RouteSource", "send", sources)
+    for t in range(24):
+        if t == 8:
+            assert eng.replicate_key("RouteSink", hot, 8) == 8
+        if t == 18:
+            assert eng.demote_key("RouteSink", hot) == 7
+        if t == 20:
+            assert eng.replicate_key("RouteSink", hot, 2) == 2
+        inj.inject({"dst": dst, "v": values, "tick": np.int32(t)})
+        eng.run_tick()
+    import asyncio
+    asyncio.run(eng.flush())
+    want_total, want_recv = routing.expected_sink_state(
+        sources, np.full(5000, hot), values.cpu().numpy(), sinks, 24)
+    arena = eng.arena_for("RouteSink")
+    got = arena.read_row(hot)
+    assert int(got["received"]) == want_recv[0]
+    assert abs(float(got["total"]) - want_total[0]) <= \
+        2 * want_recv[0] * 2.0**-24 * want_total[0]
+    return eng
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_promoted_routing_engine_on_card_matches_cpu(cuda_device, fused):
+    """A hot sink promoted, demoted and promoted again while every source
+    sends to it, unfused and auto-fused (K18 eager and replayed in the
+    graph): the card equals the CPU port row for row, and a promote or
+    demote between windows rebuilds the window (``replica_change``)."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.tensor.fused import CAUSE_REPLICA_CHANGE
+
+    _build.reset_launch_counts()
+    gpu = _hot_sink_run(cuda_device, fused)
+    report = _build.launch_report()["spread_replicas"]
+    cpu = _hot_sink_run("cpu", fused)
+    assert report["eager"] > 0
+    if fused:
+        assert gpu.autofuser.snapshot() == cpu.autofuser.snapshot()
+        assert gpu.autofuser.snapshot()["ticks_fused"] > 0
+        assert report["captured"] > 0 and report["replayed"] > 0
+        rebuilds = sum(p.rebuilds[CAUSE_REPLICA_CHANGE]
+                       for p in gpu.autofuser._programs.values())
+        assert rebuilds >= 1
+    for name in ("RouteSource", "RouteSink"):
+        ga, ca = gpu.arena_for(name), cpu.arena_for(name)
+        np.testing.assert_array_equal(ga._key_of_row, ca._key_of_row)
+        for col in ca.state:
+            np.testing.assert_array_equal(ga.state[col].cpu().numpy(),
+                                          ca.state[col].numpy(), err_msg=col)
+    assert gpu.attribution.per_key_totals("RouteSink") == \
+        cpu.attribution.per_key_totals("RouteSink")

@@ -69,7 +69,11 @@ def test_port_imports_neither_jax_nor_orleans_tpu():
         "orleans_tpu_torch.samples.watchdog",
         "orleans_tpu_torch.kernels.pull",
         "orleans_tpu_torch.tensor.streams_plane",
-        "orleans_tpu_torch.samples.streams"}
+        "orleans_tpu_torch.samples.streams",
+        "orleans_tpu_torch.kernels.replicas",
+        "orleans_tpu_torch.samples.routing",
+        "orleans_tpu_torch.samples.gpstracker",
+        "orleans_tpu_torch.samples.twitter_sentiment"}
     assert expected <= set(report["modules"])
     assert report["leaked"] == []
     # no card here: the default device must refuse, not fall back
@@ -86,3 +90,18 @@ def test_chip_smoke_imports_nothing_of_jax():
         if words[:1] in (["import"], ["from"]):
             assert words[1].split(".")[0] not in ("jax", "orleans_tpu",
                                                   "samples"), line
+
+
+def test_trace_script_imports_nothing_of_jax():
+    """``trace_hot_grain.py`` runs on the card beside the smoke: torch,
+    numpy, the port and the smoke's helpers only."""
+    src = (REPO / "trace_hot_grain.py").read_text()
+    imported = set()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            imported.add(words[1].split(".")[0])
+    assert imported <= {"__future__", "gc", "json", "sys", "types",
+                        "collections", "numpy", "torch", "chip_smoke",
+                        "orleans_tpu_torch"}, imported
+    assert "orleans_tpu_torch" in imported
