@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: Presence, WidePresence, Chirper, the
 grain lifecycle, the timers plane, the streams plane, hot-grain replicas
-(the routing sample), GPSTracker and TwitterSentiment on one NVIDIA
-card.
+(the routing sample), GPSTracker, TwitterSentiment and the durable state
+plane (checkpoints, journal, recovery, warm standby) on one NVIDIA card.
 
 Run from the repository root on a machine with an H100 and the CUDA toolkit:
 
@@ -132,7 +132,30 @@ Phases, each of which fails loudly (exit code other than 0):
    numpy oracle, ``last_score`` one of its tag's last-tick scores on the
    scatter path and its last lane exactly on the grouped path, grouped
    equal to ungrouped.  Every earlier path must count 0 K18 launches.
-11. One JSON line of the kernels, the card line, and last
+11. The durable state plane (``drive_durability_path``), at the shapes of
+   bench.py ``--workload durability`` on one card.  K19 ``pin_columns``,
+   K20 ``gather_columns`` and K21 ``dirty_mask`` against their plain
+   versions bit for bit (K19 on 4,194,304 rows of the Presence arena's
+   columns plus a bool and an ``[n, 3]`` column; K20 on 65,536-row drain
+   chunks and a short chunk padded to a power of two, its copy off the
+   card timed apart; K21 on 4,194,304 rows in both modes, clocks equal to
+   the cutoff among them), each timed beside its bound, its plain version
+   and a library yardstick.  Then: the restore probe (4,000,000 players
+   and 40,000 games through ``run_presence_load_fused``, a full drained
+   into a ``MemorySnapshotStore``, a hard kill, ``recover()`` on a fresh
+   engine, best of two each way, identity and every column equal); the
+   same at 1,000,000 through a ``FileSnapshotStore``; the live cadence at
+   1,000,000 unfused and auto-fused (fulls every 32 ticks, deltas every 8,
+   a 5 ms pause budget, the heartbeat journaled and sealed every 4 ticks,
+   64 ticks traced with ``torch.profiler`` against an engine without the
+   plane, then killed and recovered at the acknowledged horizon); the
+   journal fold (banking, 50,000 accounts, 240 events of 32,768 lanes, no
+   overflow seal, fused replay windows of 64, equal to ``BankOracle`` and
+   conserved); the warm standby at 4,000,000 (``StandbyTailer`` adopting
+   the full while ``AccountGrain.deposit`` traffic over 256 keys runs 17
+   ticks, promote, RTO, the acknowledged prefix exact, the old primary
+   fenced).  Launches counted per arm; no arm may launch K18.
+12. One JSON line of the kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -179,6 +202,11 @@ SPREAD_LANES = 1_048_576
 GPS_DEVICES, GPS_TICKS, GPS_WINDOW = 200_000, 20, 10
 TW_TWEETS, TW_TAGS, TW_TICKS, TW_WINDOW = 100_000, 20_000, 20, 10
 TWG_TWEETS, TWG_TAGS, TWG_TICKS = 50_000, 10_000, 10
+# the durable state plane (bench.py --workload durability, _durability_tier)
+CKPT_ROWS, CKPT_CHUNK = 4_194_304, 65_536      # K19/K21 rows, K20 chunk
+RESTORE_PLAYERS = 4_000_000                      # restore probe, standby
+CADENCE_TICKS = 64
+FOLD_ACCOUNTS, FOLD_EVENTS, FOLD_LANES = 50_000, 240, 32_768
 
 SOURCES = {
     "resolve_dense": ("orleans_tpu_torch/csrc/resolve.cu",
@@ -219,6 +247,12 @@ SOURCES = {
                     "orleans_tpu/tensor/arena.py:43"),
     "spread_replicas": ("orleans_tpu_torch/csrc/replicas.cu",
                         "orleans_tpu/tensor/arena.py:61"),
+    "pin_columns": ("orleans_tpu_torch/csrc/checkpoint.cu",
+                    "orleans_tpu/tensor/checkpoint.py:81"),
+    "gather_columns": ("orleans_tpu_torch/csrc/checkpoint.cu",
+                       "orleans_tpu/tensor/checkpoint.py:90"),
+    "dirty_mask": ("orleans_tpu_torch/csrc/checkpoint.cu",
+                   "orleans_tpu/tensor/checkpoint.py:97"),
 }
 # the kernels each path must launch (launch counts zeroed before it, read
 # after it)
@@ -251,6 +285,9 @@ TWITTER_KERNELS = ("resolve_sorted", "resolve_dense", "seg_sum",
                    "row_scatter", "hist_count", "attr_fold")
 TWITTER_GROUPED_KERNELS = ("seg_pull", "resolve_sorted", "seg_sum",
                            "hist_count", "attr_fold")
+# every durability arm also launches resolve_dense or resolve_sorted
+DURABILITY_KERNELS = ("pin_columns", "gather_columns", "dirty_mask",
+                      "row_scatter")
 ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
                                  "orleans_tpu/tensor/arena.py:34",
                                  "orleans_tpu/tensor/attribution.py:294",
@@ -260,6 +297,8 @@ ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
                                  "orleans_tpu/tensor/arena.py:768"],
                  "hist_count": ["orleans_tpu/tensor/fused.py:384"],
                  "resolve_wide": ["orleans_tpu/tensor/engine.py:248"],
+                 "pin_columns": ["orleans_tpu/tensor/checkpoint.py:1072"],
+                 "dirty_mask": ["orleans_tpu/tensor/checkpoint.py:109"],
                  "seg_pull": ["orleans_tpu/tensor/vector_grain.py:194",
                               "orleans_tpu/tensor/attribution.py:133"],
                  "attr_fold": ["orleans_tpu/tensor/attribution.py:133",
@@ -3821,6 +3860,608 @@ def drive_twitter_path(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the durable state plane
+# ---------------------------------------------------------------------------
+
+def check_checkpoint_kernels(dev, timer, card: str) -> dict:
+    """K19–K21 against their plain versions on the card, bit for bit, each
+    timed beside its bound, its plain version and a library yardstick.
+    K19 on 4,194,304 rows of the Presence arena's columns (three int32
+    state columns and the int32 clock) plus a bool and an ``[n, 3]`` int32
+    column; K20 on drain chunks of 65,536 rows of those four columns and
+    on one short chunk padded to a power of two, its copy off the card
+    timed apart; K21 on 4,194,304 rows in both modes, clocks equal to the
+    cutoff among them."""
+    from orleans_tpu_torch.device import pow2_pad
+    from orleans_tpu_torch.kernels import checkpoint as kck
+
+    rng = np.random.default_rng(1919)
+    n = CKPT_ROWS
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    presence = [t(rng.integers(0, 2**31 - 1, n).astype(np.int32))
+                for _ in range(4)]
+    extra = [t(rng.random(n) < 0.5),
+             t(rng.integers(-2**31, 2**31 - 1, (n, 3)).astype(np.int32))]
+    cols = presence + extra
+    out = [torch.empty_like(c) for c in cols]
+    got = kck.pin_columns(cols, out)
+    require(all(torch.equal(c, g) for c, g in zip(cols, got)),
+            "pin_columns != its source")
+    require(all(torch.equal(a, b) for a, b in zip(
+        kck.pin_columns(cols), kck.pin_columns_plain(cols))),
+        "pin_columns != plain")
+    nbytes = sum(c.numel() * c.element_size() for c in cols)
+    r = dict(bound=bound(2 * nbytes), **measure(
+        timer, lambda: kck.pin_columns(cols, out),
+        lambda: kck.pin_columns_plain(cols, out),
+        lambda: torch._foreach_copy_(out, cols)))
+    r.update(max_abs_err=0,
+             library="torch._foreach_copy_ over the columns (the plain "
+                     "version is the per-column copy_ loop)")
+    results = {"pin_columns": r}
+    print(f"kernel pin_columns: {r['ms']:.4f} ms on the device (copy_ loop "
+          f"{r['plain_ms']:.4f}, _foreach_copy_ {r['library_ms']:.4f}, "
+          f"bound {r['bound'][0]:.4f} by {r['bound'][1]}); {n} rows, "
+          f"{nbytes} bytes in 6 columns; on {card}", flush=True)
+
+    # K20: the drain's chunks of a full live arena (ascending rows)
+    m = CKPT_CHUNK
+    idx = t(np.arange(m, dtype=np.int32) + 7 * m)
+    staging, views = kck.gather_columns(presence, idx)
+    want_s, want_v = kck.gather_columns_plain(presence, idx)
+    require(torch.equal(staging, want_s), "gather_columns != plain")
+    short = rng.integers(0, n, 1000).astype(np.int32)
+    short_d = t(pow2_pad(short, 0))
+    s_short, v_short = kck.gather_columns(cols, short_d)
+    w_short, wv_short = kck.gather_columns_plain(cols, short_d)
+    require(all(torch.equal(a, b) for a, b in zip(v_short, wv_short)),
+            "gather_columns != plain (short chunk)")
+    host = torch.empty(staging.shape, dtype=torch.uint8, pin_memory=True)
+    clamped = idx.clamp(0, n - 1).long()
+
+    def loop():
+        return [c.index_select(0, clamped) for c in presence]
+
+    copy_ms = timer(lambda: host.copy_(staging, non_blocking=True))
+    r = dict(bound=bound(m * 16 * 2 + 4 * m), **measure(
+        timer, lambda: kck.gather_columns(presence, idx),
+        lambda: kck.gather_columns_plain(presence, idx), None))
+    r["loop_ms"] = timer(loop)
+    r["copy_ms"] = copy_ms
+    r.update(max_abs_err=0, library=None,
+             library_note=f"no single PyTorch call: the per-column "
+                          f"index_select loop takes {r['loop_ms']:.4f} ms; "
+                          f"the chunk's one copy off the card into pinned "
+                          f"memory {copy_ms:.4f} ms")
+    results["gather_columns"] = r
+    print(f"kernel gather_columns: {r['ms']:.4f} ms on the device (plain "
+          f"{r['plain_ms']:.4f}, index_select loop {r['loop_ms']:.4f}, "
+          f"bound {r['bound'][0]:.4f} by {r['bound'][1]}); the chunk's copy "
+          f"off the card {copy_ms:.4f} ms; {m} rows x 16 B; a 1000-row "
+          f"chunk padded to 1024 exact; on {card}", flush=True)
+    del staging, views, want_s, want_v, host
+
+    # K21: the delta's dirty mask over the arena
+    counts = rng.integers(0, 5, n).astype(np.int32)
+    pinned = np.where(rng.random(n) < 0.05, counts + 1, counts).astype(
+        np.int32)
+    args = [t(counts), t(pinned), t(rng.integers(0, 64, n).astype(np.int32)),
+            t(rng.integers(0, 64, n).astype(np.int32)), t(rng.random(n) < 0.9)]
+    require(int((torch.maximum(args[2], args[3]) == 32).sum()) > 0,
+            "no clock equals the cutoff")
+    for mode in ("dirty", "touched"):
+        a = list(args) if mode == "dirty" else [None, None] + list(args[2:])
+        for cutoff in (32, 0, -2**31 + 1, 2**31 - 1):
+            require(torch.equal(kck.dirty_mask(*a, cutoff),
+                                kck.dirty_mask_plain(*a, cutoff)),
+                    f"dirty_mask != plain ({mode}, {cutoff})")
+    c, p, cd, ch, lv = args
+
+    def composite():
+        return lv & ((c != p) | torch.ge(torch.maximum(cd, ch), 32))
+
+    r = dict(bound=bound(18 * n), **measure(
+        timer, lambda: kck.dirty_mask(c, p, cd, ch, lv, 32),
+        lambda: kck.dirty_mask_plain(c, p, cd, ch, lv, 32), None))
+    r["composite_ms"] = timer(composite)
+    r["touched_ms"] = timer(lambda: kck.dirty_mask(None, None, cd, ch, lv,
+                                                   32))
+    r["touched_bound_ms"] = bound(10 * n)[0]
+    r.update(max_abs_err=0, library=None,
+             library_note=f"no single PyTorch call: maximum, ge, ne and & "
+                          f"take {r['composite_ms']:.4f} ms; touched mode "
+                          f"{r['touched_ms']:.4f} ms (bound "
+                          f"{r['touched_bound_ms']:.4f})")
+    results["dirty_mask"] = r
+    print(f"kernel dirty_mask: {r['ms']:.4f} ms on the device in dirty mode "
+          f"(plain {r['plain_ms']:.4f}, composite {r['composite_ms']:.4f}, "
+          f"bound {r['bound'][0]:.4f} by {r['bound'][1]}), touched mode "
+          f"{r['touched_ms']:.4f} (bound {r['touched_bound_ms']:.4f}); {n} "
+          f"rows; on {card}", flush=True)
+    return results
+
+
+def _durable_engine(dev, store=None, **cfg):
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples import banking, presence  # noqa: F401
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    return TensorEngine(device=dev, snapshot_store=store,
+                        config=TensorEngineConfig(**cfg))
+
+
+def _host_state(engine, type_names) -> dict:
+    """Every state column, the clocks and the identity of each arena, on
+    the host."""
+    from orleans_tpu_torch.device import fetch_host
+
+    out = {}
+    for t in type_names:
+        a = engine.arena_for(t)
+        out[t] = dict(cols=fetch_host(
+            {**a.state, "__last_use_dev": a.last_use_dev}),
+            key_of_row=a._key_of_row.copy(), generation=a.generation,
+            eviction_epoch=a.eviction_epoch, clock=a.host_clock())
+    return out
+
+
+def _same_state(want: dict, engine, what: str) -> None:
+    got = _host_state(engine, list(want))
+    for t, w in want.items():
+        g = got[t]
+        require(np.array_equal(g["key_of_row"], w["key_of_row"])
+                and g["generation"] == w["generation"]
+                and g["eviction_epoch"] == w["eviction_epoch"],
+                f"{what}: {t} identity differs after recovery")
+        live = w["key_of_row"] >= 0
+        require(np.array_equal(g["clock"][live], w["clock"][live]),
+                f"{what}: {t} host clock differs")
+        for name, col in w["cols"].items():
+            require(np.array_equal(g["cols"][name], col),
+                    f"{what}: {t}.{name} differs after recovery")
+
+
+def _kill() -> None:
+    """The end of a hard kill, once the caller dropped its engines without
+    a flush: collect them and free the card's memory."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def durability_restore(dev, n_players: int, store_factory, what: str,
+                       reps: int) -> dict:
+    """bench.py ``_durability_restore_scale``: Presence through
+    ``run_presence_load_fused`` (6 ticks, window 3), a full checkpoint
+    drained synchronously (best of ``reps``), a hard kill, ``recover()``
+    on fresh engines (best of ``reps``); identity and every state column
+    equal the pre-kill engine."""
+    from orleans_tpu_torch.samples.presence import run_presence_load_fused
+
+    types = ("PresenceGrain", "GameGrain")
+    engine = _durable_engine(dev, store_factory())
+    asyncio.run(run_presence_load_fused(engine, n_players=n_players,
+                                        n_games=n_players // 100,
+                                        n_ticks=6, window=3))
+    snap_s, cp = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        cp = engine.checkpointer.checkpoint_full()
+        snap_s = min(snap_s, time.perf_counter() - t0)
+    want = _host_state(engine, types)
+    del engine
+    _kill()
+    restore_s, stats, engine2 = float("inf"), None, None
+    for _ in range(reps):
+        engine2 = None
+        _kill()
+        engine2 = _durable_engine(dev, store_factory())
+        t0 = time.perf_counter()
+        stats = asyncio.run(engine2.checkpointer.recover())
+        torch.cuda.synchronize()
+        restore_s = min(restore_s, time.perf_counter() - t0)
+    require(stats["recovered"] and stats["restored_rows"] == cp["rows"],
+            f"{what}: recovered {stats}")
+    _same_state(want, engine2, what)
+    out = dict(players=n_players, rows=cp["rows"], bytes=cp["bytes"],
+               snapshot_seconds=snap_s, restore_seconds=restore_s,
+               snapshot_rows_per_sec=cp["rows"] / snap_s,
+               restore_rows_per_sec=stats["restored_rows"] / restore_s,
+               exact=True)
+    del engine2
+    _kill()
+    return out
+
+
+def _device_us(evt) -> float:
+    """Device time of a traced kernel or copy (0 for a host op, whose
+    device total would count its kernels again)."""
+    from torch.autograd import DeviceType
+
+    if evt.device_type != DeviceType.CUDA:
+        return 0.0
+    for attrs in (("self_device_time_total", "device_time_total"),
+                  ("self_cuda_time_total", "cuda_time_total")):
+        if hasattr(evt, attrs[0]):
+            return max(float(getattr(evt, a)) for a in attrs)
+    return 0.0
+
+
+def _traced_device_ms(fn) -> float:
+    """Device time of everything ``fn`` enqueues (kernels and copies), by
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()) / 1e3
+
+
+def durability_cadence(dev, fuse: bool) -> dict:
+    """The live cadence on Presence 1M/10k: fulls every 32 ticks, deltas
+    every 8, a 5 ms pause budget, the heartbeat site journaled and sealed
+    every 4 ticks, 64 ticks through an injector (auto-fused at the default
+    window when ``fuse``), traced against the same ticks on an engine
+    without the plane; then a hard kill and ``recover()``, exact at the
+    acknowledged horizon (``total_score`` within the fan-in bound)."""
+    from orleans_tpu_torch.kernels import checkpoint as kck
+    from orleans_tpu_torch.tensor import checkpoint as ckpt_mod
+    from orleans_tpu_torch.tensor.checkpoint import MemorySnapshotStore
+
+    modes = {"dirty": 0, "touched": 0}
+    dirty_rows = []
+
+    def counted_mask(counts, *args):
+        modes["dirty" if counts is not None else "touched"] += 1
+        mask = kck.dirty_mask(counts, *args)
+        dirty_rows.append(int(mask.sum()))  # per arena, before key churn
+        return mask
+
+    backing = {}
+    # the journal holds the 4 ticks between seals (bench.py's sizing), so
+    # no 1M-lane batch seals by ring overflow
+    cfg = dict(auto_fusion_ticks=16 if fuse else 0,
+               ckpt_full_every_ticks=32, ckpt_delta_every_ticks=8,
+               ckpt_pause_budget_s=0.005, journal_flush_every_ticks=4,
+               journal_ring_lanes=PLAYERS * 5)
+    rng = np.random.default_rng(11)
+    keys = np.arange(PLAYERS, dtype=np.int64)
+    games = rng.integers(0, GAMES, PLAYERS).astype(np.int32)
+    scores = rng.random(PLAYERS, dtype=np.float32)
+    games_d, scores_d = (torch.from_numpy(a).to(dev) for a in (games, scores))
+    ms = {}
+    # count K21's launches by mode (the plane calls it by this name)
+    ckpt_mod.dirty_mask = counted_mask
+    try:
+        for plane in (False, True):
+            eng = _durable_engine(
+                dev, MemorySnapshotStore(backing) if plane else None, **cfg)
+            eng.arena_for("PresenceGrain").reserve(PLAYERS)
+            eng.arena_for("GameGrain").reserve(GAMES)
+            if plane:
+                eng.register_journal("PresenceGrain", "heartbeat")
+            inj = eng.make_injector("PresenceGrain", "heartbeat", keys)
+
+            def ticks():
+                for t in range(CADENCE_TICKS):
+                    inj.inject({"game": games_d, "score": scores_d,
+                                "tick": np.int32(t + 1)})
+                    eng.run_tick()
+
+            t0 = time.perf_counter()
+            ms[plane] = _traced_device_ms(ticks) / CADENCE_TICKS
+            wall = time.perf_counter() - t0
+            if not plane:
+                del eng, inj
+                _kill()
+        asyncio.run(eng.flush())
+    finally:
+        ckpt_mod.dirty_mask = kck.dirty_mask
+    ck = eng.checkpointer
+    acked = ck.journal.sites[("PresenceGrain", "heartbeat")] \
+        .committed_lanes // PLAYERS
+    require(0 < acked <= CADENCE_TICKS, f"{acked} acknowledged ticks")
+    pauses = np.asarray(ck.pauses)
+    out = dict(fused=fuse, device_ms_per_tick=ms[True],
+               device_ms_per_tick_without=ms[False],
+               wall_seconds=wall, fulls=ck.full_snapshots,
+               deltas=ck.delta_snapshots, dirty_rows_per_delta=dirty_rows,
+               segments=ck.journal.segments_committed,
+               ring_overflows=ck.journal.ring_overflows,
+               pause_p50_ms=float(np.percentile(pauses, 50)) * 1e3
+               if len(pauses) else 0.0,
+               pause_p99_ms=float(np.percentile(pauses, 99)) * 1e3
+               if len(pauses) else 0.0,
+               acked_ticks=acked, dirty_mode_masks=modes["dirty"],
+               touched_mode_masks=modes["touched"],
+               windows=eng.autofuser.snapshot()["windows_run"])
+    if not fuse:
+        require(ck.full_snapshots >= 1 and ck.delta_snapshots >= 1,
+                f"cadence: {ck.full_snapshots} fulls, {ck.delta_snapshots} "
+                f"deltas")
+        require(modes["dirty"] > 0, "dirty_mask never ran in dirty mode")
+    else:
+        # the plane runs on unfused ticks only (as in the JAX package):
+        # the windows journal their ingress but seal and cut nothing
+        require(out["windows"] > 0, "the fused cadence arm never fused")
+    del eng, inj, ck
+    _kill()
+    eng2 = _durable_engine(dev, MemorySnapshotStore(backing), **cfg)
+    st = asyncio.run(eng2.checkpointer.recover())
+    require(st["recovered"], f"cadence recover {st}")
+    pa = eng2.arena_for("PresenceGrain")
+    rows, found = pa.lookup_rows(keys)
+    require(found.all(), "a player was not recovered")
+    cols = {k: v.cpu().numpy()[rows] for k, v in pa.state.items()}
+    require(np.array_equal(cols["heartbeats"], np.full(PLAYERS, acked))
+            and np.array_equal(cols["game"], games),
+            f"cadence ({'fused' if fuse else 'unfused'}): players differ "
+            f"at the acknowledged horizon ({acked} ticks)")
+    # an auto-fused window's buffered ticks share one inject tick (as in
+    # the JAX package), so replay runs them as one tick and a SET column
+    # keeps any one of their writers: exact unfused, within the window
+    # fused
+    last = cols["last_heartbeat"]
+    out["last_heartbeat_exact"] = bool(np.all(last == acked))
+    lo = acked - (16 if fuse else 0)
+    require(bool(np.all((last >= lo) & (last <= acked))),
+            f"cadence: last_heartbeat outside [{lo}, {acked}]")
+    ga = eng2.arena_for("GameGrain")
+    grows, gfound = ga.lookup_rows(np.arange(GAMES, dtype=np.int64))
+    require(gfound.all(), "a game was not recovered")
+    want_upd = np.bincount(games, minlength=GAMES) * acked
+    require(np.array_equal(ga.state["updates"].cpu().numpy()[grows],
+                           want_upd), "cadence: game updates differ")
+    want_tot = np.bincount(games, weights=scores.astype(np.float64),
+                           minlength=GAMES) * acked
+    tol = _fan_in_tol(np.tile(scores, acked), np.tile(games, acked), GAMES)
+    got_tot = ga.state["total_score"].cpu().numpy()[grows].astype(np.float64)
+    require(bool(np.all(np.abs(got_tot - want_tot) <= tol)),
+            "cadence: total_score outside the fan-in bound")
+    out["replayed_lanes"] = st["replayed_lanes"]
+    out["recover_fused_windows"] = st["fused_windows"]
+    del eng2, pa, ga
+    _kill()
+    return out
+
+
+def durability_journal_fold(dev) -> dict:
+    """bench.py ``_durability_journal_fold``: banking, 50,000 accounts,
+    240 events of 32,768 lanes, the journal sized so no overflow seal
+    fires, sealed every 8 ticks; a hard kill and recovery with fused
+    windows of 64; every touched account equal to ``BankOracle`` and the
+    balances conserve."""
+    from orleans_tpu_torch.samples import banking
+    from orleans_tpu_torch.tensor.checkpoint import MemorySnapshotStore
+
+    backing = {}
+    cfg = dict(auto_fusion_ticks=0,
+               journal_ring_lanes=FOLD_LANES * (FOLD_EVENTS + 1),
+               journal_flush_every_ticks=8, recover_fused_window=64)
+    eng = _durable_engine(dev, MemorySnapshotStore(backing), **cfg)
+    banking.register_banking_journal(eng)
+    eng.checkpointer.checkpoint_full()
+    events = banking.make_events(FOLD_ACCOUNTS, FOLD_EVENTS,
+                                 lanes=FOLD_LANES, seed=17)
+    run = asyncio.run(banking.run_banking_load(eng, events))
+    j = eng.checkpointer.journal.snapshot()
+    require(j["ring_overflows"] == 0, "the journal ring overflowed")
+    acked = sum(s["committed_lanes"] for s in j["sites"].values()) \
+        // FOLD_LANES
+    require(0 < acked <= FOLD_EVENTS, f"{acked} acknowledged events")
+    oracle = banking.BankOracle(FOLD_ACCOUNTS)
+    for ev in events[:acked]:
+        oracle.apply(ev)
+    del eng
+    _kill()
+    eng2 = _durable_engine(dev, MemorySnapshotStore(backing), **cfg)
+    banking.register_banking_journal(eng2)
+    t0 = time.perf_counter()
+    st = asyncio.run(eng2.checkpointer.recover())
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    touched = np.unique(np.concatenate(
+        [np.concatenate([e["keys"], e.get("dst", np.empty(0, np.int64))])
+         for e in events[:acked]])).astype(np.int64)
+    got = banking.read_accounts(eng2, touched)
+    want = oracle.expect(touched)
+    require(all(np.array_equal(got[k], want[k]) for k in want),
+            "journal fold: accounts differ from the oracle")
+    a2 = eng2.arena_for("AccountGrain")
+    live = a2._key_of_row >= 0
+    require(int(a2.state["balance"].cpu().numpy()[live].astype(
+        np.int64).sum()) == oracle.total(), "journal fold: conservation")
+    out = dict(accounts=FOLD_ACCOUNTS, events=FOLD_EVENTS,
+               acknowledged_events=acked,
+               live_lanes_per_sec=run["lanes"] / run["seconds"],
+               segments=j["segments_committed"],
+               flush_seconds=j["flush_seconds"],
+               replayed_lanes=st["replayed_lanes"],
+               replay_lanes_per_sec=st["replayed_lanes"] / recover_s,
+               recover_seconds=recover_s, fused_windows=st["fused_windows"],
+               fused_lanes=st["fused_lanes"], exact=True)
+    require(st["fused_windows"] > 0, "journal fold: no fused window")
+    del eng2, a2
+    _kill()
+    return out
+
+
+def durability_failover(dev) -> dict:
+    """bench.py ``_durability_failover`` at 4,000,000 players: a standby
+    tails the primary's full of the Presence arena and stages its sealed
+    journal segments while journaled traffic runs (``AccountGrain.deposit``
+    over 256 keys for 17 ticks, in place of the bench's chaos-ledger
+    grain, which is not ported); the primary is killed and the standby
+    promoted: RTO is ``promote()``'s wall time, the acknowledged prefix is
+    exact and the old primary's next commit raises ``FencedError``."""
+    from orleans_tpu_torch.samples.presence import run_presence_load_fused
+    from orleans_tpu_torch.tensor.checkpoint import (
+        FencedError,
+        MemorySnapshotStore,
+        StandbyTailer,
+    )
+
+    backing = {}
+    cfg = dict(auto_fusion_ticks=0, journal_flush_every_ticks=3)
+    primary = _durable_engine(dev, MemorySnapshotStore(backing), **cfg)
+    primary.register_journal("AccountGrain", "deposit")
+    asyncio.run(run_presence_load_fused(primary, n_players=RESTORE_PLAYERS,
+                                        n_games=RESTORE_PLAYERS // 100,
+                                        n_ticks=4, window=2))
+    primary.checkpointer.checkpoint_full()
+    standby = _durable_engine(dev, MemorySnapshotStore(backing), **cfg)
+    standby.register_journal("AccountGrain", "deposit")
+    tailer = StandbyTailer(standby, MemorySnapshotStore(backing))
+    rng = np.random.default_rng(20260807)
+    keys = np.arange(256, dtype=np.int64)
+    amounts_by_tick = []
+    for t in range(17):
+        amounts = rng.integers(1, 100, 256).astype(np.int32)
+        amounts_by_tick.append(amounts)
+        primary.send_batch("AccountGrain", "deposit", keys,
+                           {"amount": amounts})
+        primary.run_tick()
+        if t % 3 == 2:
+            tailer.poll()
+    asyncio.run(primary.flush())
+    require(tailer.adopted_rows > 0, "the standby never adopted the full")
+    acked = primary.checkpointer.journal.sites[
+        ("AccountGrain", "deposit")].committed_lanes // 256
+    require(0 < acked < 17, f"{acked} acknowledged ticks")
+    oracle = np.sum(amounts_by_tick[:acked], axis=0)
+    lag = tailer.lag_ticks()
+    t0 = time.perf_counter()
+    res = asyncio.run(tailer.promote(owner="smoke-standby"))
+    torch.cuda.synchronize()
+    rto = time.perf_counter() - t0
+    arena = standby.arena_for("AccountGrain")
+    rows, found = arena.lookup_rows(keys)
+    require(found.all() and np.array_equal(
+        arena.state["balance"].cpu().numpy()[rows].astype(np.int64),
+        oracle), "failover: the acknowledged prefix differs")
+    try:
+        primary.checkpointer.checkpoint_full()
+        fenced = False
+    except FencedError:
+        fenced = True
+    require(fenced and primary.checkpointer.fenced,
+            "the old primary committed after the promotion")
+    out = dict(players=RESTORE_PLAYERS, rto_s=rto,
+               promote_seconds=res["seconds"], acked_ticks=acked,
+               adopted_rows=res["adopted_rows"],
+               replayed_lanes=res["replayed_lanes"],
+               lag_ticks_before_promote=lag, fenced=fenced)
+    del primary, standby, tailer, arena
+    _kill()
+    return out
+
+
+def drive_durability_path(dev, card: str, timer) -> dict:
+    """Phase 11: K19–K21 against their plain versions; the restore probe
+    at 4,000,000 players; the file store at 1,000,000; the live cadence
+    unfused and fused at 1,000,000; the journal fold at 50,000 accounts
+    and 240 x 32,768 lanes; the warm standby at 4,000,000.  Launch counts
+    zeroed before each arm and read after it."""
+    import tempfile
+    from pathlib import Path
+
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.tensor.checkpoint import (
+        FileSnapshotStore,
+        MemorySnapshotStore,
+    )
+
+    out = {"counts": {}, "report": {}}
+    out["kernels"] = check_checkpoint_kernels(dev, timer, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    arms = {}
+
+    def arm(name, fn, kernels):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        arms[name] = fn()
+        arms[name]["arm_seconds"] = time.perf_counter() - t0
+        out["counts"][name] = _build.launch_counts()
+        out["report"][name] = _build.launch_report()
+        require_launched(out["counts"][name], name, kernels)
+        require(out["counts"][name]["resolve_dense"]
+                + out["counts"][name]["resolve_sorted"] > 0,
+                f"no resolve kernel launched on the {name} path")
+
+    backing = {}
+    arm("durability_restore", lambda: durability_restore(
+        dev, RESTORE_PLAYERS, lambda: MemorySnapshotStore(backing),
+        "restore probe", 2), ("pin_columns", "gather_columns", "row_scatter"))
+    backing.clear()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        arm("durability_file", lambda: durability_restore(
+            dev, PLAYERS, lambda: FileSnapshotStore(root), "file store", 1),
+            ("pin_columns", "gather_columns", "row_scatter"))
+    arm("durability_cadence_unfused", lambda: durability_cadence(dev, False),
+        ("pin_columns", "gather_columns", "dirty_mask", "row_scatter"))
+    arm("durability_cadence_fused", lambda: durability_cadence(dev, True),
+        ("pin_columns", "row_scatter", "seg_sum"))
+    arm("durability_journal_fold", lambda: durability_journal_fold(dev),
+        ("pin_columns", "row_scatter", "seg_sum"))
+    arm("durability_failover", lambda: durability_failover(dev),
+        ("pin_columns", "gather_columns", "row_scatter"))
+    union = {}
+    for c in out["counts"].values():
+        for k, v in c.items():
+            union[k] = union.get(k, 0) + v
+    require_launched(union, "durability", DURABILITY_KERNELS)
+    out["arms"] = arms
+    r, f = arms["durability_restore"], arms["durability_file"]
+    print(f"restore probe: {r['rows']} rows ({r['bytes']} bytes) "
+          f"snapshot {r['snapshot_seconds']:.3f} s "
+          f"({r['snapshot_rows_per_sec']:.0f} rows/s), restore "
+          f"{r['restore_seconds']:.3f} s ({r['restore_rows_per_sec']:.0f} "
+          f"rows/s), best of 2, exact; file store at {f['players']}: "
+          f"snapshot {f['snapshot_seconds']:.3f} s, restore "
+          f"{f['restore_seconds']:.3f} s, exact; on {card}", flush=True)
+    for name in ("durability_cadence_unfused", "durability_cadence_fused"):
+        c = arms[name]
+        print(f"cadence {'fused' if c['fused'] else 'unfused'}: "
+              f"{CADENCE_TICKS} ticks, {c['fulls']} fulls, {c['deltas']} "
+              f"deltas ({c['dirty_rows_per_delta']} dirty rows), "
+              f"{c['segments']} segments, pauses p50 "
+              f"{c['pause_p50_ms']:.3f} ms p99 {c['pause_p99_ms']:.3f} ms, "
+              f"device {c['device_ms_per_tick']:.4f} ms a tick with the "
+              f"plane and {c['device_ms_per_tick_without']:.4f} without "
+              f"(traced); K21 {c['dirty_mode_masks']} dirty-mode, "
+              f"{c['touched_mode_masks']} touched-mode; killed and "
+              f"recovered at {c['acked_ticks']} acknowledged ticks "
+              f"(last_heartbeat exact: {c['last_heartbeat_exact']}) "
+              f"({c['replayed_lanes']} lanes replayed, "
+              f"{c['recover_fused_windows']} fused windows); on {card}",
+              flush=True)
+    j = arms["durability_journal_fold"]
+    print(f"journal fold: {j['accounts']} accounts, {j['events']} events of "
+          f"{FOLD_LANES} lanes, {j['acknowledged_events']} acknowledged; "
+          f"append {j['live_lanes_per_sec']:.0f} lanes/s live, replay "
+          f"{j['replay_lanes_per_sec']:.0f} lanes/s ({j['replayed_lanes']} "
+          f"lanes in {j['recover_seconds']:.3f} s, {j['fused_windows']} "
+          f"fused windows), exact, conserved; on {card}", flush=True)
+    fo = arms["durability_failover"]
+    print(f"warm standby at {fo['players']} players: RTO (promote) "
+          f"{fo['rto_s']:.4f} s, {fo['adopted_rows']} rows adopted while "
+          f"tailing, {fo['replayed_lanes']} lanes replayed, acknowledged "
+          f"prefix ({fo['acked_ticks']} ticks) exact, old primary fenced; "
+          f"on {card}", flush=True)
+    print("durability arms: " + json.dumps(arms), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -3874,11 +4515,15 @@ def main() -> int:
     gps = drive_gps_path(dev, card)
     twitter = drive_twitter_path(dev, card)
     t11 = time.perf_counter()
+    durability = drive_durability_path(dev, card, timer)
+    results.update(durability["kernels"])
+    t12 = time.perf_counter()
     print(f"phase seconds: kernels {t1 - t0:.1f}, unfused {t2 - t1:.1f}, "
           f"fused {t3 - t2:.1f}, wide {t4 - t3:.1f}, chirper "
           f"{t5 - t4:.1f}, collection {t6 - t5:.1f}, timers {t7 - t6:.1f}, "
           f"composition {t8 - t7:.1f}, streams {t9 - t8:.1f}, hot grain "
-          f"{t10 - t9:.1f}, gps and twitter {t11 - t10:.1f}", flush=True)
+          f"{t10 - t9:.1f}, gps and twitter {t11 - t10:.1f}, durability "
+          f"{t12 - t11:.1f}", flush=True)
     plane = runs["plane_ms"]
     fused_added = (fused["window_device_ms"]
                    - fused["window_off_device_ms"]) / 16
@@ -3905,12 +4550,17 @@ def main() -> int:
     for path, c in paths.items():
         require(c.get("spread_replicas", 0) == 0,
                 f"spread_replicas launched on the {path} path")
-    paths.update({**hot["counts"], **gps["counts"], **twitter["counts"]})
+    # durability arms: no replica group anywhere either
+    for path, c in durability["counts"].items():
+        require(c.get("spread_replicas", 0) == 0,
+                f"spread_replicas launched on the {path} path")
+    paths.update({**hot["counts"], **gps["counts"], **twitter["counts"],
+                  **durability["counts"]})
     reports = {"presence_fused": fused["report"], **wide_out["report"],
                **chirper_out["report"], "collection": collection["report"],
                "timers": timers["report"], "composition": composed["report"],
                **streams["report"], **hot["report"], **gps["report"],
-               **twitter["report"]}
+               **twitter["report"], **durability["report"]}
     per_replay = {"presence_fused": fused["per_replay"],
                   "wide_fused": wide_out["fused"]["per_replay"],
                   "chirper_fused": chirper_out["fused"]["per_replay"],

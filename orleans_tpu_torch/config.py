@@ -67,6 +67,47 @@ class TensorEngineConfig:
     # tick jump beyond which advance_to rebuilds the wheel from the live
     # slot mirrors (O(armed)) instead of stepping tick by tick
     timers_catchup_jump: int = 4096
+    # arm/cancel rows the timers' delta op log may hold between checkpoint
+    # cuts; overflow promotes the next timers export to a full
+    timers_ops_cap: int = 1 << 18
+    # ---- durable state plane (tensor/checkpoint.py) ----
+    # full-arena columnar checkpoint cadence (ticks; 0 = explicit only): a
+    # consistent cut pinned at a tick boundary (K19), then drained
+    # device→host in chunks between ticks.  Engaged only when a
+    # SnapshotStore is attached.
+    ckpt_full_every_ticks: int = 0
+    # incremental deltas between fulls (ticks; 0 = none): only rows whose
+    # traffic counts or use clocks moved since the last committed cut
+    # (K21) re-checkpoint; a generation change promotes the next delta to
+    # a full
+    ckpt_delta_every_ticks: int = 0
+    # rows per drain chunk: one K20 gather and one device→host copy each
+    ckpt_chunk_rows: int = 65536
+    # per-tick snapshot-drain pause budget (seconds); <= 0 drains the
+    # whole pinned snapshot in one slice (the synchronous baseline)
+    ckpt_pause_budget_s: float = 0.005
+    # journal capacity per journaled (type, method) site (lanes, pow2-
+    # rounded): a batch that would overflow it seals the open segment
+    # first (counted as a ring overflow)
+    journal_ring_lanes: int = 65536
+    # journal segment seal cadence (ticks; 0 = seal only at checkpoints,
+    # ring overflow or an explicit flush).  A seal is the durability
+    # acknowledgement point: lanes past the last sealed segment are the
+    # loss window of a hard kill.
+    journal_flush_every_ticks: int = 0
+    # recover from the snapshot store at silo startup (read by the host
+    # integration; ``CheckpointPlane.recover`` is the entry point)
+    durable_recovery: bool = True
+    # journal tail fold-replay window (ticks): runs of consecutive
+    # journaled ticks with one per-site signature replay as one stacked
+    # fused window; <= 1 replays tick by tick
+    recover_fused_window: int = 64
+    # re-anchor after recover(): "sync" writes a fresh full inside it,
+    # "defer" leaves the old recovery point for the cadence to replace
+    recover_reanchor: str = "defer"
+    # periodic VectorStore write-back of every live row (ticks; 0 = only
+    # explicit ``checkpoint()``)
+    checkpoint_every_ticks: int = 0
     # device streams plane (tensor/streams_plane.py): registered
     # stream-subscription routes expand on the device — pull-mode (one
     # payload gather per edge + the row-range reductions of K16) when the

@@ -44,8 +44,19 @@ spreads each lane aimed at a primary over the group by lane hash (K18 on
 the device, ``spread_rows_host`` on the host, against one mirror), so
 one hot row's same-address updates split over k rows; reads fold the
 group (sum: Σ − (k − 1)·init; max, min), and ``demote_replicas`` writes
-the fold back to the primary and frees the secondaries.  Migration,
-resharding and the checkpoint layout belong to later slices of the port.
+the fold back to the primary and frees the secondaries.
+
+The durable state plane (``tensor/checkpoint.py``) reads and writes the
+arena's layout: ``export_layout`` copies a cut's identity metadata (the
+key→row map, the bump pointer, generation, eviction epoch, the host use
+clock, the replica groups), and ``adopt_layout`` / ``adopt_columns`` /
+``adopt_delta`` / ``scatter_restore`` land a recovery point exactly, the
+format the JAX package writes.  Adoption replaces the state tensors or the
+row map while it may restore the recorded generation, so it bumps
+``restore_epoch``, the signal a fused window rebuilds on (cause
+``restore``).  ``checkpoint`` / ``restore_from_store`` are the per-grain
+``VectorStore`` write of every live row and its reload.  Migration and
+resharding belong to the multi-shard slice of the port.
 """
 
 from __future__ import annotations
@@ -67,7 +78,13 @@ class ArenaFullError(RuntimeError):
     pass
 
 
-_NP_DTYPE = {torch.int32: np.int32, torch.float32: np.float32}
+_RESHARD = ("belongs to the multi-shard slice of the port (resharding and "
+            "migration pins; ROADMAP queue A, item 7)")
+
+
+def np_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype (the store's arrays)."""
+    return torch.empty((), dtype=dtype).numpy().dtype
 
 
 # -- wide (64-bit) keys ------------------------------------------------------
@@ -180,6 +197,9 @@ class GrainArena:
         # cached until a promote, a demote or a row move stales it
         self._dev_replicas: Optional[Tuple[torch.Tensor, ...]] = None
         self._dev_replicas_stale = True
+        # bumped whenever a recovery point's adoption replaces the state
+        # tensors or the row map (the generation may come back equal)
+        self.restore_epoch = 0
 
     def _settle_owner_chain(self) -> None:
         """Rows are about to move (growth): settle the owning engine's
@@ -443,7 +463,7 @@ class GrainArena:
             vals = np.stack([np.asarray(stored[int(k)][name]) for k in found])
             col = self.state[name]
             row_scatter(col, dst, host_upload(
-                vals.astype(_NP_DTYPE[col.dtype]), self.device), "set")
+                vals.astype(np_dtype(col.dtype)), self.device), "set")
         self.restored_count += len(found)
 
     # -- growth -------------------------------------------------------------
@@ -787,7 +807,7 @@ class GrainArena:
             elif f.fold == "min":
                 out[name] = vals.min(axis=0)
             else:
-                dtype = _NP_DTYPE[self.state[name].dtype]
+                dtype = np_dtype(self.state[name].dtype)
                 init = np.asarray(f.init, dtype=dtype)
                 out[name] = (vals.sum(axis=0, dtype=vals.dtype)
                              - np.asarray(k - 1, dtype=dtype) * init
@@ -815,7 +835,7 @@ class GrainArena:
         dst = host_upload(np.array([prow], dtype=np.int32), self.device)
         for name, f in self.info.state_fields.items():
             col = self.state[name]
-            val = np.asarray(merged[name], dtype=_NP_DTYPE[col.dtype])
+            val = np.asarray(merged[name], dtype=np_dtype(col.dtype))
             row_scatter(col, dst, host_upload(
                 val.reshape((1, *f.shape)), self.device), "set")
         idx = host_upload(rws.astype(np.int32), self.device)
@@ -837,6 +857,236 @@ class GrainArena:
         self.generation += 1
         self.eviction_epoch += 1
         return len(sec)
+
+    # -- checkpoint (tick-consistent full-arena write) -----------------------
+
+    def checkpoint(self) -> int:
+        """Write every live row through the store: with the engine
+        quiesced, a tick-consistent snapshot of the whole arena at
+        per-grain record granularity.  A replicated key's record is its
+        fold, so a restore into an unreplicated arena is exact."""
+        if self.store is None:
+            raise RuntimeError(f"arena {self.info.name} has no store")
+        live_rows = np.nonzero(self._key_of_row >= 0)[0]
+        if self._replicas:
+            live_rows = live_rows[~self._replica_secondary[live_rows]]
+        if len(live_rows) == 0:
+            return 0
+        keys = self._key_of_row[live_rows]
+        cols = self.rows_to_host(live_rows)
+        if self._replicas:
+            pos = {int(kk): i for i, kk in enumerate(keys.tolist())}
+            for kk, rws in self._replicas.items():
+                folded = self._fold_replica_host(rws)
+                i = pos[int(kk)]
+                for name in cols:
+                    cols[name][i] = folded[name]
+        self.store.write_many_columnar(self.info.name, keys.tolist(), cols)
+        return len(live_rows)
+
+    def restore_from_store(self) -> int:
+        """Activate (and load) every key the store holds for this type —
+        resume after a process restart."""
+        if self.store is None:
+            raise RuntimeError(f"arena {self.info.name} has no store")
+        keys = self.store.list_keys(self.info.name)
+        fresh = keys[~self.lookup_rows(keys)[1]] if len(keys) else keys
+        if len(fresh):
+            self._activate_keys(fresh)
+        return len(fresh)
+
+    # -- durable state plane (tensor/checkpoint.py) --------------------------
+
+    def host_clock(self) -> np.ndarray:
+        """The host use clock as the JAX arena keeps it: a fused window's
+        O(1) stamp counts for every row live now (the JAX window stamps
+        each live row; a row activated since holds a later stamp)."""
+        if not self.fused_use_tick:
+            return self.last_use_tick.copy()
+        return np.where(self._key_of_row >= 0,
+                        np.maximum(self.last_use_tick, self.fused_use_tick),
+                        self.last_use_tick)
+
+    def export_layout(self) -> Dict[str, Any]:
+        """Host-side identity metadata of a consistent cut: the key→row
+        map, the bump pointer, generation, eviction epoch, the host use
+        clock and the replica groups (primary first) — the JAX package's
+        layout at one shard block.  Copies, so the live arena can keep
+        changing while the snapshot drains."""
+        return {
+            "capacity": int(self.capacity),
+            "n_shards": 1,
+            "shard_capacity": int(self.capacity),
+            "generation": int(self.generation),
+            "eviction_epoch": int(self.eviction_epoch),
+            "live_count": int(self.live_count),
+            "has_wide_keys": bool(self.has_wide_keys),
+            "key_of_row": self._key_of_row.copy(),
+            "last_use_tick": self.host_clock(),
+            "shard_next": self._shard_next.copy(),
+            "shard_override": {},
+            "replicas": {int(k): [int(x) for x in r]
+                         for k, r in self._replicas.items()},
+        }
+
+    def _rebuild_free_lists(self) -> None:
+        """The free list from first principles: every slot below the bump
+        pointer not holding a key, ascending (LIFO order only biases reuse
+        toward recently freed slots; it is not identity)."""
+        blk = np.arange(int(self._shard_next[0]), dtype=np.int64)
+        self._free = [blk[self._key_of_row[blk] < 0]]
+
+    def _layout_changed(self) -> None:
+        self._dirty = True
+        self._dev_index_stale = True
+        self._dev_dense_stale = True
+        self._dev_wide_stale = True
+        self._dev_replicas_stale = True
+        self.restore_epoch += 1
+
+    def adopt_layout(self, meta: Dict[str, Any], key_of_row: np.ndarray,
+                     last_use_tick: np.ndarray, shard_next: np.ndarray, *,
+                     init_columns: bool = True,
+                     replace: bool = False) -> None:
+        """Restore a FULL snapshot's layout onto this (empty, freshly
+        restarted) arena: exact key→row map, bump pointer, free list,
+        generation, eviction epoch and replica groups.  Columns
+        re-initialise to field inits unless ``init_columns=False`` (the
+        fast restore follows with ``adopt_columns``).  ``replace=True``
+        permits adoption over a non-empty arena (a warm standby re-basing
+        onto a newer full)."""
+        self._settle_owner_chain()
+        if self.live_count and not replace:
+            raise RuntimeError(
+                f"arena {self.info.name}: adopt_layout needs an empty "
+                f"arena (restore happens before traffic)")
+        if int(meta["n_shards"]) != 1 or meta.get("shard_override"):
+            raise NotImplementedError(
+                f"arena {self.info.name}: a recovery point of "
+                f"{meta['n_shards']} shard blocks or with migration pins "
+                f"{_RESHARD}")
+        self.capacity = int(meta["capacity"])
+        self._key_of_row = np.asarray(key_of_row, dtype=np.int64).copy()
+        self._shard_next = np.asarray(shard_next, dtype=np.int64).copy()
+        self.last_use_tick = np.asarray(last_use_tick, dtype=np.int64).copy()
+        self.fused_use_tick = 0
+        self._rebuild_free_lists()
+        self._replicas = {int(k): np.asarray(v, dtype=np.int64)
+                          for k, v in meta.get("replicas", {}).items()}
+        self._replica_secondary = np.zeros(self.capacity, dtype=bool)
+        for r in self._replicas.values():
+            self._replica_secondary[r[1:]] = True
+        self._dev_replicas = None
+        # secondaries occupy slots but are not activations
+        self.live_count = int((self._key_of_row >= 0).sum()
+                              - self._replica_secondary.sum())
+        self.generation = int(meta["generation"])
+        self.eviction_epoch = int(meta["eviction_epoch"])
+        self.has_wide_keys = bool(meta.get("has_wide_keys", False))
+        if init_columns:
+            self._init_state_columns(self.capacity)
+            self.last_use_dev = torch.zeros(self.capacity, dtype=torch.int32,
+                                            device=self.device)
+        self._dev_sorted_keys = self._dev_sorted_rows = None
+        self._dev_dense = self._dev_wide = None
+        self._layout_changed()
+
+    def adopt_columns(self, columns: Dict[str, np.ndarray],
+                      last_use_dev: np.ndarray) -> None:
+        """The fast restore's companion of ``adopt_layout(init_columns=
+        False)``: adopt host-assembled full-capacity columns wholesale, one
+        upload per column from pinned memory."""
+        new_state: Dict[str, torch.Tensor] = {}
+        for name, f in self.info.state_fields.items():
+            col = np.asarray(columns[name])
+            want = (self.capacity, *f.shape)
+            if col.shape != want or col.dtype != np_dtype(f.dtype):
+                raise ValueError(
+                    f"arena {self.info.name}: adopt_columns {name} "
+                    f"{col.shape}/{col.dtype} != {want}/{f.dtype}")
+            new_state[name] = host_upload(col, self.device)
+        dev = np.asarray(last_use_dev, np.int32)
+        if dev.shape != (self.capacity,):
+            raise ValueError(
+                f"arena {self.info.name}: adopt_columns last_use_dev "
+                f"{dev.shape} != ({self.capacity},)")
+        self.last_use_dev = host_upload(dev, self.device)
+        self.state = new_state
+        self._layout_changed()
+
+    def adopt_delta(self, meta: Dict[str, Any], rows: np.ndarray,
+                    keys: np.ndarray, live_keys: np.ndarray,
+                    shard_next: np.ndarray,
+                    last_use_tick: Optional[np.ndarray] = None) -> None:
+        """Advance a restored layout by one incremental delta: free keys no
+        longer live at the delta's cut, free the stale slots of keys that
+        moved (evict and reactivate between checkpoints), place the dirty
+        (row, key) set at its recorded rows — legal because deltas never
+        span a generation change.  Freed slots scrub in place to field
+        inits (K3 SET), the free-list invariant every reuse path
+        assumes."""
+        self._settle_owner_chain()
+        if int(meta["generation"]) != self.generation \
+                or int(meta["capacity"]) != self.capacity:
+            raise RuntimeError(
+                f"arena {self.info.name}: delta layout mismatch "
+                f"(generation {meta['generation']} vs {self.generation})"
+                f" — deltas must not span a row move")
+        if meta.get("shard_override"):
+            raise NotImplementedError(
+                f"arena {self.info.name}: migration pins {_RESHARD}")
+        rows = np.asarray(rows, dtype=np.int64)
+        keys = np.asarray(keys, dtype=np.int64)
+        # 1. keys dead at the delta's cut leave (no write-back: the
+        #    snapshot is the storage)
+        cur_live = np.nonzero(self._key_of_row >= 0)[0]
+        dead = cur_live[~np.isin(self._key_of_row[cur_live], live_keys)]
+        # 2. stale slots of keys that moved since the base snapshot
+        lookup, found = self.lookup_rows(keys)
+        moved = found & (lookup.astype(np.int64) != rows)
+        if self._replicas:
+            # a secondary row's key looks up to its PRIMARY row: without
+            # this guard the primary slot would be freed as "stale"
+            moved &= ~self._replica_secondary[rows]
+        stale = lookup[moved].astype(np.int64)
+        freed = np.unique(np.concatenate([dead, stale]))
+        if len(freed):
+            self._key_of_row[freed] = -1
+            self.last_use_tick[freed] = 0
+            idx = host_upload(freed.astype(np.int32), self.device)
+            for name, f in self.info.state_fields.items():
+                row_scatter(self.state[name], idx, f.init, "set")
+            row_scatter(self.last_use_dev, idx, 0, "set")
+        # 3. the dirty set lands at its recorded rows
+        self._key_of_row[rows] = keys
+        if last_use_tick is not None:
+            # the delta records the full host use clock at its cut
+            self.last_use_tick = np.asarray(last_use_tick,
+                                            dtype=np.int64).copy()
+            self.fused_use_tick = 0
+        self._shard_next = np.asarray(shard_next, dtype=np.int64).copy()
+        self._rebuild_free_lists()
+        self.live_count = int((self._key_of_row >= 0).sum()
+                              - self._replica_secondary.sum())
+        self.eviction_epoch = int(meta["eviction_epoch"])
+        self._layout_changed()
+
+    def scatter_restore(self, rows: np.ndarray,
+                        columns: Dict[str, np.ndarray],
+                        last_use_dev: np.ndarray) -> None:
+        """Land restored rows at their exact rows: one K3 SET per column
+        and one for the device use clock, in place."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if len(rows) == 0:
+            return
+        idx = host_upload(rows.astype(np.int32), self.device)
+        for name, f in self.info.state_fields.items():
+            col = self.state[name]
+            vals = np.ascontiguousarray(np.asarray(columns[name]).astype(
+                np_dtype(col.dtype), copy=False))
+            row_scatter(col, idx, host_upload(vals, self.device), "set")
+        row_scatter(self.last_use_dev, idx, host_upload(
+            np.asarray(last_use_dev, np.int32), self.device), "set")
 
     # -- host access --------------------------------------------------------
 

@@ -22,9 +22,12 @@ but ``injector.inject(args)`` per tick, and the engine
    one at a time, so per-tick application order holds.
 
 The latency ledger and the workload-attribution plane accumulate inside
-the windows; a rollback restores both from the chain's pin.  The cluster
-ring and checkpoint cadence that the JAX fuser also consults belong to
-later slices of the port.
+the windows; a rollback restores both from the chain's pin.  A window
+advances the tick clock by whole windows, so the engine's periodic
+write-back cadence (``checkpoint_every_ticks``) is honoured after each
+one — verifying the chain first: a write taken before verification could
+persist a window that later rolls back.  The cluster ring that the JAX
+fuser also consults belongs to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -424,6 +427,12 @@ class AutoFuser:
             self._chain_attr = engine.attribution.snapshot_state()
         prog.run(_per_source(prog, stackeds), _per_source(prog, statics))
         self._unverified.append(window)
+        if engine.checkpoint_due():
+            # verify before a due write: a clean settle makes it an exact
+            # restore point; a rollback replays unfused ticks, which write
+            # at their own boundaries, and this covers any remainder
+            self._settle_chain()
+            engine.maybe_periodic_checkpoint()
         dt = time.perf_counter() - t0
         self.windows_run += 1
         for _ in range(len(window)):

@@ -65,8 +65,16 @@ timers plane (``tensor/timers_plane.py``) harvests the due timers of each
 tick before its rounds (K15) and delivers them as one batched
 ``receive_reminder`` call per type.  As in the JAX package, a tick the
 auto-fuser consumes runs neither: they wait for the next unfused tick.
-The profiler, checkpoints, the cross-shard exchange and the cluster
-router belong to later slices of the port.
+The durable state plane (``tensor/checkpoint.py``) engages when a
+``SnapshotStore`` is attached (``snapshot_store=``): every batch entering
+a journaled (type, method) (``register_journal``) through ``send_batch``
+or an injector appends to the device journal before it can run, and the
+unfused tick ends with the plane's stage — start a due full or delta cut,
+drain one pause-budgeted slice of it, seal the journal on its cadence.
+``checkpoint_every_ticks`` keeps the older per-grain ``VectorStore``
+write-back cadence (``checkpoint``), which the auto-fuser honours between
+windows after verifying its chain.  The profiler, the cross-shard
+exchange and the cluster router belong to later slices of the port.
 
 Every tensor the engine keeps past the call that handed it over — a
 ``send_batch`` slab, a batch spilled past the round cap, a parked
@@ -502,8 +510,10 @@ class TensorEngine:
                  initial_capacity: int = 1024,
                  device: Optional[Any] = None,
                  metrics: Optional[MetricsConfig] = None,
-                 store: Optional[Any] = None) -> None:
+                 store: Optional[Any] = None,
+                 snapshot_store: Optional[Any] = None) -> None:
         from orleans_tpu_torch.tensor.autofuse import AutoFuser
+        from orleans_tpu_torch.tensor.checkpoint import CheckpointPlane
         from orleans_tpu_torch.tensor.timers_plane import TimersPlane
 
         self.device = resolve_device(device)
@@ -535,6 +545,7 @@ class TensorEngine:
         self.queues: Dict[Tuple[str, str], List[PendingBatch]] = \
             defaultdict(list)
         self.tick_number = 0
+        self._last_checkpoint_tick = 0
         self.rounds_run = 0
         self.messages_processed = 0
         self.activation_passes = 0
@@ -570,6 +581,11 @@ class TensorEngine:
         # receive_reminder calls (config.timers_plane gates the harvest
         # only, so armed state survives a toggle)
         self.timers = TimersPlane(self)
+        # the durable state plane: columnar checkpoints pinned at tick
+        # boundaries, the device journal and crash recovery, engaged by a
+        # SnapshotStore; _journal_sites is the ingress hook's O(1) test
+        self.checkpointer = CheckpointPlane(self, snapshot_store)
+        self._journal_sites: set = set()
         # the engine loop (start/stop)
         self._running = False
         self._wake: Optional[asyncio.Event] = None
@@ -666,6 +682,57 @@ class TensorEngine:
             if evicted == 0:
                 return total
 
+    # ================= checkpoints ========================================
+
+    async def checkpoint(self) -> int:
+        """Tick-consistent snapshot through the ``VectorStore``: quiesce,
+        then write every live row of every arena.  Returns rows written."""
+        await self.flush()
+        return sum(a.checkpoint() for a in self.arenas.values())
+
+    def maybe_periodic_checkpoint(self) -> float:
+        """The bounded-loss-window write-back (``checkpoint_every_ticks``):
+        fires once the tick clock has advanced past the cadence since the
+        last write — at unfused tick boundaries and after fused windows,
+        which advance the clock by whole windows.  Returns seconds spent
+        (0.0 when it did not fire)."""
+        if not self.checkpoint_due():
+            return 0.0
+        t_cp = time.perf_counter()
+        for a in self.arenas.values():
+            if a.store is not None:
+                a.checkpoint()
+        self._last_checkpoint_tick = self.tick_number
+        return time.perf_counter() - t_cp
+
+    def checkpoint_due(self) -> bool:
+        """True when the periodic write-back cadence has elapsed (shared
+        with the auto-fuser, which verifies its chain before a due
+        write)."""
+        cadence = self.config.checkpoint_every_ticks
+        return cadence > 0 and \
+            self.tick_number - self._last_checkpoint_tick >= cadence
+
+    def restore(self, type_names: Optional[List[str]] = None) -> int:
+        """Re-activate every stored row (process-restart resume).  With no
+        argument every registered vector-grain type is tried: arenas are
+        created lazily, so a restarted engine's own arena dict is empty."""
+        from orleans_tpu_torch.tensor.vector_grain import all_vector_types
+        names = type_names if type_names is not None \
+            else list(all_vector_types())
+        return sum(self.arena_for(n).restore_from_store() for n in names)
+
+    def register_journal(self, interface, method: str,
+                         emit_key_args: Tuple[str, ...] = ()) -> None:
+        """Mark (interface, method) as a journaled ingress site: every
+        batch entering through ``send_batch`` or an injector appends to the
+        device journal, seals into durable segments and fold-replays after
+        a crash (``tensor/checkpoint.py``).  ``emit_key_args`` names arg
+        leaves holding emit-destination keys of the same grain type (a
+        transfer's ``dst``), which fused fold-replay activates first."""
+        self.checkpointer.register_journal(interface, method,
+                                           emit_key_args=emit_key_args)
+
     # ================= ingress ============================================
 
     @staticmethod
@@ -695,7 +762,11 @@ class TensorEngine:
             batch = PendingBatch(args=args, future=future,
                                  keys_host=np.asarray(keys, dtype=np.int64),
                                  inject_tick=self.tick_number)
-        self.queues[(self._type_name(interface), method)].append(batch)
+        type_name = self._type_name(interface)
+        if (type_name, method) in self._journal_sites:
+            # write-ahead: journal the ingress before it can run
+            self.checkpointer.journal_ingress(type_name, method, batch)
+        self.queues[(type_name, method)].append(batch)
         self._wake_up()
         return future
 
@@ -1056,6 +1127,14 @@ class TensorEngine:
             # round-cap spill: these run next tick, after the caller may
             # have rewritten the tensors they reference
             batches[:] = [_spill_copy(b) for b in batches]
+        t_cp = self.maybe_periodic_checkpoint()
+        if t_cp:
+            stages["checkpoint"] += t_cp
+        # the durable state plane: start or advance a due snapshot under
+        # its pause budget, keep the journal's seal cadence
+        t_ck = self.checkpointer.on_tick()
+        if t_ck:
+            stages["checkpoint"] += t_ck
         dt = time.perf_counter() - t0
         for k, v in stages.items():
             self.stage_seconds[k] += v
@@ -1098,6 +1177,8 @@ class TensorEngine:
             # the streams plane's routes ({} when none is registered)
             "streams": {f"{t}.{m}": r.snapshot()
                         for (t, m), r in self._stream_routes.items()},
+            # checkpoint and journal health, the recovery-point age
+            "durability": self.checkpointer.snapshot(),
         }
 
     def latency_stats(self) -> Dict[str, float]:
@@ -1568,11 +1649,13 @@ class BatchInjector:
         self._rows_host: Optional[np.ndarray] = None  # epoch re-check
         self.generation = -2
         self.epoch = -2
+        self.restore_epoch = -1
         self._refresh()
 
     def _refresh(self) -> None:
         arena = self._arena
         if (self.rows is not None and self.generation == arena.generation
+                and self.restore_epoch == arena.restore_epoch
                 and self.epoch != arena.eviction_epoch):
             # epoch-only staleness: rows were freed somewhere, none moved.
             # If every key still resolves to ITS cached row, the device
@@ -1594,19 +1677,28 @@ class BatchInjector:
         self.rows = torch.from_numpy(rows).to(self.engine.device)
         self.generation = arena.generation
         self.epoch = arena.eviction_epoch
+        self.restore_epoch = arena.restore_epoch
 
     def inject(self, args: Any, want_results: bool = False
                ) -> Optional[asyncio.Future]:
         if self.generation != self._arena.generation \
-                or self.epoch != self._arena.eviction_epoch:
-            self._refresh()  # rows moved (generation) or freed (epoch)
+                or self.epoch != self._arena.eviction_epoch \
+                or self.restore_epoch != self._arena.restore_epoch:
+            # rows moved (generation), freed (epoch) or a recovery point
+            # replaced the row map (restore epoch)
+            self._refresh()
         engine = self.engine
         future = asyncio.get_running_loop().create_future() \
             if want_results else None
-        engine.queues[(self.type_name, self.method)].append(
-            PendingBatch(args=args, rows=self.rows, keys_host=self.keys,
-                         keys_dev=self._keys_dev, future=future,
-                         generation=self.generation, epoch=self.epoch,
-                         inject_tick=engine.tick_number))
+        batch = PendingBatch(args=args, rows=self.rows, keys_host=self.keys,
+                             keys_dev=self._keys_dev, future=future,
+                             generation=self.generation, epoch=self.epoch,
+                             inject_tick=engine.tick_number)
+        if (self.type_name, self.method) in engine._journal_sites:
+            # journaled ingress: the write-ahead append (copies the
+            # device leaves) before the batch can run
+            engine.checkpointer.journal_ingress(self.type_name, self.method,
+                                                batch)
+        engine.queues[(self.type_name, self.method)].append(batch)
         engine._wake_up()
         return future

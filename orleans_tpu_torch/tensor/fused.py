@@ -67,6 +67,14 @@ window (K18, captured with the rest), and a static source's rows take the
 arena's host spread when they resolve.  The graph bakes the replica
 mirror's tensors: a promote or a demote rebuilds the window first (cause
 ``replica_change``), so a replay never reads a stale table.
+
+A recovery point's adoption (``tensor/checkpoint.py``: ``adopt_layout``,
+``adopt_columns``, ``adopt_delta``) replaces an arena's state tensors or
+row map, yet restores the recorded generation and epoch, so those cannot
+tell a window its baked addresses and rows are gone: each adoption bumps
+the arena's ``restore_epoch`` and a window built before it rebuilds first
+(cause ``restore``) — it never replays onto replaced storage.  Journal
+fold-replay runs stacked windows through ``FusedTickProgram.replay``.
 The exchange belongs to a later slice of the port.
 """
 
@@ -105,6 +113,7 @@ CAUSE_STATIC_CHANGE = "static_change"
 CAUSE_FANOUT_REBUILD = "fanout_rebuild"
 CAUSE_STREAM_REBUILD = "stream_rebuild"
 CAUSE_REPLICA_CHANGE = "replica_change"
+CAUSE_RESTORE = "restore"
 
 
 def plan_windows(window: int, n_ticks: int) -> Tuple[int, int, int]:
@@ -280,6 +289,7 @@ class FusedTickProgram:
         self._built = False
         self._generations: Dict[str, int] = {}
         self._epochs: Dict[str, int] = {}
+        self._restore_epochs: Dict[str, int] = {}
         # (promotions, demotions) of each touched arena at the build
         self._replica_sigs: Dict[str, Tuple[int, int]] = {}
         self._touched: List[str] = []
@@ -535,6 +545,7 @@ class FusedTickProgram:
         if name not in self._generations:
             self._generations[name] = arena.generation
             self._epochs[name] = arena.eviction_epoch
+            self._restore_epochs[name] = arena.restore_epoch
             self._replica_sigs[name] = _replica_sig(arena)
             self._touched.append(name)
 
@@ -601,6 +612,9 @@ class FusedTickProgram:
         engine = self.engine
         if not self._built:
             return CAUSE_NEW_WINDOW
+        if any(engine.arena_for(n).restore_epoch != r
+               for n, r in self._restore_epochs.items()):
+            return CAUSE_RESTORE
         if any(_replica_sig(engine.arena_for(n)) != sig
                for n, sig in self._replica_sigs.items()):
             return CAUSE_REPLICA_CHANGE
@@ -698,6 +712,7 @@ class FusedTickProgram:
         # builds their directory mirrors, and on the card launches every
         # kernel once before capture
         self._generations, self._epochs, self._replica_sigs = {}, {}, {}
+        self._restore_epochs = {}
         self._touched, self._resolved = [], []
         self._fanout_regs = dict(engine._fanouts)
         self._fanout_versions, self._key_cols = {}, {}

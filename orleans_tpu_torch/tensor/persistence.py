@@ -1,7 +1,7 @@
 """Vector-grain persistence: the tensor-path storage bridge.
 
-A copy of ``orleans_tpu/tensor/persistence.py``'s ``VectorStore`` and
-``MemoryVectorStore``.  The tensor path moves thousands of rows per
+A copy of ``orleans_tpu/tensor/persistence.py``'s ``VectorStore``,
+``MemoryVectorStore``, ``FileVectorStore`` and ``fsync_write``.  The tensor path moves thousands of rows per
 operation (eviction sweeps, activation floods), so its bridge is a bulk,
 synchronous contract the arena calls from inside a tick: read a batch of
 rows at activation (reference: Catalog.SetupActivationState,
@@ -9,15 +9,50 @@ Catalog.cs:731), write a batch at eviction (WriteStateAsync), with
 per-grain record granularity, so state written by the tensor path is
 readable grain by grain.  The store works on host numpy arrays only.
 
-The file-backed and storage-provider stores belong to the host-integration
-slice of the port.
+``fsync_write`` is the crash-safe file replace every durable write of the
+storage plane rides (``FileVectorStore`` records, the snapshot store's
+blobs and manifest, ``tensor/checkpoint.py``).  The storage-provider
+bridge belongs to the host-integration slice of the port.
 """
 
 from __future__ import annotations
 
+import os
+import re
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
+
+
+def fsync_write(path: str, writer, binary: bool = True) -> None:
+    """Crash-safe file replace: write to a same-directory temp file, fsync
+    the data, atomically rename over the destination, fsync the
+    directory.  A kill at any byte offset leaves either the old file or
+    the new one, never a torn final path.  ``writer`` receives the open
+    temp file object."""
+    d = os.path.dirname(path) or "."
+    tmp = os.path.join(d, f".{os.path.basename(path)}.tmp")
+    try:
+        with open(tmp, "wb" if binary else "w") as f:
+            writer(f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+    # the rename itself must be durable: fsync the containing directory
+    try:
+        dfd = os.open(d, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    except OSError:
+        pass
 
 
 class VectorStore:
@@ -97,3 +132,58 @@ class MemoryVectorStore(VectorStore):
     def list_keys(self, type_name):
         return np.array(sorted(k for t, k in self._store if t == type_name),
                         dtype=np.int64)
+
+
+class FileVectorStore(VectorStore):
+    """One ``.npz`` per row under ``root/<type>/<key>.npz``: the simple
+    durable backend (records survive the process).  Every record write
+    rides ``fsync_write``, so a kill mid-write leaves the previous record
+    intact and never a torn final path."""
+
+    def __init__(self, root: str) -> None:
+        self.root = root
+
+    def _dir(self, type_name: str) -> str:
+        d = os.path.join(self.root, type_name)
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    def read_many(self, type_name, keys):
+        d = self._dir(type_name)
+        out = {}
+        for k in keys:
+            path = os.path.join(d, f"{int(k)}.npz")
+            if os.path.exists(path):
+                with np.load(path) as z:
+                    out[int(k)] = {n: z[n] for n in z.files}
+        return out
+
+    def write_many(self, type_name, keys, rows):
+        d = self._dir(type_name)
+        for k, row in zip(keys, rows):
+            fsync_write(
+                os.path.join(d, f"{int(k)}.npz"),
+                lambda f, row=row: np.savez(
+                    f, **{n: np.asarray(v) for n, v in row.items()}))
+
+    def write_many_columnar(self, type_name, keys, columns):
+        d = self._dir(type_name)
+        for i, k in enumerate(keys):
+            fsync_write(
+                os.path.join(d, f"{int(k)}.npz"),
+                lambda f, i=i: np.savez(
+                    f, **{n: c[i] for n, c in columns.items()}))
+
+    def delete_many(self, type_name, keys):
+        d = self._dir(type_name)
+        for k in keys:
+            try:
+                os.remove(os.path.join(d, f"{int(k)}.npz"))
+            except FileNotFoundError:
+                pass
+
+    def list_keys(self, type_name):
+        d = self._dir(type_name)
+        keys = [int(m.group(1)) for f in os.listdir(d)
+                if (m := re.fullmatch(r"(-?\d+)\.npz", f))]
+        return np.array(sorted(keys), dtype=np.int64)

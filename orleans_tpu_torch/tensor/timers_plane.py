@@ -33,9 +33,15 @@ slot's stamp and the entry dies at harvest, so cancel is O(1) and slot
 reuse never double-fires.  Slots are keyed by grain key, not arena row,
 so evictions and row moves need no timer hook.
 
-Migration (``export_keys``/``adopt_keys``) and the checkpoint ride-along
-(``export_cut``/``restore_entry``/``finish_restore``) belong to later
-slices of the port.
+The checkpoint ride-along (``tensor/checkpoint.py``): every arm and
+cancel made while a snapshot store is attached is logged (``_record``,
+bounded by ``config.timers_ops_cap``); a cut exports either the compact
+live slots at absolute dues (full) or the op log since the previous cut
+(delta), ``restore_entry`` applies a recovered cut to the host mirrors and
+``finish_restore`` retires what was due at or before the cut, rebuilds the
+wheels and uploads the columns once, so journal replay re-fires everything
+due after the cut exactly once.  Migration (``export_keys`` /
+``adopt_keys``) belongs to the multi-shard slice of the port.
 """
 
 from __future__ import annotations
@@ -57,8 +63,10 @@ from orleans_tpu_torch.kernels.timers import (
 METHOD = "receive_reminder"
 _SENT = int(SENTINEL)
 
+OP_ARM = 0
+OP_CANCEL = 1
+
 _MIGRATION = "belongs to the multi-shard slice of the port (migration)"
-_CHECKPOINT = "belongs to the durability slice of the port (checkpoints)"
 
 
 def _pad_vals(vals: np.ndarray, n: int, fill, dtype) -> np.ndarray:
@@ -246,6 +254,16 @@ class TimersPlane:
         self._types: Dict[str, _TypeTimers] = {}
         self._names: List[str] = []
         self._name_ids: Dict[str, int] = {}
+        # the delta op log since the last checkpoint cut: (op, type, keys,
+        # name ids, dues, periods) chunks, rows bounded by
+        # config.timers_ops_cap — overflow promotes the next delta export
+        # to a full
+        self._ops: List[Tuple] = []
+        self._ops_rows = 0
+        self._ops_overflow = False
+        # ops recorded before a store was attached are incomplete: the
+        # first export after attach must be a full
+        self._ops_incomplete = True
         self.fired_total = 0
         self.re_armed_total = 0
         self.cancelled_total = 0
@@ -327,10 +345,14 @@ class TimersPlane:
         dues = np.asarray(due_ticks, np.int64)
         periods = np.broadcast_to(
             np.asarray(period_ticks, np.int64), keys.shape).copy()
+        self._record(OP_ARM, type_name, keys, nids, dues, periods)
         return self._arm_host(type_name, keys, nids, dues, periods)
 
-    def _arm_host(self, type_name: str, keys, nids, dues, periods) -> int:
-        """The arm core: host mirrors, wheel, then one K14 write."""
+    def _arm_host(self, type_name: str, keys, nids, dues, periods,
+                  sync: bool = True) -> int:
+        """The arm core: host mirrors, wheel, then one K14 write
+        (``sync=False`` defers the device write to ``sync_device``: a
+        restore arms many batches, then uploads once)."""
         eng = self.engine()
         tt = self._type(type_name)
         n = len(keys)
@@ -364,7 +386,8 @@ class TimersPlane:
         tt.period_np[slots] = periods
         tt.stamp_np[slots] += 1
         wheel.place(slots, tt.stamp_np[slots], dues)
-        self._write_slots(tt, slots)
+        if sync:
+            self._write_slots(tt, slots)
         return n
 
     def _write_slots(self, tt: _TypeTimers, slots: np.ndarray) -> None:
@@ -396,6 +419,9 @@ class TimersPlane:
         slot = tt.index.pop((int(key), nid), None)
         if slot is None:
             return False
+        self._record(OP_CANCEL, type_name, np.asarray([key], np.int64),
+                     np.asarray([nid], np.int32), np.zeros(1, np.int64),
+                     np.zeros(1, np.int64))
         self._free_slots(tt, np.asarray([slot], np.int64), sync=True)
         self.cancelled_total += 1
         return True
@@ -528,7 +554,7 @@ class TimersPlane:
             tt.wheel.place(later, tt.stamp_np[later], tt.due_np[later])
         return fire, tt.stamp_np[fire]
 
-    # -- later slices ---------------------------------------------------------
+    # -- migration (a later slice) ---------------------------------------------
 
     def export_keys(self, type_name: str, keys: np.ndarray) -> Any:
         raise NotImplementedError(f"timers export_keys {_MIGRATION}")
@@ -536,15 +562,151 @@ class TimersPlane:
     def adopt_keys(self, type_name: str, payload: Dict[str, Any]) -> int:
         raise NotImplementedError(f"timers adopt_keys {_MIGRATION}")
 
-    def export_cut(self, kind: str) -> Any:
-        raise NotImplementedError(f"timers export_cut {_CHECKPOINT}")
+    # -- durability (checkpoint ride-along) ---------------------------------
+
+    def _record(self, op: int, type_name: str, keys, nids, dues,
+                periods) -> None:
+        eng = self.engine()
+        if not eng.checkpointer.enabled or eng.checkpointer._replaying:
+            self._ops_incomplete = True
+            return
+        self._ops.append((op, type_name, np.asarray(keys, np.int64),
+                          np.asarray(nids, np.int32),
+                          np.asarray(dues, np.int64),
+                          np.asarray(periods, np.int64)))
+        self._ops_rows += len(keys)
+        if self._ops_rows > eng.config.timers_ops_cap:
+            self._ops_overflow = True
+
+    def export_cut(self, kind: str
+                   ) -> Optional[Tuple[Dict[str, np.ndarray],
+                                       Dict[str, Any]]]:
+        """Export for the checkpoint cut being pinned: full = the compact
+        live slots with absolute dues (every armed due lies after the cut,
+        so adoption needs no catch-up), delta = the op log since the last
+        cut.  Returns (arrays, meta) for one store blob, or None when
+        there is nothing to persist."""
+        tick = self.engine().tick_number
+        if kind != "full" and (self._ops_overflow or self._ops_incomplete):
+            kind = "full"  # the op log is incomplete or overflowed
+        if kind != "full":
+            ops, self._ops = self._ops, []
+            self._ops_rows = 0
+            if not ops:
+                return None
+            types = sorted({t for _, t, *_ in ops})
+            tix = {t: i for i, t in enumerate(types)}
+            arrays = {
+                "op": np.concatenate(
+                    [np.full(len(o[2]), o[0], np.int8) for o in ops]),
+                "type": np.concatenate(
+                    [np.full(len(o[2]), tix[o[1]], np.int32) for o in ops]),
+                "key": np.concatenate([o[2] for o in ops]),
+                "name": np.concatenate([o[3] for o in ops]),
+                "due": np.concatenate([o[4] for o in ops]),
+                "period": np.concatenate([o[5] for o in ops]),
+            }
+            return arrays, {"kind": "delta", "tick": tick, "types": types,
+                            "names": list(self._names)}
+        self._ops = []
+        self._ops_rows = 0
+        self._ops_overflow = False
+        self._ops_incomplete = False
+        arrays = {}
+        types = []
+        for type_name, tt in sorted(self._types.items()):
+            if tt.armed == 0:
+                continue
+            live = np.flatnonzero(tt.key_np != _SENT)
+            i = len(types)
+            types.append(type_name)
+            arrays[f"{i}:keys"] = tt.key_np[live]
+            arrays[f"{i}:dues"] = tt.due_np[live]
+            arrays[f"{i}:names"] = tt.name_np[live]
+            arrays[f"{i}:periods"] = tt.period_np[live]
+        if not types:
+            return None
+        return arrays, {"kind": "full", "tick": tick, "types": types,
+                        "names": list(self._names)}
 
     def restore_entry(self, arrays: Dict[str, np.ndarray],
                       meta: Dict[str, Any]) -> None:
-        raise NotImplementedError(f"timers restore_entry {_CHECKPOINT}")
+        """Apply one recovered cut to the host mirrors (the device upload
+        and the wheel rebuild happen once, in ``finish_restore``)."""
+        remap = np.asarray([self._intern(n) for n in meta["names"]],
+                           np.int32) if meta["names"] \
+            else np.empty(0, np.int32)
+        if meta["kind"] == "full":
+            self._types.clear()
+            for i, type_name in enumerate(meta["types"]):
+                keys = np.asarray(arrays[f"{i}:keys"], np.int64)
+                self._arm_host(
+                    type_name, keys,
+                    remap[np.asarray(arrays[f"{i}:names"], np.int64)],
+                    np.asarray(arrays[f"{i}:dues"], np.int64),
+                    np.asarray(arrays[f"{i}:periods"], np.int64),
+                    sync=False)
+            return
+        ops = np.asarray(arrays["op"])
+        op_type = np.asarray(arrays["type"])
+        keys = np.asarray(arrays["key"], np.int64)
+        names = remap[np.asarray(arrays["name"], np.int64)] if len(keys) \
+            else np.empty(0, np.int32)
+        dues = np.asarray(arrays["due"], np.int64)
+        periods = np.asarray(arrays["period"], np.int64)
+        # replay runs of one (op, type) in their original order
+        i = 0
+        while i < len(ops):
+            j = i
+            while j < len(ops) and ops[j] == ops[i] \
+                    and op_type[j] == op_type[i]:
+                j += 1
+            type_name = meta["types"][int(op_type[i])]
+            if ops[i] == OP_ARM:
+                self._arm_host(type_name, keys[i:j], names[i:j],
+                               dues[i:j], periods[i:j], sync=False)
+            else:
+                tt = self._types.get(type_name)
+                if tt is not None:
+                    freed = [s for s in (
+                        tt.index.pop((int(k), int(n)), None)
+                        for k, n in zip(keys[i:j], names[i:j]))
+                        if s is not None]
+                    if freed:
+                        self._free_slots(
+                            tt, np.asarray(freed, np.int64), sync=False)
+            i = j
 
     def finish_restore(self, cut_tick: int) -> None:
-        raise NotImplementedError(f"timers finish_restore {_CHECKPOINT}")
+        """The silent catch-up: a slot due at or before the cut had its
+        fire acknowledged before the cut (its effects are in the recovered
+        state or replay from the journal) — periodic timers advance their
+        phase past the cut without firing, one-shots retire.  Then each
+        wheel rebuilds at the cut tick and the columns upload once."""
+        for tt in self._types.values():
+            live = np.flatnonzero(tt.key_np != _SENT)
+            dues = tt.due_np[live]
+            stale = live[dues <= cut_tick]
+            if len(stale):
+                p = tt.period_np[stale]
+                periodic = p > 0
+                adv = stale[periodic]
+                if len(adv):
+                    d, pp = tt.due_np[adv], p[periodic]
+                    tt.due_np[adv] = d + ((cut_tick - d) // pp + 1) * pp
+                dead = stale[~periodic]
+                if len(dead):
+                    for s in dead:
+                        tt.index.pop(
+                            (int(tt.key_np[s]), int(tt.name_np[s])), None)
+                    self._free_slots(tt, dead, sync=False)
+            self._rebuild(tt, cut_tick)
+            tt.sync_device()
+        # the restored state is the baseline the next cut deltas from
+        self._ops = []
+        self._ops_rows = 0
+        self._ops_overflow = False
+        self._ops_incomplete = False
 
     # -- observability ------------------------------------------------------
 

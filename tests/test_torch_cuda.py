@@ -1307,3 +1307,194 @@ def test_promoted_routing_engine_on_card_matches_cpu(cuda_device, fused):
                                           ca.state[col].numpy(), err_msg=col)
     assert gpu.attribution.per_key_totals("RouteSink") == \
         cpu.attribution.per_key_totals("RouteSink")
+
+
+# -- the durable state plane (K19–K21) --------------------------------------
+
+def _ckpt_columns(device, n):
+    rng = np.random.default_rng(n)
+    cols = [rng.integers(-2**31, 2**31 - 1, n).astype(np.int32),
+            rng.standard_normal(n).astype(np.float32),
+            rng.integers(0, 9, (n, 3)).astype(np.int32),
+            rng.random(n) < 0.5,
+            rng.integers(0, 100, n).astype(np.int32)]
+    return [torch.from_numpy(c).to(device) for c in cols]
+
+
+@pytest.mark.parametrize("n", [1, 1001, 1 << 20])
+def test_pin_columns_matches_plain(cuda_device, n):
+    """K19 copies int32, float32, ``[n, 3]`` and bool columns (bodies of
+    16-byte units, 1-byte tails) bit for bit, into new buffers and into
+    odd-offset views of one byte buffer (4- and 1-byte units)."""
+    from orleans_tpu_torch.kernels import checkpoint as kck
+
+    cols = _ckpt_columns(cuda_device, n)
+    got = kck.pin_columns(cols)
+    torch.cuda.synchronize()
+    for c, g in zip(cols, got):
+        assert torch.equal(c, g) and c.data_ptr() != g.data_ptr()
+    flat = torch.zeros(sum(c.numel() * c.element_size() for c in cols) + 9,
+                       dtype=torch.uint8, device=cuda_device)
+    out, off = [], 1  # the bool column first, at an odd offset
+    order = [3, 0, 1, 2, 4]
+    for i in order:
+        c = cols[i]
+        nb = c.numel() * c.element_size()
+        off = -(-off // c.element_size()) * c.element_size()
+        out.append(flat[off:off + nb].view(c.dtype).view(c.shape))
+        off += nb
+    kck.pin_columns([cols[i] for i in order], out)
+    torch.cuda.synchronize()
+    for i, o in zip(order, out):
+        assert torch.equal(cols[i], o)
+
+
+@pytest.mark.parametrize("m", [1, 1000, 65536])
+def test_gather_columns_matches_plain(cuda_device, m):
+    """K20 gathers every column into one packed staging buffer equal to
+    the plain version's byte for byte; pad lanes and rows past the end
+    clip; ``fetch_packed`` brings it over with one copy."""
+    from orleans_tpu_torch.kernels import checkpoint as kck
+
+    n = 200_000
+    cols = _ckpt_columns(cuda_device, n)
+    rng = np.random.default_rng(m)
+    idx = rng.integers(-3, n + 3, m).astype(np.int32)
+    idx_d = torch.from_numpy(idx).to(cuda_device)
+    staging, views = kck.gather_columns(cols, idx_d)
+    want_s, want_v = kck.gather_columns_plain(cols, idx_d)
+    torch.cuda.synchronize()
+    for v, w in zip(views, want_v):
+        assert torch.equal(v, w)
+    host = kck.fetch_packed(staging, cols, m)
+    for h, w in zip(host, want_v):
+        np.testing.assert_array_equal(h, w.cpu().numpy())
+
+
+@pytest.mark.parametrize("mode", ["dirty", "touched"])
+def test_dirty_mask_matches_plain(cuda_device, mode):
+    from orleans_tpu_torch.kernels import checkpoint as kck
+
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+    counts = rng.integers(0, 4, n).astype(np.int32)
+    pinned = np.where(rng.random(n) < 0.1, counts + 1, counts).astype(
+        np.int32)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (
+        counts, pinned, rng.integers(0, 60, n).astype(np.int32),
+        rng.integers(0, 60, n).astype(np.int32), rng.random(n) < 0.8)]
+    if mode == "touched":
+        t[0] = t[1] = None
+    for cutoff in (30, 0, -2**31 + 1, 2**31 - 1):
+        got = kck.dirty_mask(*t, cutoff)
+        want = kck.dirty_mask_plain(*t, cutoff)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def _banking_kill_recover(device):
+    """Banking with a full, cadence deltas and sealed journal segments,
+    killed mid-cadence and recovered (fused fold-replay windows)."""
+    import asyncio
+
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples import banking
+    from orleans_tpu_torch.tensor.checkpoint import MemorySnapshotStore
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+
+    backing = {}
+    cfg = TensorEngineConfig(auto_fusion_ticks=0, ckpt_full_every_ticks=16,
+                             ckpt_delta_every_ticks=8,
+                             journal_flush_every_ticks=3)
+    eng = TensorEngine(device=device, config=cfg,
+                       snapshot_store=MemorySnapshotStore(backing))
+    banking.register_banking_journal(eng)
+    events = banking.make_events(2000, 30, lanes=512, seed=3)
+    for ev in events:
+        banking.send_event(eng, ev)
+        eng.run_tick()
+    acked = sum(s.committed_lanes for s in
+                eng.checkpointer.journal.sites.values()) // 512
+    eng2 = TensorEngine(device=device, config=cfg,
+                        snapshot_store=MemorySnapshotStore(backing))
+    banking.register_banking_journal(eng2)
+    stats = asyncio.run(eng2.checkpointer.recover())
+    oracle = banking.BankOracle(2000)
+    for ev in events[:acked]:
+        oracle.apply(ev)
+    keys = np.unique(np.concatenate(
+        [np.concatenate([e["keys"], e.get("dst", np.empty(0, np.int64))])
+         for e in events[:acked]]))
+    got = banking.read_accounts(eng2, keys)
+    for name, want in oracle.expect(keys).items():
+        np.testing.assert_array_equal(got[name], want, err_msg=name)
+    return eng2, stats
+
+
+def test_banking_kill_recover_on_card_matches_cpu(cuda_device):
+    """The durable state plane on the card (K19 pins and journal copies,
+    K20 chunks, K21 dirty masks, fused fold-replay windows as graphs)
+    recovers the acknowledged prefix exactly, row for row equal to the
+    CPU port."""
+    from orleans_tpu_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    gpu, gst = _banking_kill_recover(cuda_device)
+    counts = _build.launch_counts()
+    cpu, cst = _banking_kill_recover("cpu")
+    assert gst == {**cst, "seconds": gst["seconds"]}
+    assert gst["fused_windows"] > 0 and gpu.checkpointer.restored_rows > 0
+    for name in ("pin_columns", "gather_columns", "dirty_mask"):
+        assert counts[name] > 0, name
+    ga, ca = gpu.arena_for("AccountGrain"), cpu.arena_for("AccountGrain")
+    np.testing.assert_array_equal(ga._key_of_row, ca._key_of_row)
+    for col in ca.state:
+        np.testing.assert_array_equal(ga.state[col].cpu().numpy(),
+                                      ca.state[col].numpy(), err_msg=col)
+
+
+def test_fused_window_rebuilds_after_adoption_on_card(cuda_device):
+    """A captured window over an arena that a recovery point then replaces
+    (a standby's adoption, the generation restored equal) rebuilds under
+    ``restore`` before its next replay, and equals the unfused engine."""
+    import asyncio
+
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples import banking
+    from orleans_tpu_torch.tensor.checkpoint import (
+        MemorySnapshotStore,
+        StandbyTailer,
+    )
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+    from orleans_tpu_torch.tensor.fused import CAUSE_RESTORE
+
+    def engine(store=None):
+        return TensorEngine(device=cuda_device, snapshot_store=store,
+                            config=TensorEngineConfig(auto_fusion_ticks=0))
+
+    backing = {}
+    keys = np.arange(4096, dtype=np.int64)
+    primary = engine(MemorySnapshotStore(backing))
+    asyncio.run(banking.run_banking_load(primary, banking.make_events(
+        4096, 4, lanes=4096, seed=9, transfer_every=0)))
+    primary.checkpointer.checkpoint_full()
+    standby, oracle = engine(), engine()
+    asyncio.run(banking.run_banking_load(standby, [{
+        "method": "deposit", "keys": keys[::-1].copy(),
+        "amount": np.full(4096, 3, np.int32)}]))
+    prog = standby.fuse_ticks("AccountGrain", "deposit", keys)
+    stacked = {"amount": np.ones((8, 4096), np.int32)}
+    prog.run(stacked)
+    assert prog.verify() == 0
+    for eng in (standby, oracle):
+        StandbyTailer(eng, MemorySnapshotStore(backing)).poll()
+    prog.run(stacked)
+    assert prog.verify() == 0 and prog.rebuilds[CAUSE_RESTORE] == 1
+    for _ in range(8):
+        oracle.send_batch("AccountGrain", "deposit", keys,
+                          {"amount": np.ones(4096, np.int32)})
+        oracle.run_tick()
+    asyncio.run(oracle.flush())
+    got = banking.read_accounts(standby, keys)
+    for name, want in banking.read_accounts(oracle, keys).items():
+        np.testing.assert_array_equal(got[name], want, err_msg=name)

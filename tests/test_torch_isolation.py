@@ -73,7 +73,10 @@ def test_port_imports_neither_jax_nor_orleans_tpu():
         "orleans_tpu_torch.kernels.replicas",
         "orleans_tpu_torch.samples.routing",
         "orleans_tpu_torch.samples.gpstracker",
-        "orleans_tpu_torch.samples.twitter_sentiment"}
+        "orleans_tpu_torch.samples.twitter_sentiment",
+        "orleans_tpu_torch.kernels.checkpoint",
+        "orleans_tpu_torch.tensor.checkpoint",
+        "orleans_tpu_torch.samples.banking"}
     assert expected <= set(report["modules"])
     assert report["leaked"] == []
     # no card here: the default device must refuse, not fall back
