@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: Presence, WidePresence, Chirper, the
 grain lifecycle, the timers plane, the streams plane, hot-grain replicas
-(the routing sample), GPSTracker, TwitterSentiment and the durable state
-plane (checkpoints, journal, recovery, warm standby) on one NVIDIA card.
+(the routing sample), GPSTracker, TwitterSentiment, the durable state
+plane (checkpoints, journal, recovery, warm standby) and clustered silos
+(the cross-silo vector data plane) on one NVIDIA card.
 
 Run from the repository root on a machine with an H100 and the CUDA toolkit:
 
@@ -155,7 +156,27 @@ Phases, each of which fails loudly (exit code other than 0):
    the full while ``AccountGrain.deposit`` traffic over 256 keys runs 17
    ticks, promote, RTO, the acknowledged prefix exact, the old primary
    fenced).  Launches counted per arm; no arm may launch K18.
-12. One JSON line of the kernels, the card line, and last
+12. Clustered silos on the card (``drive_cluster_path``).  K22
+   ``gather_args`` against its plain version piece by piece: the
+   Presence payload (game, score, tick: 12 B a lane) at 1,048,576 lanes
+   split 2 and 3 ways by real ring ownership, each remote region fetched
+   with one copy, ``m = 0``, an ``[n, 4]`` float32 and an int64 leaf;
+   timed at the 2-way split beside its bound, its plain version and the
+   ``index_select`` loop.  Then Presence 1M/10k on a 2-silo
+   ``TestingCluster`` of the port (in-process transport with wire
+   fidelity, every engine on the card): a warm-up, 20 ticks through
+   ``run_presence_load``'s cluster injector with device payloads (K22
+   every inject; remote games miss through K6 and ship), 8 ticks traced
+   with ``torch.profiler`` ranges per silo (host and device ms per tick
+   per silo), 64 ticks of each silo's own players on its own games
+   (auto-fused windows on both silos), then a third silo joins (the
+   handoff pushes the strays, the fence settles; its wall time) and 10
+   ticks run split 3 ways.  Every stage is exact against a numpy oracle
+   with no key live on two silos.  Then bench.py ``_cluster_presence``'s
+   drive on a fresh 2-silo cluster: 8 uneven host fragments a tick,
+   sender aggregation on, 10 ticks, exact (merge ratio, codec bytes).
+   Launches counted per arm; K22 must launch there and nowhere earlier.
+13. One JSON line of the kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -207,6 +228,10 @@ CKPT_ROWS, CKPT_CHUNK = 4_194_304, 65_536      # K19/K21 rows, K20 chunk
 RESTORE_PLAYERS = 4_000_000                      # restore probe, standby
 CADENCE_TICKS = 64
 FOLD_ACCOUNTS, FOLD_EVENTS, FOLD_LANES = 50_000, 240, 32_768
+# clustered silos (tests/test_cross_silo_presence.py's deployment shape and
+# bench.py --workload cluster at PLAYERS / GAMES)
+K22_LANES = 1_048_576
+TRACE_TICKS, FUSED_CLUSTER_TICKS, JOIN_TICKS, FRAG_TICKS = 8, 64, 10, 10
 
 SOURCES = {
     "resolve_dense": ("orleans_tpu_torch/csrc/resolve.cu",
@@ -253,6 +278,8 @@ SOURCES = {
                        "orleans_tpu/tensor/checkpoint.py:90"),
     "dirty_mask": ("orleans_tpu_torch/csrc/checkpoint.cu",
                    "orleans_tpu/tensor/checkpoint.py:97"),
+    "gather_args": ("orleans_tpu_torch/csrc/router.cu",
+                    "orleans_tpu/tensor/router.py:49"),
 }
 # the kernels each path must launch (launch counts zeroed before it, read
 # after it)
@@ -288,6 +315,8 @@ TWITTER_GROUPED_KERNELS = ("seg_pull", "resolve_sorted", "seg_sum",
 # every durability arm also launches resolve_dense or resolve_sorted
 DURABILITY_KERNELS = ("pin_columns", "gather_columns", "dirty_mask",
                       "row_scatter")
+CLUSTER_KERNELS = ("gather_args", "miss_keys", "seg_sum", "row_scatter",
+                   "gather_rows")
 ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
                                  "orleans_tpu/tensor/arena.py:34",
                                  "orleans_tpu/tensor/attribution.py:294",
@@ -4462,6 +4491,573 @@ def drive_durability_path(dev, card: str, timer) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: clustered silos on one card — the cross-silo vector data plane
+# ---------------------------------------------------------------------------
+
+def _ring_split(keys: np.ndarray, n_silos: int):
+    """The permutation of ``keys``'s lanes by ring owner over ``n_silos``
+    silos (the first owner's lanes first, as a ClusterInjector lays out
+    its local segment) and its segment bounds."""
+    from orleans_tpu_torch.hashing import ring_hash_int_keys
+    from orleans_tpu_torch.ids import SiloAddress
+    from orleans_tpu_torch.ids import type_code_of
+    from orleans_tpu_torch.runtime.ring import VirtualBucketsRing
+
+    ring = VirtualBucketsRing(SiloAddress("silo1", 0, 1))
+    for i in range(1, n_silos):
+        ring.add_silo(SiloAddress(f"silo{i + 1}", 0, i + 1))
+    owner, _ = ring.owners_of_hashes(ring_hash_int_keys(
+        type_code_of("PresenceGrain"), keys))
+    perm = np.argsort(owner, kind="stable").astype(np.int32)
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(
+        owner, minlength=n_silos))]).tolist()
+    return perm, bounds
+
+
+def _same_pieces(got, want) -> bool:
+    """Every (segment, leaf) piece equal bit for bit (the packed
+    buffers' alignment padding is not compared: the kernel leaves it
+    unwritten)."""
+    return all(torch.equal(g, w) for gs, ws in zip(got, want)
+               for g, w in zip(gs, ws))
+
+
+def check_router_kernels(dev, timer, card: str) -> dict:
+    """K22 ``gather_args`` against its plain version on the card, bit for
+    bit: the Presence payload (game int32, score float32, tick int32 per
+    lane) at 1,048,576 lanes split 2 and 3 ways by real ring ownership,
+    each remote region fetched with one copy; ``m = 0``; an ``[n, 4]``
+    float32 and an int64 leaf.  Timed at the 2-way split beside its bound,
+    its plain version and the ``index_select`` loop."""
+    from orleans_tpu_torch.kernels import router as kr
+
+    rng = np.random.default_rng(2222)
+    n = K22_LANES
+    keys = np.arange(n, dtype=np.int64)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    leaves = [t(rng.integers(0, GAMES, n).astype(np.int32)),
+              t(rng.random(n, dtype=np.float32)),
+              t(np.full(n, 7, np.int32))]
+    splits = {}
+    for ways in (2, 3):
+        perm, bounds = _ring_split(keys, ways)
+        perm_d = t(perm)
+        staging, views, layout = kr.gather_args(leaves, perm_d, bounds)
+        _, want_views, _ = kr.gather_args_plain(leaves, perm_d, bounds)
+        require(_same_pieces(views, want_views),
+                f"gather_args != plain ({ways}-way split)")
+        host = kr.fetch_segments(staging, layout, leaves, leaves)
+        for seg, wv in zip(host, want_views[1:]):
+            for h, w in zip(seg, wv):
+                require(np.array_equal(h, w.cpu().numpy()),
+                        f"gather_args remote region != plain ({ways}-way)")
+        splits[ways] = (perm_d, bounds, [b - a for a, b in
+                                         zip(bounds, bounds[1:])])
+    wide = [t(rng.random((n, 4), dtype=np.float32)),
+            t(rng.integers(-2**62, 2**62, n, dtype=np.int64))]
+    perm_d, bounds, _ = splits[2]
+    _, v_w, _ = kr.gather_args(wide, perm_d, bounds)
+    require(_same_pieces(v_w, kr.gather_args_plain(wide, perm_d, bounds)[1]),
+            "gather_args != plain ([n, 4] float32, int64)")
+    before = kr.gather_args.launches
+    _, v0, _ = kr.gather_args(leaves, perm_d[:0])
+    require(kr.gather_args.launches == before
+            and all(v.shape[0] == 0 for v in v0[0]),
+            "gather_args with m = 0 launched or returned rows")
+    perm_long = perm_d.long()
+    row_bytes = sum(lf.element_size() for lf in leaves)
+    r = dict(bound=bound(2 * n * row_bytes + 4 * n), **measure(
+        timer, lambda: kr.gather_args(leaves, perm_d, bounds),
+        lambda: kr.gather_args_plain(leaves, perm_d, bounds),
+        lambda: [lf.index_select(0, perm_long) for lf in leaves]))
+    perm3, bounds3, counts3 = splits[3]
+    r["three_way_ms"] = timer(lambda: kr.gather_args(leaves, perm3, bounds3))
+    r.update(max_abs_err=0,
+             library="index_select per leaf over the whole split (one "
+                     "call per leaf, no packing)",
+             per={"lanes": n, "row_bytes": row_bytes,
+                  "two_way_segments": splits[2][2],
+                  "three_way_segments": counts3})
+    print(f"kernel gather_args: {r['ms']:.4f} ms on the device at "
+          f"{n} lanes x {row_bytes} B split 2 ways {splits[2][2]} (plain "
+          f"{r['plain_ms']:.4f}, index_select loop {r['library_ms']:.4f}, "
+          f"bound {r['bound'][0]:.4f} by {r['bound'][1]}), 3 ways "
+          f"{r['three_way_ms']:.4f} ms; [n, 4] float32, int64 and m = 0 "
+          f"exact; on {card}", flush=True)
+    return {"gather_args": r}
+
+
+def _bench_silo_config(name: str):
+    """Bench-grade liveness and fence: host stalls of a 1M-key handoff
+    must not make healthy silos suspect each other, nor time the handoff
+    fence out before the pushed rows land."""
+    from orleans_tpu_torch.config import SiloConfig
+
+    c = SiloConfig(name=name)
+    c.liveness.probe_timeout = 2.0
+    c.liveness.probe_period = 2.0
+    c.liveness.num_missed_probes_limit = 10
+    c.tensor.handoff_fence_timeout = 60.0
+    return c
+
+
+def _check_cluster(cluster, history, what: str) -> dict:
+    """Every player and game row of the cluster against the numpy oracle
+    of ``history`` (one ``(games, scores, ticks, last_tick)`` per load
+    phase): players' heartbeats and game exact, games' updates exact and
+    total_score within twice Higham's bound; no key live on two silos.
+    ``last_heartbeat`` is exact on the first silo, whose own players take
+    each tick's local slice as its own batch; a silo fed by slabs may
+    merge several ticks' slabs into one batch (the engine coalesces
+    consecutive host batches, as the JAX engine does), and a SET of
+    duplicate rows keeps any one of their writers, so there it lies
+    within the phase's ticks."""
+    players = np.arange(PLAYERS, dtype=np.int64)
+    hb = sum(h[2] for h in history)
+    per_game = np.zeros(GAMES, np.int64)
+    score_sum = np.zeros(GAMES, np.float64)
+    for games, scores, ticks, _ in history:
+        per_game += np.bincount(games, minlength=GAMES) * ticks
+        score_sum += np.bincount(games, weights=scores.astype(np.float64),
+                                 minlength=GAMES) * ticks
+    final_games, last_tick = history[-1][0], history[-1][3]
+    seen = {"PresenceGrain": [], "GameGrain": []}
+    cols = {"PresenceGrain": {}, "GameGrain": {}}
+    first_silo = []
+    for i, s in enumerate(cluster.silos):
+        for type_name in seen:
+            arena = s.tensor_engine.arenas.get(type_name)
+            if arena is None or not arena.live_count:
+                continue
+            keys = arena.keys()
+            rows, _ = arena.lookup_rows(keys)
+            seen[type_name].append(keys)
+            if type_name == "PresenceGrain":
+                first_silo.append(np.full(len(keys), i == 0))
+            for c, v in arena.state.items():
+                cols[type_name].setdefault(c, []).append(
+                    v.cpu().numpy()[rows])
+    per_silo = {}
+    for type_name, parts in seen.items():
+        keys = np.concatenate(parts)
+        require(len(np.unique(keys)) == len(keys),
+                f"{what}: a {type_name} key is live on two silos")
+        order = np.argsort(keys)
+        per_silo[type_name] = [len(p) for p in parts]
+        cols[type_name] = {c: np.concatenate(v)[order]
+                           for c, v in cols[type_name].items()}
+        seen[type_name] = keys[order]
+        if type_name == "PresenceGrain":
+            first_silo = np.concatenate(first_silo)[order]
+    require(np.array_equal(seen["PresenceGrain"], players),
+            f"{what}: players live")
+    p = cols["PresenceGrain"]
+    require(bool(np.all(p["heartbeats"] == hb)), f"{what}: heartbeats")
+    lh = p["last_heartbeat"]
+    require(bool(np.all(lh[first_silo] == last_tick)
+                 and np.all((lh >= 1) & (lh <= last_tick))),
+            f"{what}: last_heartbeat")
+    require(np.array_equal(p["game"], final_games), f"{what}: game")
+    present = np.flatnonzero(per_game > 0)
+    require(np.array_equal(seen["GameGrain"], present), f"{what}: games live")
+    g = cols["GameGrain"]
+    require(np.array_equal(g["updates"], per_game[present]),
+            f"{what}: updates")
+    total = g["total_score"].astype(np.float64)
+    tol = 2 * g["updates"] * 2.0**-24 * score_sum[present]
+    err = np.abs(total - score_sum[present])
+    require(bool(np.all(np.isfinite(total)) and np.all(err <= tol)),
+            f"{what}: total_score off by {err.max()}")
+    return per_silo
+
+
+class _SiloSpans:
+    """Host seconds per silo, and with ``trace`` a ``torch.profiler``
+    range named after the silo, around its engine's ticks and miss
+    drains, its cluster injector's inject (K22 and the one copy off the
+    card) and its router's partitions, slab arrivals and slab flushes
+    (the codec's encode and decode run in the sender's flush).  Spans do
+    not nest: a call inside an open span stays in it."""
+
+    def __init__(self, cluster, trace: bool = False):
+        from orleans_tpu_torch.tensor import router as trouter
+
+        self.trace = trace
+        self.host = {s.name: 0.0 for s in cluster.silos}
+        self._undo = []
+        for s in cluster.silos:
+            depth = [0]
+            for obj, name in ((s.tensor_engine, "run_tick"),
+                              (s.tensor_engine, "_drain_checks"),
+                              (s.vector_router, "flush_slabs"),
+                              (s.vector_router, "partition"),
+                              (s.vector_router, "_inject_local")):
+                self._wrap(obj, name, s.name, depth)
+        cls = trouter.ClusterInjector
+        orig = cls.inject
+        spans = self
+
+        def inject(inj, *a, **k):
+            return spans._span(inj.router.silo.name, [0],
+                               lambda: orig(inj, *a, **k))
+
+        cls.inject = inject
+        self._undo.append(lambda: setattr(cls, "inject", orig))
+
+    def _span(self, silo: str, depth, call):
+        from torch.profiler import record_function
+
+        if depth[0]:
+            return call()
+        depth[0] += 1
+        t0 = time.perf_counter()
+        try:
+            if self.trace:
+                with record_function(f"silo:{silo}"):
+                    return call()
+            return call()
+        finally:
+            self.host[silo] += time.perf_counter() - t0
+            depth[0] -= 1
+
+    def _wrap(self, obj, name, silo, depth):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            return self._span(silo, depth, lambda: fn(*a, **k))
+
+        setattr(obj, name, wrapped)
+        self._undo.append(lambda: delattr(obj, name))
+
+    def close(self):
+        for undo in reversed(self._undo):
+            undo()
+        self._undo = []
+
+    def per_tick_ms(self, ticks: int) -> dict:
+        return {k: 1e3 * v / ticks for k, v in self.host.items()}
+
+
+def _silo_device_ms(prof, cluster, ticks: int) -> dict:
+    """Device ms per tick per silo: the kernels and copies enqueued inside
+    each silo's CPU-side ranges (the trace's GPU-side annotation spans,
+    which count idle gaps, are left out), and the trace's whole device
+    time per tick."""
+    from torch.autograd import DeviceType
+
+    out = {s.name: 0.0 for s in cluster.silos}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("silo:"):
+            out[e.name[5:]] += e.device_time_total / 1e3 / ticks
+    out["trace"] = sum(_device_us(e) for e in prof.key_averages()
+                       if not e.key.startswith("silo:")) / 1e3 / ticks
+    return out
+
+
+def _router_totals(cluster) -> dict:
+    out = {"messages_shipped": 0, "slab_fragments": 0, "slab_frames": 0,
+           "grains_migrated_out": 0, "grains_adopted": 0,
+           "adopt_conflicts": 0, "messages_dropped": 0}
+    for s in cluster.silos:
+        snap = s.vector_router.snapshot()
+        for k in out:
+            out[k] += snap[k]
+    f = cluster.fabric
+    out.update(slab_frames_carried=f.slab_frames_carried,
+               slab_bytes=f.slab_bytes, bytes_carried=f.bytes_carried,
+               slab_codec_seconds=f.slab_codec_seconds)
+    return out
+
+
+def _delta(end: dict, base: dict) -> dict:
+    return {k: end[k] - base[k] for k in end}
+
+
+async def cluster_presence(dev, card: str) -> dict:
+    """Presence 1M/10k on a 2-silo port cluster on the card: a warm-up,
+    20 timed ticks through ``run_presence_load``'s cluster injector with
+    device payloads (K22 every inject, remote games missing through K6
+    and shipped), 8 traced ticks split by silo, auto-fused windows of
+    each silo's own players on its own games, then a third silo joins
+    (handoff push, fence) and 10 more ticks split 3 ways; exact against
+    numpy after each stage."""
+    from orleans_tpu_torch.samples.presence import (
+        presence_inputs,
+        run_presence_load,
+    )
+    from orleans_tpu_torch.testing import TestingCluster
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    _, games, scores = presence_inputs(PLAYERS, GAMES, seed=0)
+    cluster = await TestingCluster(n_silos=2, device=dev,
+                                   config_factory=_bench_silo_config).start()
+    try:
+        a, b = cluster.silos
+        for s in cluster.silos:
+            s.tensor_engine.config.auto_fusion_ticks = 0  # unfused stages
+        history = []
+        await run_presence_load(a.tensor_engine, n_players=PLAYERS,
+                                n_games=GAMES, n_ticks=WARM_TICKS)
+        await cluster.quiesce_engines()
+        history.append((games, scores, WARM_TICKS, WARM_TICKS))
+        _check_cluster(cluster, history, "cluster warm-up")
+
+        base = _router_totals(cluster)
+        spans = _SiloSpans(cluster)
+        t0 = time.perf_counter()
+        try:
+            stats = await run_presence_load(a.tensor_engine,
+                                            n_players=PLAYERS,
+                                            n_games=GAMES, n_ticks=TICKS)
+            await cluster.quiesce_engines()
+            torch.cuda.synchronize()
+        finally:
+            spans.close()
+        dt = time.perf_counter() - t0
+        d = _delta(_router_totals(cluster), base)
+        history.append((games, scores, TICKS, TICKS))
+        split = _check_cluster(cluster, history, "cluster 20 ticks")
+        out["unfused"] = {
+            "ticks": TICKS, "seconds": dt,
+            "messages_per_sec": 2 * PLAYERS * TICKS / dt,
+            "loader_messages_per_sec": stats["messages_per_sec"],
+            "cross_silo_messages": d["messages_shipped"],
+            "cross_silo_messages_per_sec": d["messages_shipped"] / dt,
+            "slab_frames": d["slab_frames_carried"],
+            "slab_bytes": d["slab_bytes"],
+            "codec_ms_per_slab": 1e3 * d["slab_codec_seconds"]
+            / max(1, d["slab_frames_carried"]),
+            "host_ms_per_tick": spans.per_tick_ms(TICKS),
+            "rows_per_silo": split}
+
+        spans = _SiloSpans(cluster, trace=True)
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                await run_presence_load(a.tensor_engine, n_players=PLAYERS,
+                                        n_games=GAMES, n_ticks=TRACE_TICKS)
+                await cluster.quiesce_engines()
+                torch.cuda.synchronize()
+        finally:
+            spans.close()
+        history.append((games, scores, TRACE_TICKS, TRACE_TICKS))
+        _check_cluster(cluster, history, "cluster traced ticks")
+        out["traced"] = {"device_ms_per_tick": _silo_device_ms(
+            prof, cluster, TRACE_TICKS),
+            "host_ms_per_tick": spans.per_tick_ms(TRACE_TICKS)}
+
+        # fused: each silo's own players on its own games (no remote emit,
+        # so no miss pass), both auto-fusers at the default config
+        players = np.arange(PLAYERS, dtype=np.int64)
+        game_keys = np.arange(GAMES, dtype=np.int64)
+        fused_games = games.copy()
+        injectors = []
+        for s in cluster.silos:
+            s.tensor_engine.config.auto_fusion_ticks = 16
+            own_p = s.vector_router.partition("PresenceGrain", players)[0]
+            own_g = game_keys[s.vector_router.partition(
+                "GameGrain", game_keys)[0]]
+            idx = np.flatnonzero(own_p)
+            fused_games[idx] = own_g[idx % len(own_g)].astype(np.int32)
+            inj = s.tensor_engine.make_injector("PresenceGrain", "heartbeat",
+                                                players[idx])
+            require(inj._all_local, "fused arm: a silo's own key set split")
+            injectors.append((s, inj, {
+                "game": torch.from_numpy(fused_games[idx]).to(dev),
+                "score": torch.from_numpy(scores[idx]).to(dev)}))
+        t0 = time.perf_counter()
+        for tick in range(1, FUSED_CLUSTER_TICKS + 1):
+            for s, inj, args in injectors:
+                inj.inject({**args, "tick": np.int32(tick)})
+            for s, _, _ in injectors:
+                await s.tensor_engine.drain_queues()
+        await cluster.quiesce_engines()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        history.append((fused_games, scores, FUSED_CLUSTER_TICKS,
+                        FUSED_CLUSTER_TICKS))
+        _check_cluster(cluster, history, "cluster fused")
+        fused = {s.name: s.tensor_engine.autofuser.snapshot()
+                 for s in cluster.silos}
+        require(all(f["windows_run"] > 0 for f in fused.values()),
+                f"fused arm: a silo ran no fused window: {fused}")
+        out["fused"] = {"ticks": FUSED_CLUSTER_TICKS, "seconds": dt,
+                        "messages_per_sec": 2 * PLAYERS
+                        * FUSED_CLUSTER_TICKS / dt, "autofuse": fused}
+
+        # a third silo joins: the handoff pushes the strays, the fence
+        # settles, the load goes on split 3 ways
+        base = _router_totals(cluster)
+        t0 = time.perf_counter()
+        await cluster.start_additional_silo()
+        await cluster.wait_for_liveness_convergence(timeout=120.0)
+        while not all(s.vector_router.handoff_settled()
+                      for s in cluster.silos):
+            await asyncio.sleep(0.005)
+        await cluster.quiesce_engines()
+        torch.cuda.synchronize()
+        handoff_s = time.perf_counter() - t0
+        moved = _delta(_router_totals(cluster), base)
+        require(moved["adopt_conflicts"] == 0
+                and moved["grains_adopted"] == moved["grains_migrated_out"]
+                and moved["grains_migrated_out"] > 0,
+                f"join handoff: {moved}")
+        split = _check_cluster(cluster, history, "after the join")
+        for s in cluster.silos:
+            s.tensor_engine.config.auto_fusion_ticks = 0
+        spans = _SiloSpans(cluster)
+        t0 = time.perf_counter()
+        try:
+            await run_presence_load(a.tensor_engine, n_players=PLAYERS,
+                                    n_games=GAMES, n_ticks=JOIN_TICKS)
+            await cluster.quiesce_engines()
+            torch.cuda.synchronize()
+        finally:
+            spans.close()
+        dt = time.perf_counter() - t0
+        history.append((games, scores, JOIN_TICKS, JOIN_TICKS))
+        split3 = _check_cluster(cluster, history, "3 silos")
+        require(all(len(v) == 3 and min(v) > 0 for v in split3.values()),
+                f"3 silos: a silo holds no rows {split3}")
+        out["join"] = {"handoff_seconds": handoff_s,
+                       "migrated_rows": moved["grains_migrated_out"],
+                       "adopt_bytes": moved["bytes_carried"],
+                       "rows_per_silo_after_handoff": split,
+                       "rows_per_silo": split3, "ticks": JOIN_TICKS,
+                       "seconds": dt,
+                       "host_ms_per_tick": spans.per_tick_ms(JOIN_TICKS),
+                       "messages_per_sec": 2 * PLAYERS * JOIN_TICKS / dt}
+        out["players"], out["games"] = PLAYERS, GAMES
+        return out
+    finally:
+        await cluster.stop()
+
+
+async def cluster_fragmented(dev) -> dict:
+    """bench.py ``_cluster_presence``'s drive on a 2-silo port cluster on
+    the card: each tick's heartbeats as 8 uneven host fragments (cuts at
+    ``np.geomspace(64, n, 8)``), sender aggregation on, 2 warm and 10
+    timed ticks, exact."""
+    from orleans_tpu_torch.testing import TestingCluster
+
+    cluster = await TestingCluster(n_silos=2, device=dev,
+                                   config_factory=_bench_silo_config).start()
+    try:
+        a = cluster.silos[0]
+        keys = np.arange(PLAYERS, dtype=np.int64)
+        games = (keys % GAMES).astype(np.int32)
+        scores = np.ones(PLAYERS, np.float32)
+        cuts = np.unique(np.concatenate(
+            [[0], np.geomspace(64, PLAYERS, 8).astype(int), [PLAYERS]]))
+        spans = [(int(lo), int(hi)) for lo, hi in zip(cuts[:-1], cuts[1:])
+                 if hi > lo]
+
+        async def drive(tick: int) -> None:
+            for lo, hi in spans:
+                a.tensor_engine.send_batch(
+                    "PresenceGrain", "heartbeat", keys[lo:hi],
+                    {"game": games[lo:hi], "score": scores[lo:hi],
+                     "tick": np.full(hi - lo, tick, np.int32)})
+            await a.tensor_engine.drain_queues()
+
+        for t in range(2):
+            await drive(t + 1)
+        await cluster.quiesce_engines()
+        base = _router_totals(cluster)
+        t0 = time.perf_counter()
+        for t in range(FRAG_TICKS):
+            await drive(3 + t)
+        await cluster.quiesce_engines()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d = _delta(_router_totals(cluster), base)
+        updates = sum(int(s.tensor_engine.arenas["GameGrain"].state[
+            "updates"].sum()) for s in cluster.silos)
+        require(updates == PLAYERS * (2 + FRAG_TICKS),
+                f"fragmented drive: {updates} updates")
+        return {"ticks": FRAG_TICKS, "fragments_per_tick": len(spans),
+                "seconds": dt,
+                "messages_per_sec": 2 * PLAYERS * FRAG_TICKS / dt,
+                "cross_silo_messages_per_sec": d["messages_shipped"] / dt,
+                "slab_fragments": d["slab_fragments"],
+                "slab_frames": d["slab_frames"],
+                "slab_merge_ratio": d["slab_fragments"]
+                / max(1, d["slab_frames"]),
+                "codec_bytes": d["bytes_carried"],
+                "slab_bytes": d["slab_bytes"],
+                "codec_ms_per_slab": 1e3 * d["slab_codec_seconds"]
+                / max(1, d["slab_frames_carried"])}
+    finally:
+        await cluster.stop()
+
+
+def drive_cluster_path(dev, card: str, timer) -> dict:
+    """Phase 12: K22 against its plain version; cross-silo Presence 1M/10k
+    on a 2-silo cluster on the card, a third silo joining; the fragmented
+    send_batch drive.  Launch counts zeroed before each arm and read
+    after it."""
+    from orleans_tpu_torch.kernels import _build
+
+    out = {"counts": {}, "report": {}}
+    out["kernels"] = check_router_kernels(dev, timer, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    arms = {}
+    for name, fn, kernels in (
+            ("cluster_presence", lambda: cluster_presence(dev, card),
+             CLUSTER_KERNELS),
+            ("cluster_fragmented", lambda: cluster_fragmented(dev),
+             ("miss_keys", "seg_sum", "row_scatter"))):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        arms[name] = asyncio.run(fn())
+        arms[name]["arm_seconds"] = time.perf_counter() - t0
+        out["counts"][name] = _build.launch_counts()
+        out["report"][name] = _build.launch_report()
+        require_launched(out["counts"][name], name, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["arms"] = arms
+    p, f = arms["cluster_presence"], arms["cluster_fragmented"]
+    u, j = p["unfused"], p["join"]
+    print(f"cross-silo Presence {PLAYERS}/{GAMES} on 2 silos: "
+          f"{u['messages_per_sec']:.0f} messages/s over {TICKS} ticks "
+          f"({u['cross_silo_messages_per_sec']:.0f} cross-silo messages/s, "
+          f"{u['slab_frames']} slab frames, {u['slab_bytes']} bytes, codec "
+          f"{u['codec_ms_per_slab']:.3f} ms per slab), exact; on {card}",
+          flush=True)
+    tr = p["traced"]
+    for name, host in u["host_ms_per_tick"].items():
+        print(f"  {name}: host {host:.2f} ms per tick over the timed ticks "
+              f"({tr['host_ms_per_tick'][name]:.2f} traced), device "
+              f"{tr['device_ms_per_tick'][name]:.4f} ms per tick (traced, "
+              f"{TRACE_TICKS} ticks)", flush=True)
+    print(f"  the trace's device time: "
+          f"{tr['device_ms_per_tick']['trace']:.4f} ms per tick; "
+          f"fused arm {p['fused']['messages_per_sec']:.0f} messages/s, "
+          f"{p['fused']['autofuse']}; on {card}", flush=True)
+    print(f"third silo joins: handoff {j['handoff_seconds']:.3f} s wall, "
+          f"{j['migrated_rows']} rows pushed, rows per silo "
+          f"{j['rows_per_silo']}, then {j['messages_per_sec']:.0f} "
+          f"messages/s over {JOIN_TICKS} ticks split 3 ways (host ms per "
+          f"tick by silo {j['host_ms_per_tick']}), exact; on {card}",
+          flush=True)
+    print(f"fragmented send_batch drive: {f['fragments_per_tick']} "
+          f"fragments a tick, merge ratio {f['slab_merge_ratio']:.3f} "
+          f"({f['slab_fragments']} fragments, {f['slab_frames']} frames), "
+          f"{f['codec_bytes']} bytes through the codec, "
+          f"{f['messages_per_sec']:.0f} messages/s, exact; on {card}",
+          flush=True)
+    print("cluster arms: " + json.dumps(arms, default=str), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -4469,6 +5065,9 @@ def main() -> int:
         return 1
     from orleans_tpu_torch.device import card_report
     from orleans_tpu_torch.kernels import _build
+    # every counted wrapper registered before the first path is counted,
+    # so each path's report names every kernel
+    from orleans_tpu_torch.kernels import router  # noqa: F401
 
     card = card_report()
     kind = torch.cuda.get_device_name(0)
@@ -4518,12 +5117,15 @@ def main() -> int:
     durability = drive_durability_path(dev, card, timer)
     results.update(durability["kernels"])
     t12 = time.perf_counter()
+    cluster = drive_cluster_path(dev, card, timer)
+    results.update(cluster["kernels"])
+    t13 = time.perf_counter()
     print(f"phase seconds: kernels {t1 - t0:.1f}, unfused {t2 - t1:.1f}, "
           f"fused {t3 - t2:.1f}, wide {t4 - t3:.1f}, chirper "
           f"{t5 - t4:.1f}, collection {t6 - t5:.1f}, timers {t7 - t6:.1f}, "
           f"composition {t8 - t7:.1f}, streams {t9 - t8:.1f}, hot grain "
           f"{t10 - t9:.1f}, gps and twitter {t11 - t10:.1f}, durability "
-          f"{t12 - t11:.1f}", flush=True)
+          f"{t12 - t11:.1f}, cluster {t13 - t12:.1f}", flush=True)
     plane = runs["plane_ms"]
     fused_added = (fused["window_device_ms"]
                    - fused["window_off_device_ms"]) / 16
@@ -4550,17 +5152,23 @@ def main() -> int:
     for path, c in paths.items():
         require(c.get("spread_replicas", 0) == 0,
                 f"spread_replicas launched on the {path} path")
-    # durability arms: no replica group anywhere either
-    for path, c in durability["counts"].items():
+    # durability and cluster arms: no replica group anywhere either; K22
+    # launches on the cluster arms only
+    for path, c in {**durability["counts"], **cluster["counts"]}.items():
         require(c.get("spread_replicas", 0) == 0,
                 f"spread_replicas launched on the {path} path")
+    for path, c in {**paths, **hot["counts"], **gps["counts"],
+                    **twitter["counts"], **durability["counts"]}.items():
+        require(c.get("gather_args", 0) == 0,
+                f"gather_args launched on the {path} path")
     paths.update({**hot["counts"], **gps["counts"], **twitter["counts"],
-                  **durability["counts"]})
+                  **durability["counts"], **cluster["counts"]})
     reports = {"presence_fused": fused["report"], **wide_out["report"],
                **chirper_out["report"], "collection": collection["report"],
                "timers": timers["report"], "composition": composed["report"],
                **streams["report"], **hot["report"], **gps["report"],
-               **twitter["report"], **durability["report"]}
+               **twitter["report"], **durability["report"],
+               **cluster["report"]}
     per_replay = {"presence_fused": fused["per_replay"],
                   "wide_fused": wide_out["fused"]["per_replay"],
                   "chirper_fused": chirper_out["fused"]["per_replay"],

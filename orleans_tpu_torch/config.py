@@ -1,16 +1,20 @@
-"""Engine configuration: the ``TensorEngineConfig`` and ``MetricsConfig``
-fields the port reads, with the same names and defaults as
-``orleans_tpu/config.py``."""
+"""Configuration: the ``TensorEngineConfig`` and ``MetricsConfig`` fields
+the engine reads and the ``SiloConfig`` sub-configs the clustered vector
+data plane reads, with the same names and defaults as
+``orleans_tpu/config.py`` (reference: GlobalConfiguration liveness
+:149-194, directory :247-275)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
 class TensorEngineConfig:
     """Batched data-plane knobs (no reference analog)."""
 
+    # a silo builds its tensor engine only when enabled
+    enabled: bool = True
     max_rounds_per_tick: int = 4          # intra-tick call-chain rounds
     # step handlers update the arena columns in place (the counterpart of
     # JAX's donated inputs); off = every step clones the columns first
@@ -115,6 +119,13 @@ class TensorEngineConfig:
     # Off = the host-expansion baseline (a device→host copy per publish
     # and a numpy adjacency walk).  A live toggle rebuilds fused windows.
     stream_plane: bool = True
+    # cross-silo sender aggregation (tensor/router.py): slab fragments of
+    # one drain cycle merge into one frame per (destination, type,
+    # method); off = every fragment is its own frame (the A/B baseline)
+    slab_aggregation: bool = True
+    # seconds a silo defers first-touch activation after a ring change
+    # while awaiting its peers' handoff releases (tensor/router.py)
+    handoff_fence_timeout: float = 2.0
 
 
 @dataclass
@@ -139,3 +150,60 @@ class MetricsConfig:
     # >= 1 - exp(-depth); 4x8192 int32 = 128KB per arena
     attribution_cms_depth: int = 4
     attribution_cms_width: int = 8192
+
+
+@dataclass
+class LivenessConfig:
+    """(reference: GlobalConfiguration liveness section :149-194)"""
+
+    probe_timeout: float = 0.5            # ProbeTimeout
+    table_refresh_timeout: float = 5.0    # TableRefreshTimeout
+    death_vote_expiration: float = 120.0  # DeathVoteExpirationTimeout
+    iam_alive_table_publish: float = 5.0  # IAmAliveTablePublishTimeout
+    num_missed_probes_limit: int = 3      # NumMissedProbesLimit
+    num_probed_silos: int = 3             # NumProbedSilos
+    num_votes_for_death: int = 2          # NumVotesForDeathDeclaration
+    probe_period: float = 1.0
+    # per-peer gossip RPC timeout (also bounds the shutdown goodbye wait)
+    gossip_timeout: float = 1.0
+    # fast-suspect: a non-quorum suspect vote gossips the suspicion so
+    # other members probe the victim now and add their votes
+    fast_suspect: bool = True
+
+
+@dataclass
+class DirectoryConfig:
+    """(reference: GlobalConfiguration directory section :247-275)"""
+
+    buckets_per_silo: int = 30            # virtual-bucket ring
+
+
+@dataclass
+class MessagingConfig:
+    response_timeout: float = 30.0        # ResponseTimeout
+    max_forward_count: int = 2            # MaxForwardCount
+
+
+@dataclass
+class RebalanceConfig:
+    """The rebalance knob the ring-change handoff reads."""
+
+    # on a ring change, push the rows a silo no longer owns to their new
+    # owner (one adopt_grains slab per destination, FIFO before the
+    # handoff release) under the store write-back; off = the pure
+    # evict-and-miss handoff
+    handoff_migration: bool = True
+
+
+@dataclass
+class SiloConfig:
+    """A clustered silo's configuration (the sub-configs the vector data
+    plane reads; ``orleans_tpu``'s SiloConfig carries the rest)."""
+
+    name: str = "silo"
+    liveness: LivenessConfig = field(default_factory=LivenessConfig)
+    directory: DirectoryConfig = field(default_factory=DirectoryConfig)
+    messaging: MessagingConfig = field(default_factory=MessagingConfig)
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
+    rebalance: RebalanceConfig = field(default_factory=RebalanceConfig)
+    tensor: TensorEngineConfig = field(default_factory=TensorEngineConfig)

@@ -1,5 +1,5 @@
 """Stable hashing for identity (copy of ``orleans_tpu/hashing.py``'s
-``jenkins_hash`` and ``stable_hash_u64``).
+``jenkins_hash``, ``stable_hash_u64`` and ``ring_hash_int_keys``).
 
 The reference hashes grain identities with Bob Jenkins' lookup2 (reference:
 src/Orleans/IDs/JenkinsHash.cs) so type codes and placement are stable
@@ -78,3 +78,44 @@ def stable_hash_u64(x: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return z ^ (z >> 31)
+
+
+def ring_hash_int_keys(type_code: int, keys, category: int = 1):
+    """Vectorized ``GrainId.from_int(type_code, key).ring_hash()`` (a copy
+    of ``orleans_tpu/hashing.py``'s ``ring_hash_int_keys``).
+
+    Bit-exact numpy replay of ``jenkins_hash`` over the 20-byte
+    ``pack("<QQI", 0, key, word)`` buffer an int-keyed GrainId hashes
+    (``ids.GrainId.ring_hash``), so batched ownership partitioning (the
+    cross-silo vector data plane) and per-message placement agree on one
+    owner per key.  Returns uint32[n] ring points.
+    """
+    import numpy as np
+
+    m32 = np.uint64(0xFFFFFFFF)
+    keys = np.asarray(keys).astype(np.uint64)
+
+    def mix(a, b, c):
+        # Jenkins lookup2 mix in uint64 lanes masked to 32 bits
+        for sa, sb, sc in ((13, 8, 13), (12, 16, 5), (3, 10, 15)):
+            a = (a - b - c) & m32
+            a ^= c >> np.uint64(sa)
+            b = (b - c - a) & m32
+            b ^= (a << np.uint64(sb)) & m32
+            c = (c - a - b) & m32
+            c ^= b >> np.uint64(sc)
+        return a, b, c
+
+    init = np.uint64(0x9E3779B9)
+    # block 1 (bytes 0-11): n0 low, n0 high (both 0), n1 low = key_lo
+    a = np.full(keys.shape, init, dtype=np.uint64)
+    b = np.full(keys.shape, init, dtype=np.uint64)
+    c = keys & m32
+    a, b, c = mix(a, b, c)
+    # tail (8 of 20 bytes): c += length, a += key_hi, b += word
+    word = (type_code & 0xFFFFFFFF) | ((category << 29) & 0xFFFFFFFF)
+    c = (c + np.uint64(20)) & m32
+    a = (a + (keys >> np.uint64(32))) & m32
+    b = (b + np.uint64(word)) & m32
+    a, b, c = mix(a, b, c)
+    return c.astype(np.uint32)

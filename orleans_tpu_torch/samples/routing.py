@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from orleans_tpu_torch.core.grain import batched_method, commutative
+from orleans_tpu_torch.tensor.arena import shard_of_keys
 from orleans_tpu_torch.tensor.vector_grain import (
     Batch,
     Emit,
@@ -83,25 +84,6 @@ class RouteSink(VectorGrain):
                 "total": state["total"] + seg_sum(args["v"], rows, n_rows),
                 "received": state["received"]
                 + seg_sum(args["count"], rows, n_rows)}
-
-
-def _hash_keys_u64(keys: np.ndarray) -> np.ndarray:
-    """Vectorized splitmix64 (``hashing.stable_hash_u64``): a copy of the
-    JAX arena's helper, so both packages put a key on the same shard."""
-    x = keys.astype(np.uint64)
-    x = x + np.uint64(0x9E3779B97F4A7C15)
-    z = x
-    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-    return z ^ (z >> np.uint64(31))
-
-
-def shard_of_keys(keys: np.ndarray, n_shards: int) -> np.ndarray:
-    """The shard block of each key (a copy of ``orleans_tpu/tensor/
-    arena.py``'s ``shard_of_keys``): the stable key hash mod the shard
-    count."""
-    return (_hash_keys_u64(np.asarray(keys, dtype=np.int64))
-            % np.uint64(max(1, n_shards))).astype(np.int64)
 
 
 def build_ratio_destinations(sources: np.ndarray, sinks: np.ndarray,

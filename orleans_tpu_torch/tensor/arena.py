@@ -92,6 +92,26 @@ def np_dtype(dtype: torch.dtype) -> np.dtype:
 # device as two int32 words, and routing hashes the words into a 30-bit
 # bucket space (the int32 padding sentinel then never equals a hash)
 
+def _hash_keys_u64(keys: np.ndarray) -> np.ndarray:
+    """Vectorized splitmix64 (``hashing.stable_hash_u64``), the JAX
+    arena's helper, so both packages put a key on the same shard."""
+    x = keys.astype(np.uint64)
+    x = x + np.uint64(0x9E3779B97F4A7C15)
+    z = x
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def shard_of_keys(keys: np.ndarray, n_shards: int) -> np.ndarray:
+    """The device-shard-of-key function (``orleans_tpu/tensor/arena.py``'s
+    ``shard_of_keys``): the stable key hash mod the shard count — the
+    mesh-granularity twin of the silo ring's owner lookup
+    (``runtime/ring.py`` re-exports it as ``device_shard_of_keys``)."""
+    return (_hash_keys_u64(np.asarray(keys, dtype=np.int64))
+            % np.uint64(max(1, n_shards))).astype(np.int64)
+
+
 def split_wide_keys(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """int64[n] → (hi int32[n], lo int32[n]) bit-pattern words."""
     u = np.asarray(keys).astype(np.uint64)

@@ -73,8 +73,17 @@ unfused tick ends with the plane's stage — start a due full or delta cut,
 drain one pause-budgeted slice of it, seal the journal on its cadence.
 ``checkpoint_every_ticks`` keeps the older per-grain ``VectorStore``
 write-back cadence (``checkpoint``), which the auto-fuser honours between
-windows after verifying its chain.  The profiler, the cross-shard
-exchange and the cluster router belong to later slices of the port.
+windows after verifying its chain.
+
+On a clustered silo (``runtime/silo.py``) the engine carries its silo and
+the silo's ``VectorRouter`` (``tensor/router.py``): ``send_batch`` routes
+host-key batches by ring owner, ``make_injector`` returns a
+``ClusterInjector``, a round re-checks the ownership of host-key batches
+before it runs them (``_route_group``), the miss path ships remote-owned
+unseen keys to their owner instead of activating them here, and the
+handoff fence defers the activation of unseen keys after a ring change
+until every peer has released the new view.  The profiler and the
+cross-shard exchange belong to later slices of the port.
 
 Every tensor the engine keeps past the call that handed it over — a
 ``send_batch`` slab, a batch spilled past the round cap, a parked
@@ -511,12 +520,17 @@ class TensorEngine:
                  device: Optional[Any] = None,
                  metrics: Optional[MetricsConfig] = None,
                  store: Optional[Any] = None,
-                 snapshot_store: Optional[Any] = None) -> None:
+                 snapshot_store: Optional[Any] = None,
+                 silo: Optional[Any] = None) -> None:
         from orleans_tpu_torch.tensor.autofuse import AutoFuser
         from orleans_tpu_torch.tensor.checkpoint import CheckpointPlane
         from orleans_tpu_torch.tensor.timers_plane import TimersPlane
 
         self.device = resolve_device(device)
+        # the owning silo of a clustered engine (None standalone); the
+        # silo attaches its VectorRouter as ``router``
+        self.silo = silo
+        self.router = None
         self.config = config or TensorEngineConfig()
         self.metrics_config = metrics or MetricsConfig()
         # on-device latency ledger: per-(type, method) log2 histograms of
@@ -553,6 +567,12 @@ class TensorEngine:
         self.replications = 0
         self.grains_replicated = 0
         self.replica_demotions = 0
+        # cross-silo migration: ring-change pushes and adoptions
+        self.migrations = 0
+        self.grains_migrated = 0
+        # host-key batches the handoff fence deferred this tick (queued
+        # again at the tick's end)
+        self._fence_deferred: List[Tuple[Tuple[str, str], PendingBatch]] = []
         # recent per-tick durations → true latency percentiles
         self.tick_durations: deque = deque(maxlen=self.config.latency_window)
         # per-stage host wall time (reference: StageAnalysis.cs:81):
@@ -744,7 +764,34 @@ class TensorEngine:
         """Bulk message injection: one call carries a whole (keys,
         payload) slab.  int32 device keys resolve optimistically on the
         device; anything else resolves (and activates) on the host.  The
-        batch keeps copies of the tensors it is given, taken now."""
+        batch keeps copies of the tensors it is given, taken now.
+
+        On a clustered silo host-key batches route through the router:
+        the local partition enqueues here, remote partitions ship as
+        slabs to their ring owners.  Device-key batches stay local —
+        remote keys surface as optimistic-resolution misses and ship at
+        the next quiescence point (``_drain_checks``)."""
+        type_name = self._type_name(interface)
+        if self.router is not None:
+            if (isinstance(keys, torch.Tensor) and keys.dtype == torch.int32
+                    and not want_results):
+                return self.enqueue_local_batch(type_name, method, keys,
+                                                args)
+            # everything else resolves eagerly on the host, which would
+            # activate remote-owned keys locally — route instead
+            if isinstance(keys, torch.Tensor):
+                keys = keys.cpu().numpy()
+            return self.router.route_batch(
+                type_name, method, np.asarray(keys, dtype=np.int64), args,
+                want_results=want_results)
+        return self.enqueue_local_batch(type_name, method, keys, args,
+                                        want_results=want_results)
+
+    def enqueue_local_batch(self, type_name: str, method: str, keys: Any,
+                            args: Any, want_results: bool = False
+                            ) -> Optional[asyncio.Future]:
+        """Queue a batch on THIS engine without ownership routing (the
+        router calls this for partitions it has already proven local)."""
         future = asyncio.get_running_loop().create_future() \
             if want_results else None
         args = _map_tree(_park_copy, args)
@@ -762,7 +809,6 @@ class TensorEngine:
             batch = PendingBatch(args=args, future=future,
                                  keys_host=np.asarray(keys, dtype=np.int64),
                                  inject_tick=self.tick_number)
-        type_name = self._type_name(interface)
         if (type_name, method) in self._journal_sites:
             # write-ahead: journal the ingress before it can run
             self.checkpointer.journal_ingress(type_name, method, batch)
@@ -976,23 +1022,70 @@ class TensorEngine:
                     route, route.type_name, route.method, b.keys_dev,
                     b.args, gate, b.inject_tick)
 
-    def make_injector(self, interface, method: str,
-                      keys: np.ndarray) -> "BatchInjector":
+    def make_injector(self, interface, method: str, keys: np.ndarray):
         """Pre-resolve a stable destination set once; later injections
-        reuse the device row vector (the steady-state client edge)."""
-        return BatchInjector(self, self._type_name(interface), method,
-                             np.asarray(keys, dtype=np.int64))
+        reuse the device row vector (the steady-state client edge).  On a
+        clustered silo the split by ring owner is part of what is
+        resolved once (``router.make_injector`` → ``ClusterInjector``)."""
+        type_name = self._type_name(interface)
+        keys = np.asarray(keys, dtype=np.int64)
+        if self.router is not None:
+            return self.router.make_injector(type_name, method, keys)
+        return BatchInjector(self, type_name, method, keys)
 
     def fuse_ticks(self, interface, method: str, keys: np.ndarray):
         """The steady-state tick of (interface, method) over a fixed key
         set as one multi-tick program (``tensor/fused.py``): its
         ``run(stacked_args, static_args)`` executes a whole [T, ...]
         window, and ``verify()`` must report 0 misses for it to be
-        exact."""
+        exact.  On a clustered silo the key set must be ring-owned here:
+        a fused window is a one-engine program (fuse each silo's own
+        partition; cross-silo traffic rides the slab path)."""
         from orleans_tpu_torch.tensor.fused import FusedTickProgram
 
-        return FusedTickProgram(self, self._type_name(interface), method,
-                                np.asarray(keys, dtype=np.int64))
+        type_name = self._type_name(interface)
+        keys = np.asarray(keys, dtype=np.int64)
+        if self.router is not None:
+            local_mask, remote = self.router.partition(type_name, keys)
+            if remote:
+                raise ValueError(
+                    f"fuse_ticks({type_name}): {int((~local_mask).sum())} "
+                    f"of {len(keys)} keys are ring-owned by other silos; "
+                    "a fused window would activate them locally (duplicate "
+                    "activation). Fuse only keys[local] per silo — "
+                    "partition with silo.vector_router.partition().")
+        return FusedTickProgram(self, type_name, method, keys)
+
+    def send_one(self, grain_id, method, args: tuple
+                 ) -> Optional[asyncio.Future]:
+        """Single-message path (a vector grain's per-message call): a
+        one-lane batch through ``send_batch``; the future resolves to the
+        lane's result."""
+        info = vector_type(grain_id.type_code)
+        if info is None:
+            raise KeyError(f"{grain_id} is not a vector grain")
+        payload = args[0] if args else {}
+        one = _map_tree(lambda x: np.asarray([x]), payload)
+        fut = self.send_batch(info.name, method.name,
+                              np.array([grain_id.primary_key_int]), one,
+                              want_results=not method.one_way)
+        if fut is None:
+            return None
+        scalar = asyncio.get_running_loop().create_future()
+
+        def unwrap(f: asyncio.Future) -> None:
+            if scalar.done():
+                return
+            if f.exception() is not None:
+                scalar.set_exception(f.exception())
+            else:
+                res = f.result()
+                scalar.set_result(
+                    _map_tree(lambda x: np.asarray(x)[0], res)
+                    if res is not None else None)
+
+        fut.add_done_callback(unwrap)
+        return scalar
 
     # ================= tick loop ==========================================
 
@@ -1016,6 +1109,12 @@ class TensorEngine:
     def _wake_up(self) -> None:
         if self._wake is not None:
             self._wake.set()
+
+    def halt(self) -> None:
+        """End the engine loop at once, queued work dropped (a silo's
+        hard kill)."""
+        self._running = False
+        self._wake_up()
 
     async def _loop(self) -> None:
         while self._running:
@@ -1050,7 +1149,13 @@ class TensorEngine:
         miss-checks (the pipelined steady-state path)."""
         while any(self.queues.values()):
             self.run_tick()
-            await asyncio.sleep(0)
+            if self.router is not None \
+                    and not self.router.handoff_settled():
+                # the handoff fence is re-queueing unseen-key batches —
+                # pace the retries for the fence window
+                await asyncio.sleep(0.002)
+            else:
+                await asyncio.sleep(0)
 
     async def flush(self) -> None:
         """Run ticks until every queue drains AND every optimistic
@@ -1063,7 +1168,18 @@ class TensorEngine:
             if self.autofuser.flush_partial():
                 requeued = True
             if not requeued:
+                if self.router is not None and self.router._retry_tasks:
+                    # parked cross-silo redelivery (over-forwarded slabs
+                    # awaiting backoff) is in-flight work; the retry
+                    # budget bounds this wait
+                    await asyncio.sleep(0.01)
+                    continue
                 break
+            if self.router is not None \
+                    and not self.router.handoff_settled():
+                # the fence is deferring unseen-key activation — pace the
+                # retry loop while awaiting peers' releases
+                await asyncio.sleep(0.005)
         # fold un-taken expansion drops (direct expand() users) into the
         # fan-outs' and stream routes' host stats
         for fanout, _, _ in self._fanouts.values():
@@ -1116,6 +1232,14 @@ class TensorEngine:
             self.queues = defaultdict(list)
             for (type_name, method), batches in pending.items():
                 tf = time.perf_counter()
+                if self.router is not None:
+                    # ownership + handoff fence BEFORE fan-out: shipped and
+                    # fence-deferred batches must not expand their
+                    # subscriber deliveries here this tick
+                    batches = self._route_group(type_name, method, batches)
+                    if not batches:
+                        stages["fanout"] += time.perf_counter() - tf
+                        continue
                 self._run_fanout(type_name, method, batches)
                 batches = self._run_stream_routes_pre(type_name, method,
                                                       batches)
@@ -1127,6 +1251,10 @@ class TensorEngine:
             # round-cap spill: these run next tick, after the caller may
             # have rewritten the tensors they reference
             batches[:] = [_spill_copy(b) for b in batches]
+        if self._fence_deferred:
+            for qkey, b in self._fence_deferred:
+                self.queues[qkey].append(b)
+            self._fence_deferred = []
         t_cp = self.maybe_periodic_checkpoint()
         if t_cp:
             stages["checkpoint"] += t_cp
@@ -1273,6 +1401,48 @@ class TensorEngine:
             miss_keys, missing = _miss_keys(c.keys, c.rows, c.valid, MISS_BUF)
             mk = miss_keys.cpu().numpy()
             mk = mk[mk != KEY_SENTINEL].astype(np.int64)
+            if self.router is not None and len(mk):
+                # single activation across silos: a miss key owned by a
+                # remote silo must NOT activate here — its messages ship
+                # to the owner as one slab per destination
+                local_mask, remote = self.router.partition(c.type_name, mk)
+                if remote:
+                    keys_np = c.keys.cpu().numpy()
+                    missing_np = missing.cpu().numpy().copy()
+                    args_h = _map_tree(
+                        lambda a: a.cpu().numpy()
+                        if isinstance(a, torch.Tensor) and a.dim() else a,
+                        c.args)
+                    shipped = np.zeros(len(keys_np), dtype=bool)
+                    for target, ridx in remote.items():
+                        sel = missing_np & np.isin(
+                            keys_np, mk[ridx].astype(keys_np.dtype))
+                        if not sel.any():
+                            continue
+                        sidx = np.nonzero(sel)[0]
+                        self.router.ship_slab(
+                            target, c.type_name, c.method,
+                            keys_np[sidx].astype(np.int64),
+                            _map_tree(lambda a: _host_take(a, sidx),
+                                      args_h))
+                        shipped |= sel
+                    mk = mk[local_mask]
+                    missing_np &= ~shipped
+                    if len(mk) == 0 and not missing_np.any():
+                        continue  # whole batch shipped — nothing local left
+                    missing = torch.from_numpy(missing_np).to(self.device)
+            if len(mk) and self.router is not None \
+                    and not self.router.handoff_settled():
+                # handoff fence: activating these unseen keys could read
+                # the store before the previous owner's write-back lands —
+                # requeue and retry once peers release (or time out).
+                # no_fanout while fenced: every masked lane is known
+                # unresolvable; the post-settle requeue expands again.
+                self.queues[(c.type_name, c.method)].append(PendingBatch(
+                    args=c.args, keys_dev=c.keys, mask=missing,
+                    no_fanout=True, inject_tick=c.inject_tick))
+                requeued = True
+                continue
             if len(mk):
                 c.arena.resolve_rows(mk, tick=self.tick_number)  # activates
             # re-deliver only the dropped messages; converges over passes
@@ -1378,6 +1548,94 @@ class TensorEngine:
             [m if m is not None else self._mask_for(len(b))
              for m, b in zip(masks, batches)])
         return rows, args, mask
+
+    def _filter_ownership(self, type_name: str, method: str,
+                          batches: List[PendingBatch]
+                          ) -> List[PendingBatch]:
+        """Resolve-time ownership re-check for host-key batches.
+
+        Ownership proven at enqueue time can be stale at drain time (a
+        ring change between the two evicts the keys by handoff); blindly
+        re-resolving would activate them here while the new owner also
+        activates them.  Strays found now are shipped (or, for a batch
+        with a result future, the whole batch is routed again and its
+        future chained).  One-member rings short-circuit inside
+        ``partition``."""
+        arena = self.arenas.get(type_name)
+        gen = arena.generation if arena is not None else -1
+        epoch = arena.eviction_epoch if arena is not None else -1
+        out: List[PendingBatch] = []
+        for b in batches:
+            if b.keys_host is None:
+                out.append(b)  # device keys: the miss path owns routing
+                continue
+            if b.rows is not None and b.generation == gen \
+                    and b.epoch == epoch:
+                # injector fast path: the handoff evicts strays by bumping
+                # the epoch, so still-valid rows imply still-owned keys
+                out.append(b)
+                continue
+            local_mask, remote = self.router.partition(type_name,
+                                                       b.keys_host)
+            if not remote:
+                out.append(b)
+                continue
+            if b.future is not None:
+                # results are positional over the whole batch
+                routed = self.router.route_batch(
+                    type_name, method, b.keys_host, b.args,
+                    want_results=True)
+
+                def relay(f: asyncio.Future, dst=b.future) -> None:
+                    if dst.done():
+                        return
+                    if f.exception() is not None:
+                        dst.set_exception(f.exception())
+                    else:
+                        dst.set_result(f.result())
+
+                routed.add_done_callback(relay)
+                continue
+            args_h = _map_tree(
+                lambda a: a.cpu().numpy()
+                if isinstance(a, torch.Tensor) and a.dim() else a, b.args)
+            for target, ridx in remote.items():
+                self.router.ship_slab(
+                    target, type_name, method, b.keys_host[ridx],
+                    _map_tree(lambda a: _host_take(a, ridx), args_h))
+            lidx = np.nonzero(local_mask)[0]
+            if len(lidx):
+                out.append(PendingBatch(
+                    args=_map_tree(lambda a: _host_take(a, lidx), args_h),
+                    keys_host=b.keys_host[lidx], no_fanout=b.no_fanout,
+                    inject_tick=b.inject_tick))
+        return out
+
+    def _route_group(self, type_name: str, method: str,
+                     batches: List[PendingBatch]) -> List[PendingBatch]:
+        """Clustered pre-pass of one (type, method) group, run before
+        fan-out expansion: ship non-owned partitions (the ownership
+        re-check) and park fence-deferred batches.  A batch the handoff
+        fence defers defers with its fan-out unexpanded, so the source
+        update and its subscriber deliveries land in the same later
+        tick."""
+        arena = self.arena_for(type_name)
+        batches = self._filter_ownership(type_name, method, batches)
+        if batches and not self.router.handoff_settled():
+            # host-key batches touching unseen keys would activate them
+            # from the store, racing the previous owner's write-back
+            safe: List[PendingBatch] = []
+            for b in batches:
+                if b.keys_host is not None and (
+                        b.rows is None or b.generation != arena.generation
+                        or b.epoch != arena.eviction_epoch):
+                    _, found = arena.lookup_rows(b.keys_host)
+                    if not found.all():
+                        self._fence_deferred.append(((type_name, method), b))
+                        continue
+                safe.append(b)
+            batches = safe
+        return batches
 
     def _run_group(self, type_name: str, method: str,
                    batches: List[PendingBatch]) -> None:
@@ -1654,6 +1912,17 @@ class BatchInjector:
 
     def _refresh(self) -> None:
         arena = self._arena
+        router = self.engine.router
+        if router is not None and not router.handoff_settled():
+            _, found = arena.lookup_rows(self.keys)
+            if not found.all():
+                # handoff fence: activating unseen keys here could read the
+                # store before the previous owner's write-back.  No row
+                # cache: inject() queues host-key batches, which the
+                # engine fences (and resolves) at drain
+                self.rows = None
+                self.generation = -2  # never matches: retry next inject
+                return
         if (self.rows is not None and self.generation == arena.generation
                 and self.restore_epoch == arena.restore_epoch
                 and self.epoch != arena.eviction_epoch):

@@ -40,8 +40,10 @@ live slots at absolute dues (full) or the op log since the previous cut
 (delta), ``restore_entry`` applies a recovered cut to the host mirrors and
 ``finish_restore`` retires what was due at or before the cut, rebuilds the
 wheels and uploads the columns once, so journal replay re-fires everything
-due after the cut exactly once.  Migration (``export_keys`` /
-``adopt_keys``) belongs to the multi-shard slice of the port.
+due after the cut exactly once.  A cross-silo handoff moves armed timers
+with their grains (``export_keys`` / ``adopt_keys``: remaining ticks
+relative to each engine's clock); migration between shard blocks of one
+arena belongs to the multi-shard slice of the port.
 """
 
 from __future__ import annotations
@@ -66,7 +68,6 @@ _SENT = int(SENTINEL)
 OP_ARM = 0
 OP_CANCEL = 1
 
-_MIGRATION = "belongs to the multi-shard slice of the port (migration)"
 
 
 def _pad_vals(vals: np.ndarray, n: int, fill, dtype) -> np.ndarray:
@@ -267,7 +268,7 @@ class TimersPlane:
         self.fired_total = 0
         self.re_armed_total = 0
         self.cancelled_total = 0
-        # moved by migration, a later slice; kept for JAX's snapshot keys
+        # timers moved out and in by cross-silo handoffs
         self.exported_total = 0
         self.adopted_total = 0
         self.harvests = 0
@@ -554,13 +555,56 @@ class TimersPlane:
             tt.wheel.place(later, tt.stamp_np[later], tt.due_np[later])
         return fire, tt.stamp_np[fire]
 
-    # -- migration (a later slice) ---------------------------------------------
+    # -- migration (router ride-along) --------------------------------------
 
-    def export_keys(self, type_name: str, keys: np.ndarray) -> Any:
-        raise NotImplementedError(f"timers export_keys {_MIGRATION}")
+    def export_keys(self, type_name: str, keys: np.ndarray
+                    ) -> Optional[Dict[str, Any]]:
+        """Detach every timer armed on the moving keys and return them as
+        a transport-plain payload (remaining ticks are relative: the
+        source and target engine clocks differ).  Runs inside the
+        handoff's synchronous block: the source can no longer fire them,
+        the target arms them before traffic resumes."""
+        tt = self._types.get(type_name)
+        if tt is None or tt.armed == 0:
+            return None
+        moving = np.isin(tt.key_np, np.asarray(keys, np.int64))
+        moving[0] = False
+        slots = np.flatnonzero(moving)
+        if not len(slots):
+            return None
+        eng = self.engine()
+        payload = {
+            "keys": tt.key_np[slots].tolist(),
+            "names": [self._names[i] for i in tt.name_np[slots]],
+            "remaining": np.maximum(
+                tt.due_np[slots] - eng.tick_number, 0).tolist(),
+            "periods": tt.period_np[slots].tolist(),
+        }
+        for s in slots:
+            tt.index.pop((int(tt.key_np[s]), int(tt.name_np[s])), None)
+        self._record(OP_CANCEL, type_name, tt.key_np[slots],
+                     tt.name_np[slots], np.zeros(len(slots), np.int64),
+                     np.zeros(len(slots), np.int64))
+        self._free_slots(tt, slots, sync=True)
+        self.exported_total += len(slots)
+        return payload
 
     def adopt_keys(self, type_name: str, payload: Dict[str, Any]) -> int:
-        raise NotImplementedError(f"timers adopt_keys {_MIGRATION}")
+        """Arm migrated timers at the local clock: due = local tick +
+        remaining (at least one tick out)."""
+        if not payload or not payload.get("keys"):
+            return 0
+        eng = self.engine()
+        keys = np.asarray(payload["keys"], np.int64)
+        nids = np.asarray([self._intern(n) for n in payload["names"]],
+                          np.int32)
+        dues = eng.tick_number + np.maximum(
+            np.asarray(payload["remaining"], np.int64), 1)
+        periods = np.asarray(payload["periods"], np.int64)
+        self._record(OP_ARM, type_name, keys, nids, dues, periods)
+        n = self._arm_host(type_name, keys, nids, dues, periods, sync=True)
+        self.adopted_total += n
+        return n
 
     # -- durability (checkpoint ride-along) ---------------------------------
 

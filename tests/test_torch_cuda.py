@@ -1498,3 +1498,85 @@ def test_fused_window_rebuilds_after_adoption_on_card(cuda_device):
     got = banking.read_accounts(standby, keys)
     for name, want in banking.read_accounts(oracle, keys).items():
         np.testing.assert_array_equal(got[name], want, err_msg=name)
+
+
+@pytest.mark.parametrize("bounds", [None, (0, 700, 700, 1500, 2048)])
+def test_gather_args_matches_plain(cuda_device, bounds):
+    """K22 against its plain version bit for bit: bool, int32, float32
+    ``[n]`` and ``[n, 4]``, int64 leaves, one permutation cut into
+    segments (an empty one among them), m = 0 and out-of-range indices
+    (both clip)."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.kernels import router as kr
+
+    rng = np.random.default_rng(22)
+    n = 4096
+    leaves = [torch.from_numpy(a).to(cuda_device) for a in (
+        rng.random(n) < 0.5, rng.integers(-2**31, 2**31 - 1, n, dtype=np.int32),
+        rng.random(n, dtype=np.float32), rng.random((n, 4), dtype=np.float32),
+        rng.integers(-2**62, 2**62, n, dtype=np.int64))]
+    idx = rng.permutation(n)[:2048].astype(np.int32)
+    idx[:3] = [-5, n, n + 100]
+    idx_d = torch.from_numpy(idx).to(cuda_device)
+    _build.reset_launch_counts()
+    s, v, layout = kr.gather_args(leaves, idx_d, bounds)
+    assert kr.gather_args.launches == 1
+    ws, wv, _ = kr.gather_args_plain(leaves, idx_d, bounds)
+    # piece by piece: the alignment padding between pieces is unwritten
+    for seg, want in zip(v, wv):
+        for got, w in zip(seg, want):
+            assert torch.equal(got, w)
+    if bounds is not None:
+        host = kr.fetch_segments(s, layout, leaves, leaves, first=1)
+        for seg, views in zip(host, v[1:]):
+            for h, d in zip(seg, views):
+                np.testing.assert_array_equal(h, d.cpu().numpy())
+    _, v0, _ = kr.gather_args(leaves, idx_d[:0])
+    assert all(x.shape[0] == 0 for x in v0[0])
+    assert kr.gather_args.launches == 1  # m = 0 launches nothing
+
+
+def test_two_silo_cluster_on_card_matches_cpu(cuda_device):
+    """Cross-silo Presence over 2 silos on the card (K22 splits the device
+    payload, remote games miss and ship) equals the same cluster on the
+    CPU, key by key."""
+    import asyncio
+
+    import orleans_tpu_torch.samples.presence  # noqa: F401
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples.presence import run_presence_load
+    from orleans_tpu_torch.testing import TestingCluster
+
+    def drive(device):
+        async def main():
+            cluster = await TestingCluster(n_silos=2, device=device).start()
+            try:
+                a = cluster.silos[0]
+                await run_presence_load(a.tensor_engine, n_players=20_000,
+                                        n_games=200, n_ticks=12)
+                await cluster.quiesce_engines()
+                out = {}
+                for s in cluster.silos:
+                    for t, arena in s.tensor_engine.arenas.items():
+                        for k in arena.keys().tolist():
+                            assert (t, k) not in out
+                            out[(t, k)] = {c: np.asarray(x) for c, x in
+                                           arena.read_row(k).items()}
+                return out
+            finally:
+                await cluster.stop()
+        return asyncio.run(main())
+
+    _build.reset_launch_counts()
+    gpu = drive(cuda_device)
+    counts = _build.launch_counts()
+    cpu = drive("cpu")
+    for name in ("gather_args", "miss_keys", "seg_sum"):
+        assert counts[name] > 0, name
+    assert set(gpu) == set(cpu)
+    for key, want in cpu.items():
+        for c, w in want.items():
+            if np.issubdtype(w.dtype, np.floating):
+                np.testing.assert_allclose(gpu[key][c], w, rtol=1e-5)
+            else:
+                np.testing.assert_array_equal(gpu[key][c], w, err_msg=c)

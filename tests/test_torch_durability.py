@@ -1240,7 +1240,8 @@ def test_fused_window_rebuilds_after_adoption(run):
 
 def test_timers_cut_no_longer_raises():
     """The port's timers plane exports, restores and finishes a cut like
-    the JAX plane (export_keys / adopt_keys stay for migration)."""
+    the JAX plane; the restored timers then move out by export_keys (the
+    cross-silo handoff's ride-along) and arm again by adopt_keys."""
     eng = _engine(P, {})
     eng.timers.arm_batch("DuraTimerProbe", np.arange(4, dtype=np.int64),
                          np.full(4, 9, np.int64), 0, "t")
@@ -1254,8 +1255,10 @@ def test_timers_cut_no_longer_raises():
     eng2.timers.restore_entry(arrays_d, meta_d)
     eng2.timers.finish_restore(0)
     assert eng2.timers.armed_total == 3
-    with pytest.raises(NotImplementedError):
-        eng2.timers.export_keys("DuraTimerProbe", np.arange(2))
+    moved = eng2.timers.export_keys("DuraTimerProbe", np.arange(2))
+    assert moved["keys"] == [0, 1] and moved["remaining"] == [9, 9]
+    assert eng2.timers.armed_total == 1
+    assert eng.timers.adopt_keys("DuraTimerProbe", moved) == 2
 
 
 def test_recover_without_manifest_is_a_no_op(run):
