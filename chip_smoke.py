@@ -2,8 +2,9 @@
 """Chip smoke of the PyTorch/CUDA port: Presence, WidePresence, Chirper, the
 grain lifecycle, the timers plane, the streams plane, hot-grain replicas
 (the routing sample), GPSTracker, TwitterSentiment, the durable state
-plane (checkpoints, journal, recovery, warm standby) and clustered silos
-(the cross-silo vector data plane) on one NVIDIA card.
+plane (checkpoints, journal, recovery, warm standby), clustered silos
+(the cross-silo vector data plane) and shard blocks with the cross-shard
+exchange (the routing sample's ratio sweep) on one NVIDIA card.
 
 Run from the repository root on a machine with an H100 and the CUDA toolkit:
 
@@ -176,7 +177,30 @@ Phases, each of which fails loudly (exit code other than 0):
    drive on a fresh 2-silo cluster: 8 uneven host fragments a tick,
    sender aggregation on, 10 ticks, exact (merge ratio, codec bytes).
    Launches counted per arm; K22 must launch there and nowhere earlier.
-13. One JSON line of the kernels, the card line, and last
+13. Shard blocks and the cross-shard exchange (``drive_exchange_path``),
+   8 blocks of one arena on the card.  K23 ``exchange_classify`` (probe
+   and cap-0 modes) and K24 ``exchange_buckets`` (legacy and
+   per-destination layouts, fitting and overflowing on either side)
+   against their plain versions bit for bit, at 4,000,000 lanes padded to
+   4,194,304, with the caps the sweep's estimator grants and 4-byte,
+   8-byte and 2-D leaves, each timed beside its bound, its plain version
+   and a library composite.  Then the routing sample's ratio sweep at
+   bench.py ``_multichip_tier``'s full size (4,000,000 sources, 524,288
+   sinks, ratios 0.9, 0.5, 0.1 and 0, 12 unfused ticks and fused windows
+   of 4) in three arms — the structured exchange ("always", the legacy
+   layout pinned), exchange off, and "auto" (disengaged on one card:
+   identity plus the sampled probe) — each exact against
+   ``expected_sink_state``, the structured arm's sink leg crossing exactly
+   round(ratio * n) lanes a tick with every lane delivered; messages/s per
+   ratio and the device ms of a tick and a window at ratio 0.5.  Then the
+   throughput point (262,144 / 8,192, ratio 0.1, windows of 64), the
+   per-destination arm, the overflow arm (a grant shrunk to cap 0, then
+   ratio 0.9: dropped lanes delivered again with their original stamp,
+   late lanes in the ledger) and the migration arm (52,429 sinks and 4,096
+   sources moved with pins while a tick is queued, exact against a
+   never-migrated engine, every mover in its pinned block, the move's
+   gathers and sets counted).  No earlier path may launch K23 or K24.
+14. One JSON line of the kernels, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -232,6 +256,13 @@ FOLD_ACCOUNTS, FOLD_EVENTS, FOLD_LANES = 50_000, 240, 32_768
 # bench.py --workload cluster at PLAYERS / GAMES)
 K22_LANES = 1_048_576
 TRACE_TICKS, FUSED_CLUSTER_TICKS, JOIN_TICKS, FRAG_TICKS = 8, 64, 10, 10
+# the cross-shard exchange: bench.py _multichip_tier's full size over 8
+# shard blocks of one card; ratios in descending order (see _ex_sweep_arm)
+EX_BLOCKS = 8
+EX_SOURCES, EX_SINKS, EX_TICKS, EX_WINDOW = 4_000_000, 524_288, 12, 4
+EX_RATIOS = (0.9, 0.5, 0.1, 0.0)
+EX_TP = (262_144, 8_192, 0.1, 128, 64)   # sources, sinks, ratio, ticks, window
+EX_MOVERS = 52_429                       # 10% of the sinks
 
 SOURCES = {
     "resolve_dense": ("orleans_tpu_torch/csrc/resolve.cu",
@@ -280,6 +311,10 @@ SOURCES = {
                    "orleans_tpu/tensor/checkpoint.py:97"),
     "gather_args": ("orleans_tpu_torch/csrc/router.cu",
                     "orleans_tpu/tensor/router.py:49"),
+    "exchange_classify": ("orleans_tpu_torch/csrc/exchange.cu",
+                          "orleans_tpu/tensor/exchange.py:83"),
+    "exchange_buckets": ("orleans_tpu_torch/csrc/exchange.cu",
+                         "orleans_tpu/tensor/exchange.py:656"),
 }
 # the kernels each path must launch (launch counts zeroed before it, read
 # after it)
@@ -330,6 +365,12 @@ ALSO_REPLACES = {"row_scatter": ["orleans_tpu/tensor/vector_grain.py:253",
                  "dirty_mask": ["orleans_tpu/tensor/checkpoint.py:109"],
                  "seg_pull": ["orleans_tpu/tensor/vector_grain.py:194",
                               "orleans_tpu/tensor/attribution.py:133"],
+                 "exchange_classify": ["orleans_tpu/tensor/exchange.py:101",
+                                       "orleans_tpu/tensor/exchange.py:405"],
+                 "exchange_buckets": ["orleans_tpu/tensor/exchange.py:772",
+                                      "orleans_tpu/tensor/exchange.py:720",
+                                      "orleans_tpu/tensor/exchange.py:851",
+                                      "orleans_tpu/tensor/exchange.py:964"],
                  "attr_fold": ["orleans_tpu/tensor/attribution.py:133",
                                "orleans_tpu/tensor/attribution.py:161",
                                "orleans_tpu/tensor/attribution.py:174",
@@ -5058,6 +5099,621 @@ def drive_cluster_path(dev, card: str, timer) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: shard blocks and the cross-shard exchange
+# ---------------------------------------------------------------------------
+
+def _ex_engine(dev, **cfg):
+    """A routing engine over ``EX_BLOCKS`` shard blocks on the card at the
+    default config (ledger and attribution plane on), the legacy layout
+    pinned as bench.py ``_multichip_tier`` pins it, auto-fusion off (the
+    sample drives its fused windows by hand)."""
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.samples import routing  # noqa: F401
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+    from orleans_tpu_torch.tensor.mesh import ShardMesh
+
+    cfg.setdefault("exchange_per_dest", "never")
+    return TensorEngine(mesh=ShardMesh(EX_BLOCKS, dev), device=dev,
+                        config=TensorEngineConfig(auto_fusion_ticks=0,
+                                                  **cfg))
+
+
+def _ex_sink_lanes(rng, n_lanes: int, L: int, sc: int, ratio: float):
+    """Lanes laid out as the sink leg's (chunk s = lane // L holds the
+    emits of block s's sources): a lane crosses to a random other block
+    with probability ``ratio``; 3% padding and 2% masked lanes."""
+    n = EX_BLOCKS
+    chunk = np.arange(n_lanes) // L
+    cross = rng.random(n_lanes) < ratio
+    other = (chunk + rng.integers(1, n, n_lanes)) % n
+    dest = np.where(cross, other, chunk)
+    rows = (dest * sc + rng.integers(0, sc, n_lanes)).astype(np.int32)
+    rows[rng.random(n_lanes) < 0.03] = -1
+    return rows, rng.random(n_lanes) >= 0.02
+
+
+def check_exchange_kernels(dev, timer, card: str) -> dict:
+    """K23 (both modes) and K24 (both layouts) against their plain
+    versions, bit for bit, at the sweep's shapes: 4,000,000 lanes padded to
+    4,194,304 over 8 blocks of 131,072 rows (the sink arena at 524,288
+    sinks), laid out as the sink leg at ratio 0.5, with the caps the
+    sweep's estimator grants from this demand (the legacy grant, the same
+    halved so lanes overflow, the per-destination grants and receive rung,
+    and that rung halved so the receive side overflows); payload leaves of
+    4 bytes (float32), 8 bytes (int64) and one [m, 2] int32.  Each kernel
+    timed beside its bound and its plain version; no single PyTorch call
+    computes either, so the library figure is a composite (noted)."""
+    from orleans_tpu_torch.kernels import exchange as kx
+    from orleans_tpu_torch.tensor.exchange import _SiteEstimator, ladder_ceil
+
+    n, m = EX_BLOCKS, EX_SOURCES
+    L = ladder_ceil(-(-m // n))
+    sc = 2 * (EX_SINKS // n)          # the sink arena's block after reserve
+    rng = np.random.default_rng(13013)
+    rows_np, mask_np = _ex_sink_lanes(rng, m, L, sc, 0.5)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rows, mask = t(rows_np), t(mask_np)
+    leaves = [t(rng.integers(1, 8, m).astype(np.float32)),
+              t(rng.integers(-2**62, 2**62, m, dtype=np.int64)),
+              t(rng.integers(0, 9, (m, 2)).astype(np.int32))]
+    out = {}
+    for mode in ("probe", "cap0"):
+        got = kx.exchange_classify(rows, mask, sc, L, n, mode)
+        want = kx.exchange_classify_plain(rows, mask, sc, L, n, mode)
+        pairs = zip(got, want) if mode == "cap0" else [(got, want)]
+        require(all(torch.equal(a, b) for a, b in pairs),
+                f"exchange_classify ({mode}) != plain")
+    stats = kx.exchange_classify(rows, mask, sc, L, n, "probe").cpu().numpy()
+    # the per-(source, destination) demand from a fitting legacy run
+    fit = kx.exchange_buckets_plain(rows, mask, leaves[:1], sc, L, n, cap=L)
+    need = fit[4].cpu().numpy()[3:]
+    est = _SiteEstimator(n)
+    est.observe(need[:n], 1.5, 4, inbound=need[n:])
+    cap = min(L, int(est.grant))
+    caps = [min(L, int(c)) for c in est.grants]
+    R = max(1, ladder_ceil(min(int(est.recv_grant), n * L)))
+    plans = {"legacy": dict(cap=cap), "legacy_overflow": dict(cap=cap // 2),
+             "perdest": dict(caps=caps, R=R),
+             "perdest_recv_overflow": dict(caps=caps, R=R // 2)}
+    for name, plan in plans.items():
+        got = kx.exchange_buckets(rows, mask, leaves, sc, L, n, **plan)
+        want = kx.exchange_buckets_plain(rows, mask, leaves, sc, L, n,
+                                         **plan)
+        same = torch.equal(got[0], want[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], want[1])) and all(
+            torch.equal(a, b) for a, b in zip(got[2:], want[2:]))
+        require(same, f"exchange_buckets ({name}) != plain")
+        dropped = int(want[4][1])
+        require((dropped > 0) == name.endswith("overflow"),
+                f"exchange_buckets ({name}): {dropped} lanes dropped")
+    # timing: K23 probe and cap-0 at the path's lanes; K24 at the legacy
+    # grant (the sweep's layout) with the path's two leaves (v, count)
+    path_leaves = [leaves[0], t(np.ones(m, np.int32))]
+    valid = int(stats[2])
+    leaf_b = 8
+    W = L + n * cap
+    b24 = m * (4 + 1 + leaf_b) + n * W * (4 + 1 + leaf_b) + m
+    lanes_p = n * L
+
+    def k23_composite():
+        chunk = torch.arange(lanes_p, device=dev) // L
+        r = torch.nn.functional.pad(rows, (0, lanes_p - m), value=-1)
+        mk = torch.nn.functional.pad(mask, (0, lanes_p - m))
+        ok = mk & (r >= 0)
+        dest = torch.where(ok, r // sc, n)
+        code = torch.where(dest == chunk, n, dest)
+        return torch.bincount(code, minlength=n + 1)
+
+    sdest = torch.where(rows >= 0, rows.long() // sc, n)
+    sdest = torch.nn.functional.pad(sdest, (0, lanes_p - m), value=n) \
+        .view(n, L)
+    out_rows = torch.empty(n * W, dtype=torch.int32, device=dev)
+    slot = torch.randperm(n * W, device=dev)[:lanes_p]
+
+    def k24_composite():
+        order = torch.argsort(sdest, dim=1, stable=True)
+        flat = (order + torch.arange(n, device=dev).view(n, 1) * L) \
+            .view(-1).clamp_(max=m - 1)
+        out_rows.index_put_((slot,), rows[flat])
+        for x in path_leaves:
+            x.index_select(0, flat)
+        return order
+
+    for name, fn, plain, composite, bytes_moved, what in (
+            ("exchange_classify",
+             lambda: kx.exchange_classify(rows, mask, sc, L, n, "probe"),
+             lambda: kx.exchange_classify_plain(rows, mask, sc, L, n,
+                                                "probe"),
+             k23_composite, 5 * m,
+             "elementwise classification + torch.bincount"),
+            ("exchange_buckets",
+             lambda: kx.exchange_buckets(rows, mask, path_leaves, sc, L, n,
+                                         cap=cap),
+             lambda: kx.exchange_buckets_plain(rows, mask, path_leaves, sc,
+                                               L, n, cap=cap),
+             k24_composite, b24,
+             "stable torch.argsort per chunk + index_put_ of the rows + "
+             "index_select of each leaf")):
+        r = dict(bound=bound(bytes_moved), **measure(timer, fn, plain, None))
+        r["composite_ms"] = timer(composite)
+        r.update(max_abs_err=0, library=None, library_note=(
+            f"no single PyTorch call: {what} take {r['composite_ms']:.4f} "
+            f"ms"), per={"lanes": m, "padded_lanes": lanes_p, "L": L,
+                         "blocks": n, "shard_capacity": sc})
+        out[name] = r
+    out["exchange_classify"]["cap0_ms"] = timer(
+        lambda: kx.exchange_classify(rows, mask, sc, L, n, "cap0"))
+    out["exchange_classify"]["cap0_bound_ms"] = bound(5 * m
+                                                      + 6 * lanes_p)[0]
+    out["exchange_buckets"]["per"].update(
+        cap=cap, W=W, caps=caps, R=R, valid_lanes=valid,
+        perdest_ms=timer(lambda: kx.exchange_buckets(
+            rows, mask, path_leaves, sc, L, n, caps=caps, R=R)),
+        perdest_bound_ms=bound(m * 13 + n * (L + R) * 13 + m)[0])
+    c, b = out["exchange_classify"], out["exchange_buckets"]
+    print(f"kernel exchange_classify: probe {c['ms']:.4f} ms on the device "
+          f"(plain {c['plain_ms']:.4f}, composite {c['composite_ms']:.4f}, "
+          f"bound {c['bound'][0]:.4f} by {c['bound'][1]}), cap-0 "
+          f"{c['cap0_ms']:.4f} (bound {c['cap0_bound_ms']:.4f}); {m} lanes "
+          f"over {n} blocks, L {L}; on {card}", flush=True)
+    print(f"kernel exchange_buckets: legacy cap {cap} (W {W}) {b['ms']:.4f} "
+          f"ms on the device, host {b['host_ms']:.4f} (plain "
+          f"{b['plain_ms']:.4f}, composite {b['composite_ms']:.4f}, bound "
+          f"{b['bound'][0]:.4f} by {b['bound'][1]}); per-destination caps "
+          f"{caps} R {R} {b['per']['perdest_ms']:.4f} ms (bound "
+          f"{b['per']['perdest_bound_ms']:.4f}); both layouts and both "
+          f"overflows bit-exact with 4-byte, 8-byte and 2-D leaves; on "
+          f"{card}", flush=True)
+    return out
+
+
+def _sink_columns(arena, idx) -> dict:
+    """The sink rows ``idx``'s ``total`` and ``received`` on the host."""
+    return {c: arena.state[c].index_select(0, idx).cpu().numpy()
+            for c in ("total", "received")}
+
+
+class _SinkOracle:
+    """The expected sink state of a run that may mix ratios and tick
+    counts: ``expected_sink_state`` summed over what was driven."""
+
+    def __init__(self, sources, sinks, values):
+        self.sources, self.sinks, self.values = sources, sinks, values
+        self.total = np.zeros(len(sinks), np.float64)
+        self.recv = np.zeros(len(sinks), np.int64)
+
+    def add(self, dst, ticks: int) -> None:
+        from orleans_tpu_torch.samples import routing
+
+        t, r = routing.expected_sink_state(self.sources, dst, self.values,
+                                           self.sinks, ticks)
+        self.total += t
+        self.recv += r
+
+    def check(self, engine, what: str) -> None:
+        arena = engine.arena_for("RouteSink")
+        rows, found = arena.lookup_rows(self.sinks)
+        require(found.all(), f"{what}: a sink is not live")
+        idx = torch.from_numpy(rows.astype(np.int64)).to(engine.device)
+        got = _sink_columns(arena, idx)
+        require(np.array_equal(got["received"], self.recv),
+                f"{what}: received != expected_sink_state")
+        # integer-valued float32 sums, all below 2**24: exact
+        require(float(self.total.max()) < 2**24, f"{what}: sums inexact")
+        require(np.array_equal(got["total"].astype(np.float64), self.total),
+                f"{what}: total != expected_sink_state")
+
+
+def _ex_counts(engine) -> dict:
+    x = engine.stats()["exchange"]
+    return {k: x[k] for k in ("cross_shard_msgs", "delivered_msgs",
+                              "dropped_msgs", "redeliveries",
+                              "exchanges_run")}
+
+
+def _ex_delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in a}
+
+
+def _ex_tick_ms(engine, sources, dst_d, values_d, oracle, dst,
+                n_blocks: int = 2) -> tuple:
+    """Device and host ms of one steady unfused tick: held timing over
+    blocks of 4 ticks through an injector (parked checks drained before
+    each block); the ticks join the oracle."""
+    inj = engine.make_injector("RouteSource", "send", sources)
+    count = [0]
+
+    def block():
+        for _ in range(4):
+            inj.inject({"dst": dst_d, "v": values_d,
+                        "tick": np.int32(count[0])})
+            count[0] += 1
+            engine.run_tick()
+            for _ in range(engine.config.max_rounds_per_tick):
+                if not any(engine.queues.values()):
+                    break
+                engine.run_tick()
+
+    dev_ms, host_ms = held_device_ms(block, reps=n_blocks,
+                                     prepare=engine._drain_checks)
+    asyncio.run(engine.flush())
+    oracle.add(dst, count[0])
+    return dev_ms / 4, host_ms / 4
+
+
+def _ex_window_ms(engine, sources, dst_d, values_d, oracle, dst) -> float:
+    """Device ms of one steady fused window of ``EX_WINDOW`` ticks (a
+    program built and verified first, then two replays held behind the
+    spin kernel); the ticks join the oracle."""
+    prog = engine.fuse_ticks("RouteSource", "send", sources)
+    static = {"dst": dst_d, "v": values_d}
+    ticks = torch.arange(EX_WINDOW, dtype=torch.int32, device=engine.device)
+    prog.run({"tick": ticks}, static_args=static)
+    require(prog.verify() == 0, "a timing window missed")
+    ms, _host = held_device_ms(lambda: prog.run({"tick": ticks},
+                                                static_args=static), reps=2)
+    require(prog.verify() == 0, "a timing window missed")
+    oracle.add(dst, 3 * EX_WINDOW)
+    return ms
+
+
+def _ex_sweep_arm(dev, card, arm: str, fused: bool, shared: dict) -> dict:
+    """One arm of the ratio sweep: ratios in descending order (a grant
+    sized at a higher ratio never undersizes a lower one, so the count
+    identities below hold with no overflow), each through
+    ``run_routing_load`` (3 warm and 12 timed unfused ticks, or 2 warm and
+    3 timed windows of 4) on one engine — except the structured fused arm,
+    which takes a fresh engine per ratio as bench.py does (its windows
+    rebuild at every grant move, and a shrinking grant of an earlier ratio
+    would move inside the timed windows); the sink state exact after
+    every ratio; on the structured unfused arm the sink leg crosses
+    exactly round(ratio * n) lanes a tick (the source leg where its lane
+    chunk is not its home block), every lane delivered, none dropped.  At
+    ratio 0.5 the device ms of a tick (unfused) or a window (fused)."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples import routing
+
+    cfg = {"always": dict(exchange_structured="always"),
+           "off": dict(cross_shard_exchange=False),
+           "auto": dict(exchange_structured="auto")}[arm]
+    fresh_each = fused and arm == "always"
+    sources, sinks, values = shared["sources"], shared["sinks"], \
+        shared["values"]
+    values_d = shared["values_d"]
+    out = {"ratios": {}}
+    eng = None
+    _build.reset_launch_counts()
+    for ratio in EX_RATIOS:
+        if eng is None or fresh_each:
+            eng = None
+            gc.collect()
+            eng = _ex_engine(dev, **cfg)
+            oracle = _SinkOracle(sources, sinks, values)
+        dst = shared["dst"][ratio]
+        x0 = _ex_counts(eng) if eng.exchange is not None else None
+        t0 = time.perf_counter()
+        st = asyncio.run(routing.run_routing_load(
+            eng, EX_SOURCES, EX_SINKS, ratio, n_ticks=EX_TICKS,
+            fused_window=EX_WINDOW if fused else 0))
+        wall = time.perf_counter() - t0
+        oracle.add(dst, st["total_ticks"])
+        oracle.check(eng, f"{arm} {'fused' if fused else 'unfused'} "
+                          f"ratio {ratio}")
+        row = dict(messages_per_sec=st["messages_per_sec"],
+                   seconds=st["seconds"], run_wall_s=wall,
+                   total_ticks=st["total_ticks"],
+                   bucket_utilization=st["bucket_utilization"])
+        if x0 is not None:
+            d = _ex_delta(x0, _ex_counts(eng))
+            row.update(d)
+            if arm == "always" and not fused:
+                ticks = st["total_ticks"]
+                want = (shared["src_cross"]
+                        + int(round(ratio * EX_SOURCES))) * ticks
+                require(d["cross_shard_msgs"] == want,
+                        f"ratio {ratio}: {d['cross_shard_msgs']} cross-shard "
+                        f"messages, want {want}")
+                require(d["delivered_msgs"] == 2 * EX_SOURCES * ticks
+                        and d["dropped_msgs"] == 0,
+                        f"ratio {ratio}: delivered {d['delivered_msgs']}, "
+                        f"dropped {d['dropped_msgs']}")
+                row["sink_leg_cross_per_tick"] = \
+                    d["cross_shard_msgs"] // ticks - shared["src_cross"]
+        if ratio == 0.5:
+            dst_d = torch.from_numpy(dst.astype(np.int32)).to(dev)
+            if fused:
+                row["window_device_ms"] = _ex_window_ms(
+                    eng, sources, dst_d, values_d, oracle, dst)
+            else:
+                row["tick_device_ms"], row["tick_host_ms"] = _ex_tick_ms(
+                    eng, sources, dst_d, values_d, oracle, dst)
+            oracle.check(eng, f"{arm} ratio 0.5 timing ticks")
+        out["ratios"][ratio] = row
+    out["counts"] = _build.launch_counts()
+    out["report"] = _build.launch_report()
+    c = out["counts"]
+    if arm == "always":
+        require(c["exchange_buckets"] > 0, f"{arm}: K24 never launched")
+    elif arm == "auto":
+        require(c["exchange_buckets"] == 0, "auto arm launched K24")
+        require(c["exchange_classify"] > 0 or fused,
+                "auto arm never probed (K23)")
+    else:
+        require(c["exchange_buckets"] == c["exchange_classify"] == 0,
+                "the exchange-off arm launched K23 or K24")
+    out["snapshot"] = eng.stats()["exchange"]
+    out["engaged"] = None if eng.exchange is None else eng.exchange.engaged()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ex_extra_arms(dev, card: str, shared: dict) -> dict:
+    """On a fresh structured engine (unfused): the sweep at ratio 0.9 to
+    size the grants, then the per-destination layout at ratio 0.5
+    (``exchange_per_dest="always"``, the plan must be per-destination),
+    then the overflow arm — patience 1, ratio 0 shrinks the sink leg's
+    grant to cap 0, and ratio 0.9 overflows it: the dropped lanes park
+    and are delivered again with their original stamp (the ledger's
+    RouteSink.recv histogram gains counts past bucket 0) — each exact."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples import routing
+
+    eng = _ex_engine(dev, exchange_structured="always")
+    oracle = _SinkOracle(shared["sources"], shared["sinks"],
+                         shared["values"])
+    out = {}
+
+    def sweep(ratio: float, n_ticks: int, what: str) -> dict:
+        x0 = _ex_counts(eng)
+        st = asyncio.run(routing.run_routing_load(
+            eng, EX_SOURCES, EX_SINKS, ratio, n_ticks=n_ticks))
+        oracle.add(shared["dst"][ratio], st["total_ticks"])
+        oracle.check(eng, what)
+        return dict(_ex_delta(x0, _ex_counts(eng)),
+                    messages_per_sec=st["messages_per_sec"],
+                    total_ticks=st["total_ticks"])
+
+    sweep(0.9, 4, "grant sizing at 0.9")
+    _build.reset_launch_counts()
+    eng.config.exchange_per_dest = "always"
+    pd = sweep(0.5, EX_TICKS, "per-destination arm")
+    site = ("RouteSink", "recv")
+    require(any(isinstance(k[1], tuple) and k[1][0] == "pd"
+                for k in eng.exchange._plans),
+            "the per-destination arm never ran the per-destination layout")
+    pd.update(counts=_build.launch_counts(),
+              grants=eng.exchange.snapshot()["sites"].get("RouteSink.recv"))
+    require(pd["counts"]["exchange_buckets"] > 0, "per-dest: no K24")
+    out["per_dest"] = pd
+    eng.config.exchange_per_dest = "never"
+    eng.config.exchange_shrink_patience = 1
+    hist0 = eng.ledger.snapshot().get("RouteSink.recv", {}).get("counts")
+    _build.reset_launch_counts()
+    calm = sweep(0.0, 4, "overflow arm, ratio 0")
+    require(eng.exchange.grant_for(site) == 0,
+            f"ratio 0 left the sink grant at {eng.exchange.grant_for(site)}")
+    over = sweep(0.9, 4, "overflow arm, ratio 0.9")
+    hist1 = eng.ledger.snapshot()["RouteSink.recv"]["counts"]
+    late = sum(hist1[1:]) - (sum(hist0[1:]) if hist0 else 0)
+    require(over["dropped_msgs"] > 0 and over["redeliveries"] > 0,
+            f"overflow arm: {over}")
+    require(late > 0, "overflow arm: no redelivered lane in the ledger "
+            "past bucket 0")
+    counts = _build.launch_counts()
+    require(counts["exchange_classify"] > 0,
+            "overflow arm: the cap-0 pass (K23) never ran")
+    require(over["delivered_msgs"] == 2 * EX_SOURCES * over["total_ticks"],
+            f"overflow arm: {over['delivered_msgs']} delivered")
+    out["overflow"] = dict(over, calm=calm, ledger_late_lanes=late,
+                           ledger_counts=hist1, counts=counts)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ex_migration_arm(dev, card: str, shared: dict) -> dict:
+    """Live migration at ratio 0.5: 4 ticks, a fifth injected and still
+    queued when 52,429 sinks (10%) and 4,096 sources move to random other
+    blocks with pins, then 7 more ticks.  The sink state equals a
+    never-migrated engine's driven alike and ``expected_sink_state``;
+    every mover lies in its pinned block; the queued batch's cached
+    source rows went stale at the epoch bump and were delivered through
+    host re-resolution; the move's K13 gathers and K3 sets are counted."""
+    from orleans_tpu_torch.kernels import _build
+
+    sources, sinks = shared["sources"], shared["sinks"]
+    dst = shared["dst"][0.5]
+    dst_d = torch.from_numpy(dst.astype(np.int32)).to(dev)
+    rng = np.random.default_rng(52429)
+    movers = rng.choice(sinks, EX_MOVERS, replace=False)
+    src_movers = rng.choice(sources, 4096, replace=False)
+    out = {}
+    states = {}
+    for migrate in (True, False):
+        eng = _ex_engine(dev, exchange_structured="always")
+        eng.arena_for("RouteSource").reserve(EX_SOURCES)
+        eng.arena_for("RouteSink").reserve(EX_SINKS)
+        eng.arena_for("RouteSource").resolve_rows(sources)
+        eng.arena_for("RouteSink").resolve_rows(sinks)
+        inj = eng.make_injector("RouteSource", "send", sources)
+
+        def tick(t: int, run: bool = True) -> None:
+            inj.inject({"dst": dst_d, "v": shared["values_d"],
+                        "tick": np.int32(t)})
+            if run:
+                asyncio.run(eng.drain_queues())
+
+        for t in range(4):
+            tick(t)
+        asyncio.run(eng.flush())
+        tick(4, run=False)  # in flight: queued with cached rows
+        if migrate:
+            sa = eng.arena_for("RouteSink")
+            ra = eng.arena_for("RouteSource")
+            home = sa.home_shards(movers)
+            to = (home + rng.integers(1, EX_BLOCKS, len(movers))) % EX_BLOCKS
+            src_to = (ra.home_shards(src_movers) + 1) % EX_BLOCKS
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            moved = eng.migrate_keys("RouteSink", movers, to)
+            moved += eng.migrate_keys("RouteSource", src_movers, src_to)
+            torch.cuda.synchronize()
+            move_s = time.perf_counter() - t0
+            mc = _build.launch_counts()
+            require(moved == EX_MOVERS + 4096, f"moved {moved}")
+            require(mc["gather_rows"] > 0 and mc["row_scatter"] > 0,
+                    f"the move's gathers/scatters uncounted: {mc}")
+            rows, found = sa.lookup_rows(movers)
+            require(found.all() and np.array_equal(
+                rows // sa.shard_capacity, to), "a mover off its block")
+            require(np.array_equal(sa.home_shards(movers), to),
+                    "a mover's pin is missing")
+            out.update(moved=moved, move_s=move_s,
+                       move_launches={k: mc[k] for k in
+                                      ("gather_rows", "row_scatter")})
+        asyncio.run(eng.drain_queues())
+        for t in range(5, 12):
+            tick(t)
+        asyncio.run(eng.flush())
+        oracle = _SinkOracle(sources, sinks, shared["values"])
+        oracle.add(dst, 12)
+        oracle.check(eng, f"migration arm (migrated={migrate})")
+        sa = eng.arena_for("RouteSink")
+        rows = sa.lookup_rows(sinks)[0]
+        states[migrate] = _sink_columns(
+            sa, torch.from_numpy(rows.astype(np.int64)).to(dev))
+        # the queued tick's cached source rows went stale at the move:
+        # every source (the movers too) counted each of its 12 sends
+        ra = eng.arena_for("RouteSource")
+        srows = torch.from_numpy(ra.lookup_rows(sources)[0].astype(
+            np.int64)).to(dev)
+        require(bool((ra.state["sent"].index_select(0, srows) == 12).all()),
+                f"migration arm (migrated={migrate}): a source's sends "
+                f"were lost or doubled")
+        if migrate:
+            out["exchange"] = _ex_counts(eng)
+        del eng, inj
+        gc.collect()
+        torch.cuda.empty_cache()
+    for c in ("total", "received"):
+        require(np.array_equal(states[True][c], states[False][c]),
+                f"migration arm: {c} != the never-migrated engine's")
+    return out
+
+
+def drive_exchange_path(dev, card: str, timer) -> dict:
+    """Phase 13: K23/K24 against their plain versions; the routing sweep
+    over 8 shard blocks at bench.py ``_multichip_tier``'s full size
+    (4,000,000 sources, 524,288 sinks, ratios 0.9, 0.5, 0.1, 0) in three
+    arms — the structured exchange ("always", legacy layout), exchange off,
+    and "auto" (disengaged on one card: identity plus the sampled probe) —
+    unfused and fused; the throughput point (262,144 / 8,192, ratio 0.1,
+    windows of 64); the per-destination, overflow and migration arms.
+    Launch counts zeroed before each arm and read after it."""
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples import routing
+    from orleans_tpu_torch.tensor.arena import shard_of_keys
+    from orleans_tpu_torch.tensor.exchange import ladder_ceil
+
+    out = {"counts": {}, "report": {}}
+    out["kernels"] = check_exchange_kernels(dev, timer, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sources = np.arange(EX_SOURCES, dtype=np.int64)
+    sinks = routing.sink_keys(EX_SINKS)
+    values = np.random.default_rng(1).integers(1, 8, EX_SOURCES) \
+        .astype(np.float32)   # run_routing_load's draw (seed 0 + 1)
+    # the unfused source leg's chunks: the injector's lanes in key order
+    lane_chunk = np.arange(EX_SOURCES) // ladder_ceil(-(-EX_SOURCES
+                                                        // EX_BLOCKS))
+    shared = dict(
+        sources=sources, sinks=sinks, values=values,
+        values_d=torch.from_numpy(values).to(dev),
+        dst={r: routing.build_ratio_destinations(sources, sinks, EX_BLOCKS,
+                                                 r, seed=0)
+             for r in EX_RATIOS},
+        src_cross=int((shard_of_keys(sources, EX_BLOCKS)
+                       != lane_chunk).sum()))
+    arms = {}
+    for arm in ("always", "off", "auto"):
+        for fused in (False, True):
+            name = f"exchange_{arm}_{'fused' if fused else 'unfused'}"
+            t0 = time.perf_counter()
+            arms[name] = _ex_sweep_arm(dev, card, arm, fused, shared)
+            arms[name]["arm_seconds"] = time.perf_counter() - t0
+            out["counts"][name] = arms[name].pop("counts")
+            out["report"][name] = arms[name].pop("report")
+            print(f"sweep {name}: " + ", ".join(
+                f"ratio {r}: {v['messages_per_sec']:.0f} messages/s"
+                for r, v in arms[name]["ratios"].items())
+                + f"; exact; {arms[name]['arm_seconds']:.1f} s; on {card}",
+                flush=True)
+    # the throughput point
+    _build.reset_launch_counts()
+    tp_n, tp_s, tp_r, tp_ticks, tp_w = EX_TP
+    eng = _ex_engine(dev, exchange_structured="always")
+    st = asyncio.run(routing.run_routing_load(eng, tp_n, tp_s, tp_r,
+                                              n_ticks=tp_ticks,
+                                              fused_window=tp_w))
+    tp_src = np.arange(tp_n, dtype=np.int64)
+    tp_sinks = routing.sink_keys(tp_s)
+    tp_oracle = _SinkOracle(tp_src, tp_sinks, np.random.default_rng(1)
+                            .integers(1, 8, tp_n).astype(np.float32))
+    tp_oracle.add(routing.build_ratio_destinations(tp_src, tp_sinks,
+                                                   EX_BLOCKS, tp_r),
+                  st["total_ticks"])
+    tp_oracle.check(eng, "throughput point")
+    out["counts"]["exchange_throughput"] = _build.launch_counts()
+    out["report"]["exchange_throughput"] = _build.launch_report()
+    require(out["counts"]["exchange_throughput"]["exchange_buckets"] > 0,
+            "throughput point: K24 never launched")
+    arms["throughput"] = dict(messages_per_sec=st["messages_per_sec"],
+                              seconds=st["seconds"],
+                              total_ticks=st["total_ticks"],
+                              bucket_utilization=st["bucket_utilization"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    arms.update(_ex_extra_arms(dev, card, shared))
+    out["counts"]["exchange_overflow"] = arms["overflow"].pop("counts")
+    out["counts"]["exchange_per_dest"] = arms["per_dest"].pop("counts")
+    _build.reset_launch_counts()
+    arms["migration"] = _ex_migration_arm(dev, card, shared)
+    out["counts"]["exchange_migration"] = _build.launch_counts()
+    require(out["counts"]["exchange_migration"]["exchange_buckets"] > 0,
+            "migration arm: K24 never launched")
+    out["arms"] = arms
+    tp, pd, ov, mg = (arms["throughput"], arms["per_dest"],
+                      arms["overflow"], arms["migration"])
+    a, f = arms["exchange_always_unfused"], arms["exchange_always_fused"]
+    o, of = arms["exchange_off_unfused"], arms["exchange_off_fused"]
+    a5, o5 = a["ratios"][0.5], o["ratios"][0.5]
+    print(f"exchange at ratio 0.5, {EX_SOURCES} sources / {EX_SINKS} sinks "
+          f"over {EX_BLOCKS} blocks: unfused tick "
+          f"{a5['tick_device_ms']:.3f} ms on the device (off "
+          f"{o5['tick_device_ms']:.3f}), "
+          f"fused window of {EX_WINDOW} "
+          f"{f['ratios'][0.5]['window_device_ms']:.3f} ms (off "
+          f"{of['ratios'][0.5]['window_device_ms']:.3f}); throughput point "
+          f"{tp['messages_per_sec']:.0f} messages/s; per-destination "
+          f"{pd['messages_per_sec']:.0f} messages/s exact; overflow "
+          f"{ov['dropped_msgs']} dropped, {ov['redeliveries']} "
+          f"redeliveries, {ov['ledger_late_lanes']} late lanes in the "
+          f"ledger, exact; migration {mg['moved']} grains in "
+          f"{mg['move_s']:.3f} s ({mg['move_launches']}), exact against "
+          f"the never-migrated engine; on {card}", flush=True)
+    print("exchange arms: " + json.dumps(arms, default=str), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -5067,7 +5723,7 @@ def main() -> int:
     from orleans_tpu_torch.kernels import _build
     # every counted wrapper registered before the first path is counted,
     # so each path's report names every kernel
-    from orleans_tpu_torch.kernels import router  # noqa: F401
+    from orleans_tpu_torch.kernels import exchange, router  # noqa: F401
 
     card = card_report()
     kind = torch.cuda.get_device_name(0)
@@ -5120,12 +5776,16 @@ def main() -> int:
     cluster = drive_cluster_path(dev, card, timer)
     results.update(cluster["kernels"])
     t13 = time.perf_counter()
+    exchange_out = drive_exchange_path(dev, card, timer)
+    results.update(exchange_out["kernels"])
+    t14 = time.perf_counter()
     print(f"phase seconds: kernels {t1 - t0:.1f}, unfused {t2 - t1:.1f}, "
           f"fused {t3 - t2:.1f}, wide {t4 - t3:.1f}, chirper "
           f"{t5 - t4:.1f}, collection {t6 - t5:.1f}, timers {t7 - t6:.1f}, "
           f"composition {t8 - t7:.1f}, streams {t9 - t8:.1f}, hot grain "
           f"{t10 - t9:.1f}, gps and twitter {t11 - t10:.1f}, durability "
-          f"{t12 - t11:.1f}, cluster {t13 - t12:.1f}", flush=True)
+          f"{t12 - t11:.1f}, cluster {t13 - t12:.1f}, exchange "
+          f"{t14 - t13:.1f}", flush=True)
     plane = runs["plane_ms"]
     fused_added = (fused["window_device_ms"]
                    - fused["window_off_device_ms"]) / 16
@@ -5161,14 +5821,27 @@ def main() -> int:
                     **twitter["counts"], **durability["counts"]}.items():
         require(c.get("gather_args", 0) == 0,
                 f"gather_args launched on the {path} path")
+    # K23/K24 run over shard blocks only: every earlier path (one block)
+    # counts none; the exchange arms launch no K18 and no K22
+    for path, c in {**paths, **hot["counts"], **gps["counts"],
+                    **twitter["counts"], **durability["counts"],
+                    **cluster["counts"]}.items():
+        for name in ("exchange_classify", "exchange_buckets"):
+            require(c.get(name, 0) == 0, f"{name} launched on the {path} "
+                    f"path")
+    for path, c in exchange_out["counts"].items():
+        for name in ("spread_replicas", "gather_args"):
+            require(c.get(name, 0) == 0, f"{name} launched on the {path} "
+                    f"path")
     paths.update({**hot["counts"], **gps["counts"], **twitter["counts"],
-                  **durability["counts"], **cluster["counts"]})
+                  **durability["counts"], **cluster["counts"],
+                  **exchange_out["counts"]})
     reports = {"presence_fused": fused["report"], **wide_out["report"],
                **chirper_out["report"], "collection": collection["report"],
                "timers": timers["report"], "composition": composed["report"],
                **streams["report"], **hot["report"], **gps["report"],
                **twitter["report"], **durability["report"],
-               **cluster["report"]}
+               **cluster["report"], **exchange_out["report"]}
     per_replay = {"presence_fused": fused["per_replay"],
                   "wide_fused": wide_out["fused"]["per_replay"],
                   "chirper_fused": chirper_out["fused"]["per_replay"],

@@ -41,6 +41,41 @@ class TensorEngineConfig:
     # >= its size (padding lanes carry row -1 and are dropped)
     bucket_sizes: tuple = (256, 4096, 32768, 131072, 262144, 524288,
                            1 << 20)
+    # the shard-block axis of a ``ShardMesh`` (tensor/mesh.py)
+    mesh_axis: str = "grains"
+    # ---- the cross-shard exchange (tensor/exchange.py) ----
+    # under a mesh of n shard blocks, device batches are bucketed by
+    # destination block (K24) so each block's lanes land in its own
+    # region of the output; off = delivery straight to the rows (the A/B
+    # baseline).  A live toggle rebuilds fused windows (config_toggle).
+    cross_shard_exchange: bool = True
+    # when the structured exchange runs: "auto" engages it only when the
+    # mesh's blocks span more than one device (on one card every block
+    # shares one memory, so the exchange is identity plus a sampled
+    # probe, K23); "always"/"never" force either side
+    exchange_structured: str = "auto"
+    # disengaged: every Nth eligible batch runs a measure-only probe
+    exchange_probe_interval: int = 8
+    # occupancy-sized buckets: caps from measured per-site demand on the
+    # ladder {2^k} ∪ {3·2^(k-1)}, grown at once, shrunk after
+    # exchange_shrink_patience calm drains; off = the worst-case formula
+    exchange_occupancy_sizing: bool = True
+    # granted cap = ladder_ceil(measured peak demand × headroom)
+    exchange_headroom: float = 1.5
+    exchange_shrink_patience: int = 4
+    # per-destination caps and one receive rung: "auto" engages them only
+    # where narrower than the n·cap layout; "always"/"never" force
+    exchange_per_dest: str = "auto"
+    # fused sources with static key sets pack home-block-local on the
+    # host at window build, so their exchange plans cap 0
+    exchange_align_sources: bool = True
+    # unfused: pre-dispatch the exchange of queued batches with cached
+    # rows at round start (exact: the exchange reads no arena state)
+    exchange_overlap: bool = True
+    # worst-case fallback plan before any demand is measured: bucket
+    # floor (lanes) times the skew allowance over the uniform share
+    exchange_pad_quantum: int = 256
+    exchange_capacity_factor: float = 2.0
     # max parked optimistic miss-checks before a forced (synchronizing)
     # drain — bounds device memory pinned by deferred delivery checks
     miss_check_cap: int = 16

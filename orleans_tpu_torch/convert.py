@@ -87,9 +87,12 @@ def arena_state_from_numpy(arena: GrainArena, key_of_row: np.ndarray,
                 f"{arena.info.name}.{name}: got {tuple(col.shape)}/"
                 f"{col.dtype}, want {(capacity, *f.shape)}/{f.dtype}")
         state[name] = col.to(arena.device)
+    if arena.n_shards != 1:
+        raise ValueError(f"{arena.info.name}: the conversion takes an arena "
+                         f"of one shard block, not {arena.n_shards}")
     live = np.nonzero(key_of_row >= 0)[0]
     arena.state = state
-    arena.capacity = capacity
+    arena.capacity = arena.shard_capacity = capacity
     arena._key_of_row = key_of_row.copy()
     if shard_next is None:
         shard_next = int(live[-1]) + 1 if len(live) else 0

@@ -30,7 +30,7 @@ BUILD_DIR = _PKG.parent / "build" / "orleans_tpu_torch"
 SOURCES = ("resolve", "scatter", "segment", "hist", "miss", "attr_fold",
            "attr_apply", "attr_snapshot", "resolve_wide", "fanout",
            "lifecycle", "timers", "pull", "replicas", "checkpoint",
-           "router")
+           "router", "exchange")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -10,11 +10,15 @@ declared ``@commutative``, so a hot sink can be promoted to replica rows
 single-hot-grain load (every source sends to one sink, Zipf s→∞) is the
 case replicas exist for.
 
-One card holds one shard block, so there is no exchange:
-``build_ratio_destinations`` with ``n_shards=1`` has no other shard to
-cross to (a ratio above 0 raises, as the JAX function does for a mesh
-with an empty shard), and ``run_routing_load`` reports the exchange
-figures as the JAX loader does without an exchange.
+The multichip bench's ratio sweep: ``build_ratio_destinations`` picks
+the destinations so that exactly ``round(cross_ratio * n)`` sources send
+to a sink in another shard block than their own (by ``shard_of_keys``),
+and ``run_routing_load`` drives the pipeline over the engine's
+``n_shards`` blocks (a ``ShardMesh``, tensor/mesh.py), through the
+cross-shard exchange when the engine runs one.  Both handlers combine
+with ``seg_sum``, so the exchange's lane permutation cannot change the
+result: integer-valued float payloads make the sink state exact against
+``expected_sink_state`` and against an exchange-off run.
 """
 
 from __future__ import annotations
@@ -127,17 +131,16 @@ async def run_routing_load(engine, n_sources: int, n_sinks: int,
                            cross_ratio: float, n_ticks: int = 10,
                            seed: int = 0, warm_ticks: int = 2,
                            fused_window: int = 0) -> Dict[str, float]:
-    """Drive ``n_ticks`` of the routing pipeline; returns stats (2 logical
+    """Drive ``n_ticks`` of the routing pipeline at a fixed cross-shard
+    ratio over the engine's shard blocks; returns stats (2 logical
     messages per source per tick: the send and the delivery).
-    Destinations come from ``build_ratio_destinations`` at
-    ``cross_ratio`` over the engine's one shard block.
     ``fused_window > 0`` runs the steady state as fused windows of that
     length (exactness checked with the window miss count); 0 drives the
     unfused tick through a cached injector."""
     sources = np.arange(n_sources, dtype=np.int64)
     sinks = sink_keys(n_sinks)
-    dst = build_ratio_destinations(sources, sinks, 1, cross_ratio,
-                                   seed=seed)
+    dst = build_ratio_destinations(sources, sinks, engine.n_shards,
+                                   cross_ratio, seed=seed)
     rng = np.random.default_rng(seed + 1)
     # integer-valued floats: seg_sum order cannot perturb the total
     values = rng.integers(1, 8, n_sources).astype(np.float32)
@@ -158,14 +161,21 @@ async def run_routing_load(engine, n_sources: int, n_sinks: int,
         prog = engine.fuse_ticks("RouteSource", "send", sources)
         static = {"dst": dst_d, "v": values_d}
         ticks = torch.arange(window, dtype=torch.int32, device=dev)
-        # two untimed warm windows, as the JAX loader runs (the build)
-        for w in range(2):
-            prog.run({"tick": ticks + w * window}, static_args=static)
+        # warm window 1 builds at the worst-case fallback caps (no demand
+        # measured yet); its verify folds the measured demand into the
+        # estimators, so warm window 2 rebuilds at the sized caps (cause
+        # bucket_growth), both outside the timed segment
+        prog.run({"tick": ticks}, static_args=static)
         engine.wait_completion()
         misses = prog.verify()
+        prog.run({"tick": ticks + window}, static_args=static)
+        engine.wait_completion()
+        misses += prog.verify()
         if misses:  # not assert: -O must not skip the exactness check
             raise RuntimeError(
                 f"fused routing warm-up missed {misses} deliveries")
+        rebuilds0 = sum(prog.rebuilds.values())
+        live0, pad0 = _exchange_lanes(engine)
         stacked = [{"tick": ticks + (w + 2) * window}
                    for w in range(n_windows)]
         t0 = time.perf_counter()
@@ -177,6 +187,10 @@ async def run_routing_load(engine, n_sources: int, n_sinks: int,
         if misses:
             raise RuntimeError(
                 f"fused routing window missed {misses} deliveries")
+        if sum(prog.rebuilds.values()) != rebuilds0:
+            raise RuntimeError(
+                "fused routing steady state rebuilt mid-run (cap "
+                "re-quantization must settle in warm-up)")
         engine_kind = "fused"
     else:
         injector = engine.make_injector("RouteSource", "send", sources)
@@ -190,13 +204,15 @@ async def run_routing_load(engine, n_sources: int, n_sinks: int,
             await engine.drain_queues()
         await engine.flush()
         if warm_ticks > 0:
-            # one more warm tick, as the JAX loader runs (it re-sizes the
-            # exchange's caps there; one card has none)
+            # the flush drained the parked exchange stats, so the
+            # estimators size the steady-state caps: one more warm tick
+            # runs at them, outside the timed segment
             injector.inject(args_for(warm_ticks))
             await engine.drain_queues()
             await engine.flush()
             warm_total += 1
         engine.wait_completion()
+        live0, pad0 = _exchange_lanes(engine)
         t0 = time.perf_counter()
         for t in range(n_ticks):
             injector.inject(args_for(warm_total + t))
@@ -207,6 +223,12 @@ async def run_routing_load(engine, n_sources: int, n_sinks: int,
         engine_kind = "unfused"
 
     messages = 2 * n_sources * n_ticks
+    xs = engine.stats().get("exchange") or {}
+    live1, pad1 = _exchange_lanes(engine)
+    # steady-state utilization over the timed segment only (the warm-up
+    # runs the worst-case caps while demand is being measured)
+    steady_util = round((live1 - live0) / (pad1 - pad0), 4) \
+        if pad1 > pad0 else xs.get("bucket_utilization")
     return {
         "sources": n_sources,
         "sinks": n_sinks,
@@ -219,11 +241,17 @@ async def run_routing_load(engine, n_sources: int, n_sinks: int,
         "messages": messages,
         "messages_per_sec": messages / elapsed,
         "engine": engine_kind,
-        # no exchange on one card: what the JAX loader reports without one
-        "bucket_utilization": None,
-        "exchange_overlap_s": None,
-        "exchange_caps": None,
+        "bucket_utilization": steady_util,
+        "exchange_overlap_s": xs.get("overlap_seconds"),
+        "exchange_caps": xs.get("sites"),
     }
+
+
+def _exchange_lanes(engine) -> Tuple[int, int]:
+    xch = getattr(engine, "exchange", None)
+    if xch is None:
+        return 0, 0
+    return xch.live_lanes, xch.padded_lanes
 
 
 def expected_sink_state(sources: np.ndarray, dst: np.ndarray,

@@ -11,10 +11,16 @@ Auto-activation: resolving an unseen key allocates a row and initialises
 its columns from the declared field inits — the batched analog of
 GetOrCreateActivation (reference: Catalog.cs:411).
 
-One card holds one shard block: rows come from the block's LIFO free list
-first, then from its bump pointer over ``[0, capacity)``, in the JAX
-package's order, and growth doubles the block in place (rows keep their
-index; the generation still bumps, as in the JAX package).
+Shard blocks: an arena of ``n_shards`` blocks (the engine's ``ShardMesh``,
+``tensor/mesh.py``, or a mesh-less ``engine.n_shards``) splits its rows
+into equal blocks, block ``s`` being ``[s * shard_capacity, (s + 1) *
+shard_capacity)``.  A key activates in its home block (``home_shards``:
+``shard_of_keys`` unless a live-migration pin says otherwise), its row
+coming from that block's LIFO free list first, then from the block's bump
+pointer, in the JAX package's order, so the rows equal the JAX arena's
+row for row.  Growth doubles every block: at one block in place (rows
+keep their index), with several each row keeps its offset in its block.
+The generation bumps either way, as in the JAX package.
 
 Collection (reference: ActivationCollector.cs:37, Catalog.cs:836): the
 victims of an idle sweep are selected on the device (K12, only the bool
@@ -55,8 +61,13 @@ format the JAX package writes.  Adoption replaces the state tensors or the
 row map while it may restore the recorded generation, so it bumps
 ``restore_epoch``, the signal a fused window rebuilds on (cause
 ``restore``).  ``checkpoint`` / ``restore_from_store`` are the per-grain
-``VectorStore`` write of every live row and its reload.  Migration and
-resharding belong to the multi-shard slice of the port.
+``VectorStore`` write of every live row and its reload.
+
+Live migration (``migrate_keys``) moves grains between blocks with one
+K13 gather and one K3 SET per column, pins each move in
+``_shard_override`` and bumps the eviction epoch.  Resharding, and
+recovery points of several blocks or with pins, belong to the next slice
+of the port.
 """
 
 from __future__ import annotations
@@ -78,8 +89,9 @@ class ArenaFullError(RuntimeError):
     pass
 
 
-_RESHARD = ("belongs to the multi-shard slice of the port (resharding and "
-            "migration pins; ROADMAP queue A, item 7)")
+_RESHARD = ("belongs to the next slice of the port (reshard, and recovery "
+            "points of several shard blocks or with migration pins; "
+            "ROADMAP queue A, item 7)")
 
 
 def np_dtype(dtype: torch.dtype) -> np.dtype:
@@ -146,7 +158,8 @@ class GrainArena:
     DENSE_KEY_BOUND = 1 << 23  # 8M slots = 32 MB ceiling
 
     def __init__(self, info: VectorGrainInfo, device: torch.device,
-                 capacity: int = 1024, store: Optional[Any] = None) -> None:
+                 capacity: int = 1024, store: Optional[Any] = None,
+                 n_shards: int = 1, sharding: Optional[Any] = None) -> None:
         self.info = info
         self.device = device
         # VectorStore (tensor/persistence.py): activation reads persisted
@@ -154,7 +167,15 @@ class GrainArena:
         self.store = store
         self.evicted_count = 0
         self.restored_count = 0
-        self.capacity = max(1, capacity)
+        self.migrated_count = 0
+        # shard blocks: block s is rows [s * shard_capacity, (s + 1) *
+        # shard_capacity); the capacity divides evenly into them
+        self.n_shards = max(1, int(n_shards))
+        self.shard_capacity = max(1, -(-capacity // self.n_shards))
+        self.capacity = self.shard_capacity * self.n_shards
+        # the engine's BlockSharding marker when it has a mesh (None for
+        # a mesh-less arena, whose batches never exchange)
+        self.sharding = sharding
         self.state: Dict[str, torch.Tensor] = {}
         self._init_state_columns(self.capacity)
         # bumped whenever the capacity (and so every column) changes;
@@ -162,12 +183,18 @@ class GrainArena:
         self.generation = 0
         # host-side directory partition: key → row
         self._key_of_row = np.full(self.capacity, -1, dtype=np.int64)
-        # the shard block's bump pointer and LIFO free list (one block per
-        # card; lists of one, as the JAX package's per-shard lists).  Free
-        # slots hold init-valued columns and zeroed use clocks, so reuse
-        # needs no scrub.
-        self._shard_next = np.zeros(1, dtype=np.int64)
-        self._free: list = [np.empty(0, dtype=np.int64)]
+        # each shard block's bump pointer (rows used past its base) and
+        # LIFO free list.  Free slots hold init-valued columns and zeroed
+        # use clocks, so reuse needs no scrub.
+        self._shard_next = np.zeros(self.n_shards, dtype=np.int64)
+        self._free: list = [np.empty(0, dtype=np.int64)
+                            for _ in range(self.n_shards)]
+        # live-migration pins (key → block): keys ``migrate_keys`` moved
+        # off their hash block; an evict → reactivate cycle returns such
+        # a grain to its pinned block.  The sorted mirror serves
+        # ``home_shards``' vectorized lookup (None = rebuild at next use).
+        self._shard_override: Dict[int, int] = {}
+        self._override_sorted: Optional[Tuple[np.ndarray, np.ndarray]] = None
         # freed/high-water ratio above which deactivation repacks
         # (engine.arena_for sets it from TensorEngineConfig)
         self.compact_fragmentation = 0.75
@@ -426,30 +453,63 @@ class GrainArena:
         self.last_use_tick[rows[rows >= 0]] = tick
         return rows
 
-    def _take_rows(self, n: int) -> np.ndarray:
-        """Allocate ``n`` rows without binding keys: free-list reuse first
-        (the most recently freed slots, the tail of the list in its
-        order), then the bump pointer.  Callers guarantee capacity."""
-        parts = []
-        reuse = min(n, len(self._free[0]))
-        if reuse:
-            parts.append(self._free[0][-reuse:])
-            self._free[0] = self._free[0][:-reuse]
-        fresh = n - reuse
-        if fresh:
-            start = int(self._shard_next[0])
-            parts.append(np.arange(start, start + fresh, dtype=np.int64))
-            self._shard_next[0] += fresh
-        if not parts:
-            return np.empty(0, dtype=np.int64)
-        return np.concatenate(parts) if len(parts) > 1 else parts[0]
+    def home_shards(self, keys: np.ndarray) -> np.ndarray:
+        """The shard block each key activates in: its stable hash mod the
+        block count, overridden by any live-migration pin (one
+        searchsorted over the sorted pin mirror, cached until the pins
+        change)."""
+        if self.n_shards == 1:
+            return np.zeros(len(keys), dtype=np.int64)
+        shards = shard_of_keys(keys, self.n_shards)
+        if self._shard_override:
+            if self._override_sorted is None:
+                ok = np.fromiter(self._shard_override.keys(), np.int64,
+                                 len(self._shard_override))
+                ov = np.fromiter(self._shard_override.values(), np.int64,
+                                 len(self._shard_override))
+                order = np.argsort(ok)
+                self._override_sorted = (ok[order], ov[order])
+            ok, ov = self._override_sorted
+            idx = np.minimum(np.searchsorted(ok, keys), len(ok) - 1)
+            hit = ok[idx] == keys
+            shards[hit] = ov[idx[hit]]
+        return shards
 
-    def _ensure_capacity(self, need: int) -> None:
-        """Grow until ``need`` more rows fit; free-list slots count as
-        available (steady activate/evict churn never grows the arena)."""
-        while int(self._shard_next[0]) + max(need - len(self._free[0]), 0) \
-                > self.capacity:
-            self._grow()
+    def _take_rows(self, shards: np.ndarray) -> np.ndarray:
+        """Allocate one row per entry of ``shards`` in that block without
+        binding keys: free-list reuse first (the most recently freed
+        slots, the tail of the block's list in its order), then the
+        block's bump pointer.  Shared with ``migrate_keys``, which copies
+        state into the rows before the key map flips.  Callers guarantee
+        capacity."""
+        shards = np.asarray(shards, dtype=np.int64)
+        rows = np.empty(len(shards), dtype=np.int64)
+        for s in np.unique(shards).tolist():
+            sel = np.nonzero(shards == s)[0]
+            parts = []
+            reuse = min(len(sel), len(self._free[s]))
+            if reuse:
+                parts.append(self._free[s][-reuse:])
+                self._free[s] = self._free[s][:-reuse]
+            fresh = len(sel) - reuse
+            if fresh:
+                start = int(self._shard_next[s])
+                parts.append(np.arange(start, start + fresh, dtype=np.int64)
+                             + s * self.shard_capacity)
+                self._shard_next[s] += fresh
+            rows[sel] = np.concatenate(parts) if len(parts) > 1 \
+                else parts[0]
+        return rows
+
+    def _ensure_capacity(self, need_per_shard: np.ndarray) -> None:
+        """Grow until every block absorbs ``need_per_shard`` more rows;
+        free-list slots count as available (steady activate/evict churn
+        never grows the arena)."""
+        need = np.asarray(need_per_shard, dtype=np.int64)
+        free_counts = np.array([len(f) for f in self._free], dtype=np.int64)
+        while np.any(self._shard_next + np.maximum(need - free_counts, 0)
+                     > self.shard_capacity):
+            self._grow()  # remaps the free lists; their counts stand
 
     def _activate_keys(self, keys: np.ndarray) -> None:
         if len(keys) and int(keys.min()) < 0:
@@ -460,8 +520,9 @@ class GrainArena:
                 f"[0, 2**63); got {int(keys.min())}")
         if len(keys) and int(keys.max()) >= KEY_SENTINEL:
             self.has_wide_keys = True
-        self._ensure_capacity(len(keys))
-        rows = self._take_rows(len(keys))
+        shards = self.home_shards(keys)
+        self._ensure_capacity(np.bincount(shards, minlength=self.n_shards))
+        rows = self._take_rows(shards)
         self._key_of_row[rows] = keys
         self.live_count += len(keys)
         self._dirty = True
@@ -489,47 +550,80 @@ class GrainArena:
     # -- growth -------------------------------------------------------------
 
     def _grow(self) -> None:
-        """Double the capacity.  With one shard block every row keeps its
+        """Double every shard block.  At one block every row keeps its
         index, so the old columns copy into the front of the new ones and
-        the free list stands (its rows are init-valued in the copy); the
-        generation bumps because every column tensor is new."""
+        the free list stands (its rows are init-valued in the copy).  With
+        several blocks each block's rows keep their offset in it, so row
+        ``s * old + o`` moves to ``s * new + o`` (K13 gather of the live
+        rows, K3 SET into the new columns) and the free lists remap alike.
+        The generation bumps either way: every column tensor is new."""
         self._settle_owner_chain()
+        old_per = self.shard_capacity
+        new_per = old_per * 2
         old = self.capacity
-        new_capacity = old * 2
+        new_capacity = new_per * self.n_shards
+        if self.n_shards == 1:
+            live = np.nonzero(self._key_of_row >= 0)[0]
+            moved_from = moved_to = live
+        else:
+            moved_from = np.nonzero(self._key_of_row >= 0)[0]
+            moved_to = (moved_from // old_per) * new_per + moved_from % old_per
         new_state: Dict[str, torch.Tensor] = {}
-        for name, f in self.info.state_fields.items():
-            col = self._make_column(f, new_capacity)
-            col[:old] = self.state[name]
-            new_state[name] = col
         last_use = torch.zeros(new_capacity, dtype=torch.int32,
                                device=self.device)
-        last_use[:old] = self.last_use_dev
+        if self.n_shards == 1:
+            for name, f in self.info.state_fields.items():
+                col = self._make_column(f, new_capacity)
+                col[:old] = self.state[name]
+                new_state[name] = col
+            last_use[:old] = self.last_use_dev
+        else:
+            src = host_upload(moved_from.astype(np.int32), self.device)
+            dst = host_upload(moved_to.astype(np.int32), self.device)
+            for name, f in self.info.state_fields.items():
+                col = self._make_column(f, new_capacity)
+                if len(moved_from):
+                    row_scatter(col, dst, gather_rows(self.state[name], src),
+                                "set")
+                new_state[name] = col
+            if len(moved_from):
+                row_scatter(last_use, dst,
+                            gather_rows(self.last_use_dev, src), "set")
         key_of_row = np.full(new_capacity, -1, dtype=np.int64)
-        key_of_row[:old] = self._key_of_row
+        key_of_row[moved_to] = self._key_of_row[moved_from]
         last_use_tick = np.zeros(new_capacity, dtype=np.int64)
-        last_use_tick[:old] = self.last_use_tick
-        # replica groups keep their rows; only the mask widens
+        last_use_tick[moved_to] = self.last_use_tick[moved_from]
+        # replica groups ride the same block-preserving row map
+        if self._replicas and self.n_shards > 1:
+            self._replicas = {
+                k: (r // old_per) * new_per + r % old_per
+                for k, r in self._replicas.items()}
         secondary = np.zeros(new_capacity, dtype=bool)
-        secondary[:old] = self._replica_secondary
+        secondary[moved_to] = self._replica_secondary[moved_from]
         self._replica_secondary = secondary
         self._dev_replicas_stale = True
         att = self._attribution()
         if att is not None:
-            # traffic counts move with their rows (which keep their index)
-            live = np.nonzero(self._key_of_row >= 0)[0]
-            att.remap_rows(self, live, live, new_capacity)
+            # traffic counts move with their rows
+            att.remap_rows(self, moved_from, moved_to, new_capacity)
 
         self.state = new_state
         self.last_use_dev = last_use
+        self.shard_capacity = new_per
         self.capacity = new_capacity
         self._key_of_row = key_of_row
         self.last_use_tick = last_use_tick
+        # free slots ride along: row s*old_per + o → s*new_per + o (the new
+        # columns are init-valued wherever no live row landed)
+        self._free = [s * new_per + (f - s * old_per)
+                      for s, f in enumerate(self._free)]
         self._dirty = True
         self.generation += 1
 
     def reserve(self, n: int) -> None:
         """Pre-size so ~n activations fit without growth mid-run."""
-        while self.capacity < n * 2:
+        per_shard_target = -(-n // self.n_shards)
+        while self.shard_capacity < per_shard_target * 2:
             self._grow()
 
     # -- collection (reference: ActivationCollector.cs:37) ---------------
@@ -543,14 +637,18 @@ class GrainArena:
                        for name, col in self.state.items()})
 
     def shard_occupancy(self) -> np.ndarray:
-        """Live rows per shard block (one block on one card)."""
-        return np.array([self.live_count], dtype=np.int64)
+        """Live rows per shard block (int64[n_shards]; replica
+        secondaries count in the block that holds them)."""
+        live = np.nonzero(self._key_of_row >= 0)[0]
+        return np.bincount(live // self.shard_capacity,
+                           minlength=self.n_shards).astype(np.int64)
 
     def fragmentation(self) -> float:
-        """Freed/high-water ratio of the block (0.0 = no holes): the
+        """The worst block's freed/high-water ratio (0.0 = no holes): the
         threshold trigger for compaction."""
-        hw = max(int(self._shard_next[0]), 1)
-        return len(self._free[0]) / hw
+        hw = np.maximum(self._shard_next, 1).astype(np.float64)
+        free = np.array([len(f) for f in self._free], dtype=np.float64)
+        return float((free / hw).max())
 
     def select_idle_rows(self, older_than_tick: int) -> np.ndarray:
         """Victim selection: one K12 compare over both use clocks on the
@@ -657,11 +755,22 @@ class GrainArena:
         return len(victims)
 
     def _free_rows(self, victims: np.ndarray) -> None:
-        """Return freed rows to the free list and scrub them in place: the
-        state columns back to their field inits with one K3 SET of a host
-        scalar per field, both use clocks to 0.  In place, so the columns
-        keep their addresses."""
-        self._free[0] = np.concatenate([self._free[0], victims])
+        """Return freed rows to their blocks' free lists and scrub them in
+        place: the state columns back to their field inits with one K3 SET
+        of a host scalar per field, both use clocks to 0.  In place, so the
+        columns keep their addresses."""
+        if self.n_shards == 1:
+            self._free[0] = np.concatenate([self._free[0], victims])
+        else:
+            shards = victims // self.shard_capacity
+            order = np.argsort(shards, kind="stable")
+            bounds = np.searchsorted(shards[order],
+                                     np.arange(self.n_shards + 1))
+            ordered = victims[order]
+            for s in range(self.n_shards):
+                part = ordered[bounds[s]:bounds[s + 1]]
+                if len(part):
+                    self._free[s] = np.concatenate([self._free[s], part])
         idx = host_upload(victims.astype(np.int32), self.device)
         for name, f in self.info.state_fields.items():
             row_scatter(self.state[name], idx, f.init, "set")
@@ -669,21 +778,30 @@ class GrainArena:
         self.last_use_tick[victims] = 0
 
     def _compact(self) -> None:
-        """Repack the block so live rows are contiguous from row 0 (the
-        free list clears; the bump pointer resets to the live count).
-        Rows move, so the generation bumps and holders re-resolve; the
-        columns are built anew (K13 gather of the old rows, K3 SET into
-        the new), which the rebuild the generation forces allows."""
+        """Repack each block so its live rows are contiguous from the
+        block's base (the free lists clear; each bump pointer resets to
+        its block's live count).  Rows move, so the generation bumps and
+        holders re-resolve; the columns are built anew (K13 gather of the
+        old rows, K3 SET into the new), which the rebuild the generation
+        forces allows."""
         old_rows = np.nonzero(self._key_of_row >= 0)[0]
-        new_rows = np.arange(len(old_rows), dtype=np.int64)
+        # old_rows ascend, so each block's members are contiguous: their
+        # rank in the block is the index minus the block's start
+        shards = old_rows // self.shard_capacity
+        next_free = np.bincount(shards, minlength=self.n_shards) \
+            .astype(np.int64)
+        starts = np.concatenate(([0], np.cumsum(next_free)[:-1]))
+        new_rows = (shards * self.shard_capacity
+                    + np.arange(len(old_rows)) - starts[shards])
         keys = self._key_of_row[old_rows]
         last_use = self.last_use_tick[old_rows]
         self._key_of_row.fill(-1)
         self._key_of_row[new_rows] = keys
         self.last_use_tick.fill(0)
         self.last_use_tick[new_rows] = last_use
-        self._shard_next = np.array([len(old_rows)], dtype=np.int64)
-        self._free = [np.empty(0, dtype=np.int64)]
+        self._shard_next = next_free
+        self._free = [np.empty(0, dtype=np.int64)
+                      for _ in range(self.n_shards)]
 
         src = host_upload(old_rows.astype(np.int32), self.device)
         dst = host_upload(new_rows.astype(np.int32), self.device)
@@ -709,6 +827,84 @@ class GrainArena:
             self._dev_replicas_stale = True
         self._dirty = True
         self.generation += 1
+
+    # -- live migration (batched deactivate-with-state-handoff) --------------
+
+    def migrate_keys(self, keys: np.ndarray, dst_shards,
+                     pin: bool = True) -> int:
+        """Batched live migration of grains into explicit destination
+        blocks: one K13 gather and one K3 SET per state column (and the
+        device use clock) move k grains' rows, never per-grain Python.  An
+        atomic deactivate-with-state-handoff → reactivate on the target
+        block: the freed rows return to their free lists scrubbed, the
+        eviction epoch bumps (holders of pre-move rows re-validate and
+        deliver again through the miss path), and the attribution plane
+        retires the movers' counts per key before the move.  Stream
+        routes keep their subscriptions (``on_migrate``).  ``pin`` records
+        a move off the hash block in ``_shard_override``, so an evict →
+        reactivate cycle returns the grain to its migrated block.  The
+        generation stands: the rows of unmigrated keys stay put.  Keys
+        already in their destination, unknown keys and replicated keys
+        (demote first) do not move.  Returns the grains moved."""
+        self._settle_owner_chain()
+        keys = np.asarray(keys, dtype=np.int64)
+        dst = np.broadcast_to(np.asarray(dst_shards, dtype=np.int64),
+                              keys.shape).copy()
+        keys, first = np.unique(keys, return_index=True)
+        dst = dst[first]  # duplicate keys: the first destination wins
+        if len(keys) and (int(dst.min()) < 0
+                          or int(dst.max()) >= self.n_shards):
+            raise ValueError(
+                f"arena {self.info.name}: migration destination shard "
+                f"out of range [0, {self.n_shards})")
+        rows, found = self.lookup_rows(keys)
+        cur = rows.astype(np.int64) // self.shard_capacity
+        sel = found & (dst != cur)
+        if self._replicas:
+            sel &= ~np.isin(keys, np.fromiter(
+                self._replicas, np.int64, len(self._replicas)))
+        keys, dst = keys[sel], dst[sel]
+        if len(keys) == 0:
+            return 0
+        # capacity first: growth moves rows, so the sources resolve after
+        self._ensure_capacity(np.bincount(dst, minlength=self.n_shards))
+        src_rows, found = self.lookup_rows(keys)
+        assert found.all()
+        src_rows = src_rows.astype(np.int64)
+        att = self._attribution()
+        if att is not None:
+            # the movers' traffic retires per key before the move: counts
+            # follow the key, the freed row restarts at zero
+            att.on_evict(self, src_rows, keys)
+        for route in self._stream_routes():
+            # subscriptions survive a migration; only the row-addressed
+            # pull layout goes stale
+            route.on_migrate(self, keys)
+        new_rows = self._take_rows(dst)
+        src = host_upload(src_rows.astype(np.int32), self.device)
+        dst_idx = host_upload(new_rows.astype(np.int32), self.device)
+        for name in self.info.state_fields:
+            col = self.state[name]
+            row_scatter(col, dst_idx, gather_rows(col, src), "set")
+        row_scatter(self.last_use_dev, dst_idx,
+                    gather_rows(self.last_use_dev, src), "set")
+        # the host identity flips in one step: new rows bind, old rows free
+        self.last_use_tick[new_rows] = self.last_use_tick[src_rows]
+        self._key_of_row[new_rows] = keys
+        self._key_of_row[src_rows] = -1
+        self._free_rows(src_rows)
+        home = shard_of_keys(keys, self.n_shards)
+        for k, d, h in zip(keys.tolist(), dst.tolist(), home.tolist()):
+            if pin and d != h:
+                self._shard_override[k] = d
+            else:
+                # back on (or landing on) its hash block: no pin needed
+                self._shard_override.pop(k, None)
+        self._override_sorted = None
+        self.migrated_count += len(keys)
+        self.eviction_epoch += 1
+        self._dirty = True
+        return len(keys)
 
     # -- hot-grain replicas (the JAX arena's promote/demote at one block) ---
     # A grain too hot for one row, whose state folds commutatively
@@ -778,12 +974,13 @@ class GrainArena:
 
     def promote_replicas(self, key: int, k: int) -> int:
         """Promote ``key`` to ``k`` replica rows (2 ≤ k ≤ 8): its row stays
-        the primary, k - 1 secondaries come off the block (free list
-        first, then the bump pointer).  They hold field inits — the fold
-        identity — so a fresh replica adds nothing to the merge.  The
-        generation bumps (a fused window rebuilds; the next checkpoint is
-        a full one) and so does the eviction epoch (held rows re-check).
-        Returns the group size; a key already promoted keeps its group."""
+        the primary, k - 1 secondaries come off the other shard blocks,
+        round-robin (free list first, then the bump pointer).  They hold
+        field inits — the fold identity — so a fresh replica adds nothing
+        to the merge.  The generation bumps (a fused window rebuilds; the
+        next checkpoint is a full one) and so does the eviction epoch
+        (held rows re-check).  Returns the group size; a key already
+        promoted keeps its group."""
         k = int(max(2, min(k, self.REPLICA_TABLE_WIDTH)))
         self._settle_owner_chain()
         key = int(key)
@@ -793,12 +990,22 @@ class GrainArena:
         if not found[0]:
             raise KeyError(f"arena {self.info.name}: cannot replicate key "
                            f"{key} — not live")
-        self._ensure_capacity(k - 1)
-        # look the primary up again: growth may have rebuilt the index
+        # the secondaries land on the OTHER blocks, round-robin (all on
+        # the one block of a one-block arena)
+        prim_shard = int(self.lookup_rows(
+            np.array([key], dtype=np.int64))[0][0]) // self.shard_capacity
+        if self.n_shards > 1:
+            others = [s for s in range(self.n_shards) if s != prim_shard]
+            shards = np.array([others[i % len(others)]
+                               for i in range(k - 1)], dtype=np.int64)
+        else:
+            shards = np.zeros(k - 1, dtype=np.int64)
+        self._ensure_capacity(np.bincount(shards, minlength=self.n_shards))
+        # look the primary up again: growth may have moved it
         prow, found = self.lookup_rows(np.array([key], dtype=np.int64))
         assert found[0]
         prow = int(prow[0])
-        sec = self._take_rows(k - 1)
+        sec = self._take_rows(shards)
         self._key_of_row[sec] = key
         self._replica_secondary[sec] = True
         self._replicas[key] = np.concatenate(
@@ -935,8 +1142,8 @@ class GrainArena:
         changing while the snapshot drains."""
         return {
             "capacity": int(self.capacity),
-            "n_shards": 1,
-            "shard_capacity": int(self.capacity),
+            "n_shards": int(self.n_shards),
+            "shard_capacity": int(self.shard_capacity),
             "generation": int(self.generation),
             "eviction_epoch": int(self.eviction_epoch),
             "live_count": int(self.live_count),
@@ -944,17 +1151,21 @@ class GrainArena:
             "key_of_row": self._key_of_row.copy(),
             "last_use_tick": self.host_clock(),
             "shard_next": self._shard_next.copy(),
-            "shard_override": {},
+            "shard_override": dict(self._shard_override),
             "replicas": {int(k): [int(x) for x in r]
                          for k, r in self._replicas.items()},
         }
 
     def _rebuild_free_lists(self) -> None:
-        """The free list from first principles: every slot below the bump
-        pointer not holding a key, ascending (LIFO order only biases reuse
-        toward recently freed slots; it is not identity)."""
-        blk = np.arange(int(self._shard_next[0]), dtype=np.int64)
-        self._free = [blk[self._key_of_row[blk] < 0]]
+        """The free lists from first principles: every slot of a block
+        below its bump pointer not holding a key, ascending (LIFO order
+        only biases reuse toward recently freed slots; it is not
+        identity)."""
+        self._free = []
+        for s in range(self.n_shards):
+            blk = np.arange(int(self._shard_next[s]), dtype=np.int64) \
+                + s * self.shard_capacity
+            self._free.append(blk[self._key_of_row[blk] < 0])
 
     def _layout_changed(self) -> None:
         self._dirty = True
@@ -980,12 +1191,14 @@ class GrainArena:
             raise RuntimeError(
                 f"arena {self.info.name}: adopt_layout needs an empty "
                 f"arena (restore happens before traffic)")
-        if int(meta["n_shards"]) != 1 or meta.get("shard_override"):
+        if int(meta["n_shards"]) != 1 or self.n_shards != 1 \
+                or meta.get("shard_override"):
             raise NotImplementedError(
                 f"arena {self.info.name}: a recovery point of "
                 f"{meta['n_shards']} shard blocks or with migration pins "
                 f"{_RESHARD}")
         self.capacity = int(meta["capacity"])
+        self.shard_capacity = self.capacity  # one block (checked above)
         self._key_of_row = np.asarray(key_of_row, dtype=np.int64).copy()
         self._shard_next = np.asarray(shard_next, dtype=np.int64).copy()
         self.last_use_tick = np.asarray(last_use_tick, dtype=np.int64).copy()

@@ -503,7 +503,7 @@ class WorkloadAttribution:
                 continue
             k = min(self.top_k, col.shape[0])
             parts.append(attr_snapshot(col, self.cms_for(type_name),
-                                       self.seeds, k, 1))
+                                       self.seeds, k, arena.n_shards))
             metas.append((type_name, arena, k))
         has_slots = self._slot_counts is not None
         has_stale = self._stale is not None
@@ -517,9 +517,10 @@ class WorkloadAttribution:
             self.d2h_fetches += 1
         at = 0
         outs = []
-        for _t, _a, k in metas:
-            size = snapshot_size(k, 1)
-            outs.append(decode_snapshot(fetched[at:at + size], k, 1))
+        for _t, arena, k in metas:
+            size = snapshot_size(k, arena.n_shards)
+            outs.append(decode_snapshot(fetched[at:at + size], k,
+                                        arena.n_shards))
             at += size
         slots = None
         if has_slots:

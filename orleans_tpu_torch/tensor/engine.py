@@ -82,15 +82,27 @@ host-key batches by ring owner, ``make_injector`` returns a
 before it runs them (``_route_group``), the miss path ships remote-owned
 unseen keys to their owner instead of activating them here, and the
 handoff fence defers the activation of unseen keys after a ring change
-until every peer has released the new view.  The profiler and the
-cross-shard exchange belong to later slices of the port.
+until every peer has released the new view.
+
+Under a ``ShardMesh`` (``mesh=``, tensor/mesh.py) every arena splits into
+shard blocks, and with the exchange on and engaged (``tensor/exchange.py``)
+a group whose batches all carry device keys is exchanged after its rows
+resolve: K24 writes each lane into its destination block's region (K23's
+classification where the plan is cap 0), lanes that overflow a bucket
+park with copies of their keys and payload and are delivered again at the
+next drain with their original stamp, and the ledger records the lanes
+delivered now.  Injector batches with cached rows exchange at round start
+(``_pre_exchange_round``).  Disengaged ("auto" on one card) the batch
+delivers as it is and every Nth group of a site runs the probe (K23).
+``migrate_keys`` moves grains between blocks live.  The profiler belongs
+to a later slice of the port.
 
 Every tensor the engine keeps past the call that handed it over — a
 ``send_batch`` slab, a batch spilled past the round cap, a parked
-miss-check or fan-out check — is a copy taken on the stream: a caller may
-rewrite its tensor in place before the tick that reads it, where a JAX
-array cannot change.  Host (numpy) leaves are kept as they are, as in the
-JAX package.
+miss-check, exchange or fan-out check — is a copy taken on the stream: a
+caller may rewrite its tensor in place before the tick that reads it,
+where a JAX array cannot change.  Host (numpy) leaves are kept as they
+are, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -118,7 +130,9 @@ from orleans_tpu_torch.kernels.resolve import (
 )
 from orleans_tpu_torch.tensor.arena import GrainArena, join_wide_keys
 from orleans_tpu_torch.tensor.attribution import WorkloadAttribution
+from orleans_tpu_torch.tensor.exchange import ShardExchange, exchangeable_args
 from orleans_tpu_torch.tensor.ledger import DeviceLatencyLedger, SlotRegistry
+from orleans_tpu_torch.tensor.mesh import BlockSharding, ShardMesh
 from orleans_tpu_torch.tensor.vector_grain import (
     Batch,
     Emit,
@@ -229,6 +243,11 @@ class PendingBatch:
     # reductions take K16.  Valid only while (generation, epoch) still
     # match the arena; a stale batch is delivered again by ``keys_dev``.
     segments: Optional[torch.Tensor] = None
+    # exchange overlap (tensor/exchange.py): the round-start pre-dispatch
+    # stores (rows2, args2, mask2, dropped, stats, generation, epoch,
+    # rows identity, dispatch time, run cost) here; the group uses it only
+    # while the stamps and the rows identity still match
+    pre_exchange: Optional[Tuple] = None
 
     def __len__(self) -> int:
         for c in (self.rows, self.keys_host, self.keys_dev):
@@ -273,6 +292,29 @@ class _FanoutCheck:
     dropped: torch.Tensor      # bool[m] — parked source lanes
     count: torch.Tensor        # int32 device scalar
     inject_tick: int = -1
+
+
+@dataclass
+class _ExchangeCheck:
+    """A parked cross-shard exchange check (tensor/exchange.py): lanes that
+    did not fit their destination bucket carry a device-side dropped mask,
+    and at the next drain they are delivered again by key with the
+    ORIGINAL inject stamp.  A disengaged exchange's probe parks one too
+    (``measure_only``): its stats fold, nothing is delivered again, and
+    its counts scale by the sampling factor ``scale``.  Keys and tensor
+    payload leaves are copies taken when it was parked."""
+
+    type_name: str
+    method: str
+    keys: Optional[torch.Tensor]     # int32[m] — redelivery addresses
+    args: Any                        # the pre-exchange payload
+    dropped: Optional[torch.Tensor]  # bool[m]
+    # int32[3 + 2n]: (cross, dropped, delivered), then the per-destination
+    # demand maxed over sources, then summed over sources
+    stats: torch.Tensor
+    inject_tick: int = -1
+    measure_only: bool = False
+    scale: int = 1
 
 
 def resolve_rows_on_device(arena: GrainArena, keys: Any,
@@ -521,12 +563,19 @@ class TensorEngine:
                  metrics: Optional[MetricsConfig] = None,
                  store: Optional[Any] = None,
                  snapshot_store: Optional[Any] = None,
-                 silo: Optional[Any] = None) -> None:
+                 silo: Optional[Any] = None,
+                 mesh: Optional[ShardMesh] = None) -> None:
         from orleans_tpu_torch.tensor.autofuse import AutoFuser
         from orleans_tpu_torch.tensor.checkpoint import CheckpointPlane
         from orleans_tpu_torch.tensor.timers_plane import TimersPlane
 
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"{mesh} lies off the engine's device "
+                             f"{self.device}: every shard block lives on "
+                             f"the engine's one card")
         # the owning silo of a clustered engine (None standalone); the
         # silo attaches its VectorRouter as ``router``
         self.silo = silo
@@ -567,7 +616,8 @@ class TensorEngine:
         self.replications = 0
         self.grains_replicated = 0
         self.replica_demotions = 0
-        # cross-silo migration: ring-change pushes and adoptions
+        # migration: moves between shard blocks (migrate_keys) and the
+        # cross-silo ring-change pushes and adoptions
         self.migrations = 0
         self.grains_migrated = 0
         # host-key batches the handoff fence deferred this tick (queued
@@ -583,6 +633,8 @@ class TensorEngine:
         self._step_cache: Dict[Tuple[str, str], Callable] = {}
         self._masks: Dict[int, torch.Tensor] = {}
         self._pending_checks: List[_MissCheck] = []
+        # parked cross-shard exchange checks (drained with the miss checks)
+        self._exchange_checks: List[_ExchangeCheck] = []
         # (src_type, src_method) → (DeviceFanout, dst_type, dst_method)
         self._fanouts: Dict[Tuple[str, str], Tuple[Any, str, str]] = {}
         self._fanout_checks: List[_FanoutCheck] = []
@@ -610,8 +662,48 @@ class TensorEngine:
         self._running = False
         self._wake: Optional[asyncio.Event] = None
         self._task: Optional[asyncio.Task] = None
+        # shard blocks and the cross-shard exchange (tensor/mesh.py,
+        # tensor/exchange.py); without a mesh one block, unless a caller
+        # sets ``n_shards`` before the arenas exist (no exchange then)
+        self._apply_mesh(mesh)
 
     # ================= arenas =============================================
+
+    def _apply_mesh(self, mesh: Optional[ShardMesh]) -> None:
+        """Adopt ``mesh``: its block count, the arenas' sharding marker,
+        and — over more than one block — the exchange plane (built
+        whenever blocks exist, so ``config.cross_shard_exchange`` can flip
+        live; counters carry over from an earlier plane)."""
+        self.mesh = mesh
+        if mesh is not None:
+            self.n_shards = mesh.n_shards
+            self.sharding = BlockSharding(mesh, self.config.mesh_axis)
+        else:
+            self.n_shards = 1
+            self.sharding = None
+        self._check_durable_blocks()
+        prev = getattr(self, "exchange", None)
+        if mesh is not None and self.n_shards > 1:
+            self.exchange = ShardExchange(self)
+            self.exchange.adopt_stats(prev)
+        else:
+            self.exchange = None
+
+    def _check_durable_blocks(self) -> None:
+        if self.n_shards > 1 and self.checkpointer.enabled:
+            raise NotImplementedError(
+                f"a snapshot store over {self.n_shards} shard blocks "
+                f"belongs to the next slice of the port (recovery points "
+                f"of several blocks and migration pins across a cut; "
+                f"ROADMAP queue A, item 7)")
+
+    def _exchange_live(self) -> bool:
+        """True when device batches route through the cross-shard exchange
+        (a mesh of blocks and ``config.cross_shard_exchange``): the one
+        predicate the unfused dispatch, the fused window and its rebuild
+        check share."""
+        return self.exchange is not None and \
+            self.config.cross_shard_exchange
 
     def arena_for(self, type_name: str) -> GrainArena:
         arena = self.arenas.get(type_name)
@@ -619,9 +711,11 @@ class TensorEngine:
             info = vector_type(type_name)
             if info is None:
                 raise KeyError(f"{type_name!r} is not a @vector_grain type")
+            self._check_durable_blocks()
             arena = GrainArena(info, self.device,
                                capacity=self.initial_capacity,
-                               store=self.store)
+                               store=self.store, n_shards=self.n_shards,
+                               sharding=self.sharding)
             arena.compact_fragmentation = \
                 self.config.compact_fragmentation_threshold
             # row moves settle the auto-fuser's chain first
@@ -642,6 +736,29 @@ class TensorEngine:
         return tuple((key, id(r), r.layout_version, r.mutation_version)
                      for key, r in sorted(self._stream_routes.items()))
 
+    # ================= live migration =====================================
+
+    def migrate_keys(self, type_name: str, keys: np.ndarray, dst_shards,
+                     pin: bool = True) -> int:
+        """Batched live migration of grains between shard blocks
+        (``GrainArena.migrate_keys``): one K13 gather and one K3 SET per
+        column move k grains' rows, the eviction epoch bumps so held rows
+        re-validate, and ``pin`` keeps the move across an evict →
+        reactivate cycle.  Parked miss, exchange and fan-out checks drain
+        FIRST, so their redeliveries resolve against the moved rows.
+        Returns the grains moved."""
+        arena = self.arenas.get(type_name)
+        if arena is None:
+            return 0
+        if self._pending_checks or self._exchange_checks \
+                or self._fanout_checks:
+            self._drain_checks()
+        moved = arena.migrate_keys(keys, dst_shards, pin=pin)
+        if moved:
+            self.migrations += 1
+            self.grains_migrated += moved
+        return moved
+
     # ================= hot-grain replicas =================================
 
     def replicate_key(self, type_name: str, key: int, k: int) -> int:
@@ -654,7 +771,8 @@ class TensorEngine:
         arena = self.arenas.get(type_name)
         if arena is None:
             return 0
-        if self._pending_checks or self._fanout_checks:
+        if self._pending_checks or self._exchange_checks \
+                or self._fanout_checks:
             self._drain_checks()
         if int(key) in arena._replicas:
             return len(arena._replicas[int(key)])
@@ -670,7 +788,8 @@ class TensorEngine:
         arena = self.arenas.get(type_name)
         if arena is None:
             return 0
-        if self._pending_checks or self._fanout_checks:
+        if self._pending_checks or self._exchange_checks \
+                or self._fanout_checks:
             self._drain_checks()
         freed = arena.demote_replicas(key)
         if freed:
@@ -717,6 +836,12 @@ class TensorEngine:
         which advance the clock by whole windows.  Returns seconds spent
         (0.0 when it did not fire)."""
         if not self.checkpoint_due():
+            return 0.0
+        if self._exchange_checks and self._drain_exchange_checks():
+            # exchange redeliveries just queued: their source updates have
+            # not applied, but their fan-out deliveries may have — defer
+            # the write one tick (checkpoint_due keeps firing until it
+            # lands; the common no-drop drain proceeds)
             return 0.0
         t_cp = time.perf_counter()
         for a in self.arenas.values():
@@ -1219,10 +1344,10 @@ class TensorEngine:
             dt_tm = self.timers.advance_to(self.tick_number)
             if dt_tm:
                 stages["timers"] += dt_tm
-        if len(self._pending_checks) + len(self._fanout_checks) \
-                >= self.config.miss_check_cap:
-            # bound device memory pinned by parked checks (fan-out checks
-            # pin their batch's payload the same way)
+        if len(self._pending_checks) + len(self._exchange_checks) \
+                + len(self._fanout_checks) >= self.config.miss_check_cap:
+            # bound device memory pinned by parked checks (exchange and
+            # fan-out checks pin their batch's payload the same way)
             self._drain_checks()
         rounds = 0
         while rounds < self.config.max_rounds_per_tick:
@@ -1230,6 +1355,9 @@ class TensorEngine:
             if not pending:
                 break
             self.queues = defaultdict(list)
+            if self._exchange_live() and self.config.exchange_overlap \
+                    and self.router is None and self.exchange.engaged():
+                self._pre_exchange_round(pending, stages)
             for (type_name, method), batches in pending.items():
                 tf = time.perf_counter()
                 if self.router is not None:
@@ -1307,6 +1435,12 @@ class TensorEngine:
                         for (t, m), r in self._stream_routes.items()},
             # checkpoint and journal health, the recovery-point age
             "durability": self.checkpointer.snapshot(),
+            # live migration between shard blocks (migrate_keys)
+            "migrations": self.migrations,
+            "grains_migrated": self.grains_migrated,
+            # the cross-shard exchange (None without shard blocks)
+            "exchange": self.exchange.snapshot()
+            if self.exchange is not None else None,
         }
 
     def latency_stats(self) -> Dict[str, float]:
@@ -1369,11 +1503,14 @@ class TensorEngine:
         """Quiescence point: activate the unseen keys found by optimistic
         resolution and queue their (and only their) messages again.
         Returns True if work was queued."""
-        if not self._pending_checks and not self._fanout_checks:
+        if not self._pending_checks and not self._exchange_checks \
+                and not self._fanout_checks:
             return False
         checks = self._pending_checks
         self._pending_checks = []
-        requeued = self._drain_fanout_checks()
+        requeued = self._drain_exchange_checks()
+        if self._drain_fanout_checks():
+            requeued = True
         if not checks:
             return requeued
         # one device→host copy for every parked count
@@ -1450,6 +1587,76 @@ class TensorEngine:
             self.queues[(c.type_name, c.method)].append(PendingBatch(
                 args=c.args, keys_dev=c.keys, mask=missing,
                 inject_tick=c.inject_tick))
+            requeued = True
+        return requeued
+
+    def _pre_exchange_round(self, pending, stages) -> None:
+        """Exchange overlap, unfused path: at round start, run the exchange
+        of every queued single batch whose rows are already cached (the
+        injector path).  The exchange reads no arena state, so moving it
+        ahead is exact; its group uses the result only while the stamps
+        and the rows identity still match, else it runs the exchange
+        again inline.  A clustered silo skips this (a batch may ship to
+        another silo before it runs)."""
+        t0 = time.perf_counter()
+        did = False
+        for (type_name, method), batches in pending.items():
+            if len(batches) != 1:
+                continue
+            b = batches[0]
+            if (b.future is not None or b.keys_dev is None
+                    or b.keys_wide is not None or b.rows is None
+                    or b.segments is not None
+                    or b.pre_exchange is not None):
+                continue
+            arena = self.arenas.get(type_name)
+            if arena is None or arena.sharding is None:
+                continue
+            if b.generation != arena.generation \
+                    or b.epoch != arena.eviction_epoch:
+                continue
+            if not exchangeable_args(b.args, len(b)):
+                continue
+            base = b.mask if b.mask is not None else self._mask_for(len(b))
+            args = _map_tree(lambda a: _leaf_to_device(a, self.device),
+                             b.args)
+            r2, a2, m2, dropped, stats, run_cost = self.exchange.dispatch(
+                arena, b.rows, args, base, site=(type_name, method),
+                defer_stats=True)
+            b.pre_exchange = (r2, a2, m2, dropped, stats, arena.generation,
+                              arena.eviction_epoch, b.rows,
+                              time.perf_counter(), run_cost)
+            did = True
+        if did:
+            stages["exchange"] += time.perf_counter() - t0
+
+    def _drain_exchange_checks(self) -> bool:
+        """The exchange's half of the drain: fold every parked stats vector
+        (one device→host copy for all of them) and queue the dropped lanes
+        again by key, with their original inject stamps.  Returns True if
+        redeliveries were queued."""
+        if not self._exchange_checks:
+            return False
+        checks = self._exchange_checks
+        self._exchange_checks = []
+        stats = _stack_counts(*(c.stats for c in checks)).cpu().numpy()
+        xch = self.exchange
+        requeued = False
+        for c, row in zip(checks, stats):
+            if xch is not None:
+                # the demand tail sizes this site's future caps
+                xch.fold_stats(row, site=(c.type_name, c.method),
+                               scale=c.scale)
+            if c.measure_only or int(row[1]) == 0:
+                continue
+            if xch is not None:
+                xch.redeliveries += 1
+            # no_fanout: the first pass already expanded the subscriber
+            # deliveries of these lanes (they resolved; the drop happened
+            # in the bucket)
+            self.queues[(c.type_name, c.method)].append(PendingBatch(
+                args=c.args, keys_dev=c.keys, mask=c.dropped,
+                no_fanout=True, inject_tick=c.inject_tick))
             requeued = True
         return requeued
 
@@ -1654,8 +1861,19 @@ class TensorEngine:
         arena = self.arena_for(type_name)
         stages = self._tick_stages
         t_res = time.perf_counter()
+        # cross-shard exchange candidate (tensor/exchange.py): every batch
+        # carries device keys (the address overflow lanes are delivered
+        # again by) and no future (the exchange permutes lanes).  Final
+        # eligibility also needs every resolution on the device; the
+        # ledger records a candidate after that decision, so dropped lanes
+        # count when they deliver.
+        maybe_exchange = (
+            self._exchange_live() and self.exchange.engaged()
+            and arena.sharding is not None
+            and all(b.future is None and b.keys_dev is not None
+                    and b.keys_wide is None for b in batches))
         ledger = self.ledger
-        if ledger.enabled:
+        if ledger.enabled and not maybe_exchange:
             # latency ledger, host-resolved side: injector and host-key
             # batches always fully deliver (host resolution activates),
             # so each is one numpy scalar add — recorded BEFORE
@@ -1680,13 +1898,28 @@ class TensorEngine:
         route = self._stream_routes.get((type_name, method))
         if route is not None and self._streams_live():
             self._expand_resolved_stream_routes(route, batches, resolved)
-        if ledger.enabled:
+        # final exchange eligibility: every resolution stayed on the device
+        # (a stale injector resolves on the host and this group runs
+        # unexchanged this round) and every payload is lane-aligned
+        will_exchange = maybe_exchange and not any(
+            isinstance(r, np.ndarray) for r, _ in resolved) and all(
+            exchangeable_args(b.args, len(b)) for b in batches)
+        if ledger.enabled and not will_exchange:
             # device side: count exactly the lanes the step applies (mask
             # ∧ resolved, one K5 launch per batch); unresolved lanes count
             # when their redelivery applies, never twice
             for b, (rows, _a) in zip(batches, resolved):
-                if b.inject_tick < 0 or b.keys_host is not None \
-                        or b.rows is not None:
+                if b.inject_tick < 0:
+                    continue
+                if maybe_exchange:
+                    # a candidate that fell back: its host-side record was
+                    # skipped above — account it by its resolution kind
+                    if isinstance(rows, np.ndarray):
+                        ledger.record_host(type_name, method,
+                                           self.tick_number - b.inject_tick,
+                                           len(b))
+                        continue
+                elif b.keys_host is not None or b.rows is not None:
                     continue
                 base = b.mask if b.mask is not None \
                     else self._mask_for(len(b))
@@ -1717,16 +1950,48 @@ class TensorEngine:
             m_total = rows.shape[0]
         args = _map_tree(lambda a: _leaf_to_device(a, self.device), args)
         self.messages_processed += m_total
-        t_apply = time.perf_counter()
-        stages["resolve"] += t_apply - t_res
+        t_x = time.perf_counter()
+        stages["resolve"] += t_x - t_res
         if mask is None:
             mask = self._mask_for(rows.shape[0])
+        if (not host_rows and self._exchange_live()
+                and not self.exchange.engaged()
+                and arena.sharding is not None
+                and all(b.future is None and b.keys_dev is not None
+                        and b.keys_wide is None for b in batches)
+                and all(exchangeable_args(b.args, len(b))
+                        for b in batches)):
+            # DISENGAGED exchange (identity): the batch delivers as it is,
+            # and every Nth eligible group of the site runs the
+            # measure-only probe (K23) — the same eligibility as the
+            # engaged path, so its counters estimate the traffic the
+            # structured exchange would carry
+            xch = self.exchange
+            scale = xch.probe_scale(
+                (type_name, method),
+                max(1, self.config.exchange_probe_interval))
+            if scale:
+                self._exchange_checks.append(_ExchangeCheck(
+                    type_name=type_name, method=method, keys=None,
+                    args=None, dropped=None,
+                    stats=xch._probe(arena, rows, mask, (type_name, method)),
+                    measure_only=True, scale=scale))
+        exchanged = False
+        if will_exchange:
+            rows, args, mask = self._exchange_group(
+                arena, type_name, method, batches, rows, args, mask)
+            exchanged = True
+            stages["exchange"] += time.perf_counter() - t_x
+        t_apply = time.perf_counter()
         if self.attribution.enabled:
             # fold the group's final rows (masked miss lanes count at
-            # their redelivery).  A single batch's emit keys are the
-            # delta-plan memo's stable identity: its rows re-resolve to a
-            # fresh tensor every tick.
-            ident = batches[0].keys_dev if len(batches) == 1 else None
+            # their redelivery; exchanged rows are the post-exchange ones,
+            # so dropped lanes count at their redelivery too).  A single
+            # unexchanged batch's emit keys are the delta-plan memo's
+            # stable identity: its rows re-resolve to a fresh tensor every
+            # tick (an exchange permutes lanes every tick).
+            ident = batches[0].keys_dev \
+                if len(batches) == 1 and not exchanged else None
             self.attribution.record_group(arena, type_name, method, rows,
                                           mask, ident=ident,
                                           host_rows=host_rows)
@@ -1748,6 +2013,53 @@ class TensorEngine:
             t_dr = time.perf_counter()
             self._deliver_results(batches, results)
             stages["results"] += time.perf_counter() - t_dr
+
+    def _exchange_group(self, arena: GrainArena, type_name: str,
+                        method: str, batches: List[PendingBatch],
+                        rows: torch.Tensor, args: Any, mask: torch.Tensor
+                        ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+        """The cross-shard exchange of one resolved device group (K23 or
+        K24 through ``ShardExchange.dispatch``), or the round-start
+        pre-dispatch of it while its stamps and rows still match.  The
+        dropped mask and the stats park as an ``_ExchangeCheck`` with
+        copies of the keys and the pre-exchange payload; the ledger
+        records exactly the lanes delivered now.  Returns the exchanged
+        (rows, args, mask)."""
+        keys_cat = batches[0].keys_dev if len(batches) == 1 \
+            else torch.cat([b.keys_dev for b in batches])
+        orig_args = args
+        pre = batches[0].pre_exchange if len(batches) == 1 else None
+        xch = self.exchange
+        if pre is not None and pre[5] == arena.generation \
+                and pre[6] == arena.eviction_epoch and rows is pre[7]:
+            # the round-start pre-dispatch already ran this batch's
+            # exchange: its run counters fold now (it is the batch's one
+            # exchange)
+            rows, args, mask, dropped, stats = pre[:5]
+            xch.fold_dispatch(pre[9])
+            xch.note_overlap(time.perf_counter() - pre[8])
+        else:
+            if pre is not None:
+                # stale: its deferred counters drop with it
+                xch.pre_discards += 1
+            rows, args, mask, dropped, stats = xch.dispatch(
+                arena, rows, args, mask, site=(type_name, method))
+        if len(batches) == 1:
+            batches[0].pre_exchange = None
+        # the ORIGINAL inject stamp rides the check (the earliest of the
+        # group's stamped batches)
+        inj = min((b.inject_tick for b in batches if b.inject_tick >= 0),
+                  default=-1)
+        self._exchange_checks.append(_ExchangeCheck(
+            type_name=type_name, method=method, keys=_park_copy(keys_cat),
+            args=_map_tree(_park_copy, orig_args), dropped=dropped,
+            stats=stats, inject_tick=inj))
+        if self.ledger.enabled and inj >= 0:
+            # the lanes delivered this tick (dropped lanes count when they
+            # are delivered again)
+            self.ledger.record_rows(type_name, method,
+                                    self.tick_number - inj, rows, mask)
+        return rows, args, mask
 
     def _run_segments_batch(self, type_name: str, method: str,
                             b: PendingBatch) -> None:

@@ -75,7 +75,19 @@ tell a window its baked addresses and rows are gone: each adoption bumps
 the arena's ``restore_epoch`` and a window built before it rebuilds first
 (cause ``restore``) — it never replays onto replaced storage.  Journal
 fold-replay runs stacked windows through ``FusedTickProgram.replay``.
-The exchange belongs to a later slice of the port.
+
+Over an arena of shard blocks with the exchange on and engaged
+(``tensor/exchange.py``), every group is exchanged inside the window before
+its step, as the JAX window threads the ``all_to_all`` through its scan:
+K24 at the site's baked plan, or K23's classification where the plan is
+cap 0.  A source with a static key set is packed home-block-local at the
+build (``exchange_align_sources``): its leaves gather into the packed lane
+order (statics once per window), and its own exchange is skipped.  The
+dropped lanes add into the miss total, so ``verify()`` fails and the
+auto-fuser replays the ticks unfused, and each site's demand max-merges
+into a device accumulator that ``verify()`` reads with the totals and folds
+into the estimators.  A grant move rebuilds the window (cause
+``bucket_growth``), an exchange toggle too (``config_toggle``).
 """
 
 from __future__ import annotations
@@ -98,6 +110,7 @@ from orleans_tpu_torch.tensor.engine import (
     _map_tree,
     resolve_rows_on_device,
 )
+from orleans_tpu_torch.tensor.exchange import exchangeable_args
 from orleans_tpu_torch.tensor.vector_grain import Batch, ones_mask, vector_type
 
 # why a program rebuilt (the causes of orleans_tpu/tensor/profiler.py's
@@ -114,6 +127,7 @@ CAUSE_FANOUT_REBUILD = "fanout_rebuild"
 CAUSE_STREAM_REBUILD = "stream_rebuild"
 CAUSE_REPLICA_CHANGE = "replica_change"
 CAUSE_RESTORE = "restore"
+CAUSE_BUCKET_GROWTH = "bucket_growth"
 
 
 def plan_windows(window: int, n_ticks: int) -> Tuple[int, int, int]:
@@ -204,7 +218,8 @@ class _Source:
         if not self.stacked_rows:
             rows = self.arena.spread_rows_host(
                 self.arena.resolve_rows(self.keys))
-            self.rows = torch.from_numpy(rows.astype(np.int32)).to(device)
+            self.rows_host = rows.astype(np.int32)
+            self.rows = torch.from_numpy(self.rows_host).to(device)
             self.mask = ones_mask(len(self.keys), device)
             return
         if len(self.keys):
@@ -308,6 +323,20 @@ class FusedTickProgram:
         self._streams_on = False
         self._stream_sig: Optional[Tuple] = None
         self._discovering = False
+        # the cross-shard exchange: baked at build time like the ledger —
+        # whether it runs, the sites it runs at with their (lanes in,
+        # lanes out) and the plan signature; per source, the host packing
+        # of an aligned source (or None); per site, the demand
+        # accumulator (int32 [2n], max-merged each tick, read and zeroed
+        # at verify)
+        self._exchange_on = False
+        self._exchange_shapes: List[Tuple] = []
+        self._site_keys: Dict[str, Tuple[str, str]] = {}
+        self._exchange_plan_sig: Optional[Tuple] = None
+        self._align: List[Optional[Dict[str, Any]]] = \
+            [None] * len(self.sources)
+        self._xneed: Dict[str, torch.Tensor] = {}
+        self._xneed_fresh = False
         # device [1, 2] int32: (misses, delivered) since the last verify,
         # added into in place by every window (one address for graphs)
         self._totals = torch.zeros((1, 2), dtype=torch.int32,
@@ -357,7 +386,8 @@ class FusedTickProgram:
                      acc: Tuple[torch.Tensor, Optional[torch.Tensor],
                                 Optional[Dict[str, Any]]],
                      segments: Optional[torch.Tensor] = None,
-                     host_keys: Optional[np.ndarray] = None
+                     host_keys: Optional[np.ndarray] = None,
+                     aligned: bool = False
                      ) -> Dict[str, Dict[str, torch.Tensor]]:
         """Apply one (type, method) batch and recurse into its emits, its
         fan-out and its stream route — the unrolled multi-round tick.
@@ -369,18 +399,44 @@ class FusedTickProgram:
         a pull-mode delivery) folds the applied rows into the type's delta
         column and the lanes into the attribution slot.  ``segments``
         marks a pull-mode delivery; ``host_keys`` is a static source's key
-        set, which a stream route matches against its bound key set."""
+        set, which a stream route matches against its bound key set;
+        ``aligned`` marks a source packed home-block-local at the build,
+        whose exchange is skipped.
+
+        With the exchange on and engaged, every group over an arena of
+        shard blocks is exchanged first (K23 or K24 in the window): its
+        dropped lanes add into totals[0, 0] (the window is then not exact,
+        and the unfused replay delivers them again) and its demand
+        max-merges into the site's accumulator ``acc[3]``."""
         engine = self.engine
         info = vector_type(type_name)
         handler = info.handlers[method]
         if type_name not in states:
             states[type_name] = self._discover_state(type_name)
         n_rows = next(iter(states[type_name].values())).shape[0]
+        totals, hist, attr, xneed = acc
+        xch = engine.exchange
+        if self._exchange_on and xch is not None and not aligned \
+                and xch.engaged() and segments is None:
+            arena = engine.arena_for(type_name)
+            if arena.sharding is not None:
+                site = (type_name, method)
+                rows, args, mask, dropped, need = xch.apply_traced(
+                    site, int(arena.shard_capacity), rows, args, mask)
+                totals[0, 0].add_(dropped)
+                skey = f"{type_name}.{method}"
+                acc_x = xneed.get(skey)
+                if acc_x is None:
+                    if not self._discovering:
+                        raise RuntimeError(f"fused window: no exchange "
+                                           f"demand for {skey!r}")
+                    xneed[skey] = need.clone()
+                else:
+                    torch.maximum(acc_x, need, out=acc_x)
         state2, _results, emits = _normalize(handler(
             states[type_name], Batch(rows=rows, args=args, mask=mask,
                                      segments=segments), n_rows))
         states[type_name] = state2
-        totals, hist, attr = acc
         if hist is not None:
             # every applied lane completes in its own (virtual) tick:
             # delta 0, bucket 0
@@ -491,18 +547,38 @@ class FusedTickProgram:
     def _apply_all(self, states, statics: List[Dict[str, Any]],
                    per_tick: List[Dict[str, torch.Tensor]], acc):
         for i, src in enumerate(self.sources):
-            args_i = {**statics[i], **per_tick[i]}
+            al = self._align[i]
+            args_i = {**statics[i], **(per_tick[i] if al is None else
+                                       self._align_tree(i, per_tick[i]))}
             if src.stacked_rows:
                 rows_i = args_i.pop("__rows__")
                 mask_i = args_i.pop("__mask__")
+            elif al is not None:
+                rows_i, mask_i = al["rows"], al["mask"]
             else:
                 rows_i, mask_i = src.rows, src.mask
             states = self._apply_group(
                 states, src.type_name, src.method, rows_i, args_i, mask_i, 1,
-                acc, host_keys=None if src.stacked_rows else src.keys)
+                acc, host_keys=None if src.stacked_rows else src.keys,
+                aligned=al is not None)
         return states
 
+    def _align_tree(self, i: int, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """One source's lane-aligned leaves gathered into its packed
+        home-block-local lane order (scalars and 0-d leaves pass
+        through)."""
+        take = self._align[i]["take"]
+        return _map_tree(lambda a: _gather_lanes(a, take), tree)
+
+    def _aligned_statics(self, statics: List[Dict[str, Any]]
+                         ) -> List[Dict[str, Any]]:
+        """Aligned sources' static leaves in their packed lane order,
+        gathered once per window, outside the ticks."""
+        return [st if self._align[i] is None else self._align_tree(i, st)
+                for i, st in enumerate(statics)]
+
     def _run_ticks(self, states, statics, stackeds, n_ticks: int, acc):
+        statics = self._aligned_statics(statics)
         for t in range(n_ticks):
             per_tick = [{k: v[t] for k, v in st.items()} for st in stackeds]
             states = self._apply_all(states, statics, per_tick, acc)
@@ -516,6 +592,28 @@ class FusedTickProgram:
                                counts=self._attr["counts"][n])
                 delta.zero_()
         return states
+
+    def _acc(self) -> Tuple:
+        """A run's accumulators: (totals, ledger hist, attribution, exchange
+        demand)."""
+        return self._totals, self._hist, self._attr_acc(), self._xneed
+
+    def _fold_xneed(self, host: Optional[List[np.ndarray]] = None) -> None:
+        """Fold the demand the windows accumulated per site since the last
+        fold into the exchange's estimators (``host``: the accumulators
+        already read) and zero the accumulators."""
+        if not self._xneed or not self._xneed_fresh:
+            return
+        self._xneed_fresh = False
+        xch = self.engine.exchange
+        if host is None:
+            host = list(torch.stack(list(self._xneed.values()))
+                        .cpu().numpy())
+        for (skey, acc), vec in zip(self._xneed.items(), host):
+            site = self._site_keys.get(skey)
+            if xch is not None and site is not None:
+                xch.observe_need(site, np.asarray(vec))
+            acc.zero_()
 
     def _attr_acc(self) -> Optional[Dict[str, Any]]:
         """The attribution part of a run's accumulators."""
@@ -640,10 +738,18 @@ class FusedTickProgram:
                 fan.current_version() != v
                 for fan, v in self._fanout_versions.values()):
             return CAUSE_FANOUT_REBUILD
-        if self._streams_on != engine._streams_live():
+        if self._streams_on != engine._streams_live() \
+                or self._exchange_on != engine._exchange_live():
             return CAUSE_CONFIG_TOGGLE
         if self._stream_sig != engine._stream_routes_signature():
             return CAUSE_STREAM_REBUILD
+        if self._exchange_on and engine.exchange is not None \
+                and self._exchange_plan_sig != engine.exchange \
+                .plan_signature(list(self._site_keys.values())):
+            # a grant moved (the estimators fold at drains and verifies
+            # only, so a steady stream never rebuilds per tick) or the
+            # sizing knobs changed: the window baked the old layouts
+            return CAUSE_BUCKET_GROWTH
         if self._graph is None:
             return None
         for buf, st in zip(self._in, stackeds):
@@ -688,6 +794,8 @@ class FusedTickProgram:
         cause = self._rebuild_cause(stackeds, statics)
         if cause is not None:
             self.rebuilds[cause] += 1
+            # pending demand folds under the old site layout first
+            self._fold_xneed()
             for s in self.sources:
                 s.refresh_rows()
             t0 = time.perf_counter()
@@ -725,20 +833,41 @@ class FusedTickProgram:
                 route.push_csr(dev)
         for s in self.sources:
             self._note_arena(s.type_name, s.arena)
+        self._build_exchange(stackeds, statics)
+        xch = engine.exchange
+        if xch is not None:
+            xch.trace_log = []
         states = {s.type_name: {k: v.clone() for k, v in
                                 s.arena.state.items()}
                   for s in self.sources}
         hist = self._hist.clone() if self._hist is not None else None
         scratch_attr = {"delta": {}, "slots": att.device_state_in(
             [])["slots"].clone()} if att.enabled else None
+        scratch_xneed: Dict[str, torch.Tensor] = {}
         first = [{k: v[0].to(dev) for k, v in st.items()} for st in stackeds]
         self._discovering = True
         try:
-            self._apply_all(states, self._statics_for_run(statics), first,
-                            (self._totals.clone(), hist, scratch_attr))
+            self._apply_all(states, self._aligned_statics(
+                self._statics_for_run(statics)), first,
+                            (self._totals.clone(), hist, scratch_attr,
+                             scratch_xneed))
         finally:
             self._discovering = False
         del states, scratch_attr
+        # the exchange sites the discovery tick met, their widths, the
+        # plans they baked, and a zeroed demand accumulator per site
+        shapes = list(xch.trace_log) \
+            if self._exchange_on and xch is not None else []
+        self._exchange_shapes = shapes
+        self._site_keys = {}
+        for site, _mi, _mo in shapes:
+            self._site_keys.setdefault(f"{site[0]}.{site[1]}", site)
+        self._exchange_plan_sig = xch.plan_signature(
+            list(self._site_keys.values())) \
+            if self._exchange_on and xch is not None else None
+        self._xneed = {k: torch.zeros_like(v)
+                       for k, v in scratch_xneed.items()}
+        self._xneed_fresh = False
         if att.enabled:
             # every touched arena's live accumulators (flushed) and a
             # zeroed delta column the window's ticks fold into
@@ -752,6 +881,40 @@ class FusedTickProgram:
         self._built = True
         if self.on_card:
             self._capture(stackeds, statics, n_ticks)
+
+    def _build_exchange(self, stackeds: List[Dict[str, torch.Tensor]],
+                        statics: List[Dict[str, Any]]) -> None:
+        """Bake the exchange: whether it runs and, with
+        ``exchange_align_sources``, the host packing of every source with
+        a static key set (``ShardExchange.align_plan``) — its lanes
+        gathered home-block-local, so its exchange is skipped; its emits
+        inherit the packed width, a transport width the next exchange
+        keeps split exactly.  Sources of a stream route keep their lane
+        order (pull layouts address the bound key order)."""
+        engine = self.engine
+        dev = engine.device
+        self._exchange_on = engine._exchange_live()
+        self._align = [None] * len(self.sources)
+        if not (self._exchange_on and engine.exchange.engaged()
+                and engine.config.exchange_align_sources):
+            return
+        for i, s in enumerate(self.sources):
+            example = {**statics[i],
+                       **{k: v[0] for k, v in stackeds[i].items()}}
+            if s.stacked_rows or s.arena.sharding is None \
+                    or (s.type_name, s.method) in engine._stream_routes \
+                    or not exchangeable_args(example, len(s.keys)):
+                continue
+            plan = engine.exchange.align_plan(s.rows_host,
+                                              int(s.arena.shard_capacity))
+            if plan is None:
+                continue
+            engine.exchange.note_transport_width(len(plan["rows"]))
+            self._align[i] = {
+                "take": _leaf_to_device(
+                    np.clip(plan["take"], 0, None).astype(np.int32), dev),
+                "rows": _leaf_to_device(plan["rows"], dev),
+                "mask": _leaf_to_device(plan["take"] >= 0, dev)}
 
     def _capture(self, stackeds: List[Dict[str, torch.Tensor]],
                  statics: List[Dict[str, Any]], n_ticks: int) -> None:
@@ -786,8 +949,7 @@ class FusedTickProgram:
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             states = {n: dict(bufs) for n, bufs in self._state_bufs.items()}
             states = self._run_ticks(states, self._graph_statics, self._in,
-                                     n_ticks, (self._totals, self._hist,
-                                               self._attr_acc()))
+                                     n_ticks, self._acc())
             for n, bufs in self._state_bufs.items():
                 self._copy_back(n, bufs, states[n])
         after = _build.captured_counts()
@@ -849,13 +1011,16 @@ class FusedTickProgram:
                 states, self._statics_for_run(statics),
                 [{k: v.to(engine.device) for k, v in st.items()}
                  for st in staged],
-                n_ticks, (self._totals, self._hist, self._attr_acc()))
+                n_ticks, self._acc())
             for n in self._touched:
                 engine.arena_for(n).adopt_state(states[n])
         if self._ledger_on:
             engine.ledger.device_hist_out(self._hist)
         engine.attribution.device_state_out(self._attr)
         self._unread = True
+        if self._exchange_on and engine.exchange is not None:
+            engine.exchange.fold_fused_shapes(self._exchange_shapes, n_ticks)
+            self._xneed_fresh = True
         engine.tick_number += n_ticks
         engine.messages_processed += n_ticks * self.n_msgs
         # the window advanced the tick clock without the engine's touch
@@ -866,13 +1031,24 @@ class FusedTickProgram:
     def verify(self) -> int:
         """Sync point: misses (cold destinations, round-cap spills) across
         ``run`` calls since the last verify — nonzero means the windows
-        were NOT exact and their ticks must re-run unfused.  Folds the
-        windows' delivered emit count into the engine's
-        messages_processed.  ONE two-element device read however many
-        windows ran."""
+        were NOT exact and their ticks must re-run unfused; an exchange's
+        dropped lanes count among them.  Folds the windows' delivered emit
+        count into the engine's messages_processed and their exchange
+        demand into the estimators (a dropped lane both fails the window
+        and grows the grant, so the rebuilt window fits).  ONE device read
+        however many windows ran."""
         if not self._unread:
+            self._fold_xneed()
             return 0
-        misses, delivered = self._totals[0].tolist()
+        fresh = self._xneed_fresh and bool(self._xneed)
+        parts = [self._totals.view(-1)] + (list(self._xneed.values())
+                                           if fresh else [])
+        host = torch.cat(parts).cpu().numpy()
+        misses, delivered = int(host[0]), int(host[1])
+        if fresh:
+            n2 = 2 * self.engine.n_shards
+            self._fold_xneed([host[2 + k * n2:2 + (k + 1) * n2]
+                              for k in range(len(self._xneed))])
         self._totals.zero_()
         self._unread = False
         self.engine.messages_processed += delivered

@@ -61,8 +61,6 @@ from orleans_tpu_torch.kernels.resolve import KEY_SENTINEL
 from orleans_tpu_torch.tensor.engine import _gather_lanes, _map_tree
 from orleans_tpu_torch.tensor.vector_grain import ones_mask
 
-_MIGRATION = "belongs to the multi-shard slice of the port (migration)"
-
 
 def _host_keys(a: Any) -> np.ndarray:
     if isinstance(a, torch.Tensor):
@@ -276,7 +274,27 @@ class DeviceSubscriptions:
             self._pull_stamp = (arena.generation, arena.eviction_epoch + 1)
 
     def on_migrate(self, arena, keys: np.ndarray) -> None:
-        raise NotImplementedError(f"streams on_migrate {_MIGRATION}")
+        """Called by the subscriber arena's live migration (rows move,
+        grains stay live): unlike eviction the subscriptions survive — the
+        host truth and the key-addressed push CSR stand — but the pull
+        layout addresses subscriber rows, so a migrated subscribed key
+        dirties it for a rebuild at the next publish.  With no subscribed
+        mover only the stamp advances (the caller bumps the epoch after
+        this hook)."""
+        if arena.info.name != self.type_name:
+            return
+        self._merge_host()
+        if len(self._sub_keys_sorted) == 0:
+            return
+        keys = np.asarray(keys, dtype=np.int64)
+        idx = np.searchsorted(self._sub_keys_sorted, keys)
+        idx = np.minimum(idx, len(self._sub_keys_sorted) - 1)
+        if (self._sub_keys_sorted[idx] == keys).any():
+            self._pull_dirty = True
+        elif self._pull is not None \
+                and self._pull_stamp == (arena.generation,
+                                         arena.eviction_epoch):
+            self._pull_stamp = (arena.generation, arena.eviction_epoch + 1)
 
     # -- pull layout (the bound fast path) ------------------------------------
 

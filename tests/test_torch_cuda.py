@@ -1580,3 +1580,105 @@ def test_two_silo_cluster_on_card_matches_cpu(cuda_device):
                 np.testing.assert_allclose(gpu[key][c], w, rtol=1e-5)
             else:
                 np.testing.assert_array_equal(gpu[key][c], w, err_msg=c)
+
+
+# -- the cross-shard exchange (K23, K24) -------------------------------------
+
+def _exchange_lanes(device, m, n, sc, seed):
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n * sc, m).astype(np.int32)
+    rows[rng.random(m) < 0.05] = -1
+    rows[rng.random(m) < 0.01] = n * sc  # past the arena: invalid
+    mask = rng.random(m) < 0.95
+    return (torch.from_numpy(rows).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.parametrize("m,L", [(1000, 128), (997, 128), (300_000, 49152)])
+@pytest.mark.parametrize("mode", ["probe", "cap0"])
+def test_exchange_classify_matches_plain(cuda_device, m, L, mode):
+    from orleans_tpu_torch.kernels import exchange as kx
+
+    n, sc = 8, 4096
+    rows, mask = _exchange_lanes(cuda_device, m, n, sc, seed=m + L)
+    got = kx.exchange_classify(rows, mask, sc, L, n, mode)
+    want = kx.exchange_classify_plain(rows, mask, sc, L, n, mode)
+    torch.cuda.synchronize()
+    for a, b in zip(got if mode == "cap0" else (got,),
+                    want if mode == "cap0" else (want,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["legacy_fit", "legacy_overflow",
+                                    "perdest", "perdest_recv_overflow"])
+@pytest.mark.parametrize("m,L", [(997, 128), (300_000, 49152)])
+def test_exchange_buckets_matches_plain(cuda_device, layout, m, L):
+    """K24 in both layouts, bit for bit: rows, a 4-byte, an 8-byte and a
+    2-D leaf, mask, dropped lanes and stats — tiles that split a chunk,
+    ragged lanes, and send and receive overflow."""
+    from orleans_tpu_torch.kernels import exchange as kx
+
+    n, sc = 8, 4096
+    rows, mask = _exchange_lanes(cuda_device, m, n, sc, seed=m)
+    rng = np.random.default_rng(1)
+    leaves = [torch.from_numpy(x).to(cuda_device) for x in (
+        rng.standard_normal(m).astype(np.float32),
+        rng.integers(-2**62, 2**62, m, dtype=np.int64),
+        rng.integers(0, 9, (m, 3)).astype(np.int32))]
+    per = max(1, L // n)
+    plan = {"legacy_fit": dict(cap=L),
+            "legacy_overflow": dict(cap=max(1, per // 2)),
+            "perdest": dict(caps=[L] * n, R=n * L),
+            "perdest_recv_overflow": dict(caps=[per // 2, per, 0, per,
+                                                per * 2, per, 3, per],
+                                          R=max(1, per * 3))}[layout]
+    got = kx.exchange_buckets(rows, mask, leaves, sc, L, n, **plan)
+    want = kx.exchange_buckets_plain(rows, mask, leaves, sc, L, n, **plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a, b)
+    dropped = int(want[4][1])
+    assert (dropped > 0) == layout.endswith("overflow")
+
+
+@pytest.mark.parametrize("fused", [0, 4])
+def test_routing_sweep_on_card_matches_cpu(cuda_device, fused):
+    """The routing load over 8 blocks at ratio 0.5 with the structured
+    exchange, unfused and in fused windows (K24 eager and replayed in the
+    graph): the card equals the CPU port row for row and the exchange's
+    counters agree."""
+    import asyncio
+
+    from orleans_tpu_torch.config import TensorEngineConfig
+    from orleans_tpu_torch.kernels import _build
+    from orleans_tpu_torch.samples import routing
+    from orleans_tpu_torch.tensor.engine import TensorEngine
+    from orleans_tpu_torch.tensor.mesh import ShardMesh
+
+    def run(device):
+        e = TensorEngine(mesh=ShardMesh(8, device), device=device,
+                         config=TensorEngineConfig(
+                             auto_fusion_ticks=0,
+                             exchange_structured="always"))
+        asyncio.run(routing.run_routing_load(e, 20_000, 2_048, 0.5,
+                                             n_ticks=8, fused_window=fused))
+        return e
+
+    _build.reset_launch_counts()
+    gpu = run(cuda_device)
+    counts = _build.launch_counts()
+    cpu = run("cpu")
+    assert counts["exchange_buckets"] > 0
+    for name in ("RouteSource", "RouteSink"):
+        ga, ca = gpu.arena_for(name), cpu.arena_for(name)
+        np.testing.assert_array_equal(ga._key_of_row, ca._key_of_row)
+        for col in ca.state:
+            np.testing.assert_array_equal(ga.state[col].cpu().numpy(),
+                                          ca.state[col].numpy(), err_msg=col)
+    gx, cx = gpu.stats()["exchange"], cpu.stats()["exchange"]
+    for k in ("exchanges_run", "cross_shard_msgs", "delivered_msgs",
+              "dropped_msgs", "sites"):
+        assert gx[k] == cx[k], k

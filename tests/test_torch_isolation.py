@@ -76,7 +76,10 @@ def test_port_imports_neither_jax_nor_orleans_tpu():
         "orleans_tpu_torch.samples.twitter_sentiment",
         "orleans_tpu_torch.kernels.checkpoint",
         "orleans_tpu_torch.tensor.checkpoint",
-        "orleans_tpu_torch.samples.banking"}
+        "orleans_tpu_torch.samples.banking",
+        "orleans_tpu_torch.kernels.exchange",
+        "orleans_tpu_torch.tensor.exchange",
+        "orleans_tpu_torch.tensor.mesh"}
     assert expected <= set(report["modules"])
     assert report["leaked"] == []
     # no card here: the default device must refuse, not fall back
