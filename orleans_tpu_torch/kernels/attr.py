@@ -14,6 +14,12 @@
   snapshot (``_snapshot_kernel``): total, top-k (ties lower row first),
   per-shard sums, nonzero rows, p99, Gini, mean and the sketch estimate
   of the top rows, packed into one int64 vector (``decode_snapshot``).
+  Bound by bytes: p99 and Gini need the counts' ascending order, which
+  no sort reaches in the one read of the counts that bounds it.  The
+  kernel sorts the 4-byte counts alone with a one-sweep LSD radix sort
+  that skips the digits all counts share, reads Gini and p99 from the
+  sorted values, and finds the top-k rows by a compaction of the rows
+  at or above the k-th largest count, so only k rows are ever ordered.
 
 Every wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors.  ``cms_hash`` is the sketch hash the kernels
@@ -40,9 +46,9 @@ _SIG_FOLD = {"attr_fold": (_P, _I64, _P, _INT, _I64, _P, _P, _P, _P, _P,
 _SIG_APPLY = {"attr_apply": (_P, _P, _I64, _P, _P, _I64, _P, _P,
                              ctypes.c_int32, _P, _P),
               "attr_match": (_P, _P, _INT, _P, _P, _I64, _P, _P, _P)}
-_SIG_SNAPSHOT = {"attr_snapshot": (_P, _I64, _I64, _P, _INT, _I64, _P, _INT,
-                                   _INT, _P, _P, _P, _P),
-                 "attr_snapshot_partials": ()}
+_SIG_SNAPSHOT = {"attr_snapshot": (_P, _I64, _P, _INT, _I64, _P, _INT, _INT,
+                                   _P, _P, _P),
+                 "attr_snapshot_scratch": (_I64, _INT, _INT, _P)}
 
 #: entries one ``attr_match`` launch compares (the flush buffer's cap)
 MAX_STACK = 32
@@ -432,18 +438,17 @@ def attr_snapshot(counts: torch.Tensor, cms: torch.Tensor,
     if dev.type == "cpu":
         return attr_snapshot_plain(counts, cms, seeds, k, n_shards)
     cap = counts.shape[0]
-    n2 = 1 << max(0, cap - 1).bit_length()
     lib = _build.library("attr_snapshot", _SIG_SNAPSHOT)
-    keys = torch.empty(n2, dtype=torch.int64, device=dev)  # uint64 bits
-    partials = torch.empty(lib.attr_snapshot_partials(),
-                           dtype=torch.float64, device=dev)
+    nbytes = ctypes.c_int64(0)
+    lib.attr_snapshot_scratch(cap, k, n_shards, ctypes.addressof(nbytes))
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     out = torch.empty(snapshot_size(k, n_shards), dtype=torch.int64,
                       device=dev)
     seeds_arr = _seed_array(seeds)
     err = lib.attr_snapshot(
-        counts.data_ptr(), cap, n2, cms.data_ptr(), cms.shape[0],
-        cms.shape[1], ctypes.addressof(seeds_arr), k, n_shards,
-        keys.data_ptr(), partials.data_ptr(), out.data_ptr(), _stream(dev))
+        counts.data_ptr(), cap, cms.data_ptr(), cms.shape[0], cms.shape[1],
+        ctypes.addressof(seeds_arr), k, n_shards, scratch.data_ptr(),
+        out.data_ptr(), _stream(dev))
     _build.check(lib, err, "attr_snapshot")
     _build.note_launch(attr_snapshot)
     return out

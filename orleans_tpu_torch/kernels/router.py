@@ -14,9 +14,15 @@ trailing shape and dtype; indices outside ``[0, n)`` clip.
 
 The plain version (``gather_args_plain``: one ``index_select`` per piece
 into the same layout) is what a CPU tensor takes; a CUDA tensor launches
-K22 or raises.  Kernel and plain version agree bit for bit.  What bounds
-the kernel on an H100 and what its design does about it is in the note
-at the top of ``csrc/router.cu``.
+K22 or raises.  Kernel and plain version agree bit for bit.
+
+The kernel is bound by bytes: the rows read and written and the indices
+read once.  ``plan_gather`` plans its blocks here, on the host: each
+block covers ``LANES_PER_BLOCK`` consecutive lanes of one segment for
+every leaf of the launch, so a block knows its segment from its index
+alone; a thread keeps its ``LANES_PER_THREAD`` lanes' indices for every
+leaf and writes a narrow leaf's lanes with one vector store.  The note at
+the top of ``csrc/router.cu`` has the rest.
 """
 
 from __future__ import annotations
@@ -30,13 +36,20 @@ import torch
 
 from orleans_tpu_torch.kernels import _build
 
-MAX_PIECES = 64
+#: the kernel's block geometry and its per-launch table limits
+#: (csrc/router.cu)
+LANES_PER_THREAD = 4
+LANES_PER_BLOCK = 256 * LANES_PER_THREAD
+MAX_LEAVES = 8
+MAX_SEGMENTS = 16
 _ALIGN = 16
+#: row widths the 4-lane path takes (one vector store of 4 lanes)
+_NARROW = (1, 2, 4, 8)
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _SIGNATURES = {
-    "gather_args": (_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "gather_args": (_I32, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -143,6 +156,62 @@ def _check(leaves: Sequence[torch.Tensor], idx: torch.Tensor) -> None:
             raise ValueError(f"leaf {i} has no rows to gather from")
 
 
+@dataclass
+class GatherLaunch:
+    """One launch of K22: its non-empty segments (first lane of ``idx``,
+    lanes, first block; ``block0`` has one more entry, the grid size) and
+    its leaves (indices into the call's leaves), with each (segment,
+    leaf) piece's byte offset in the packed buffer.  Block ``b`` belongs
+    to the last segment ``s`` with ``block0[s] <= b`` and covers its
+    lanes from ``(b - block0[s]) * LANES_PER_BLOCK``, as the kernel
+    finds them."""
+
+    segments: List[int]
+    lane0: List[int]
+    lanes: List[int]
+    block0: List[int]
+    leaves: List[int]
+    offs: List[List[int]]
+
+
+def plan_gather(layout: SplitLayout, leaves: Sequence[int]
+                ) -> List[GatherLaunch]:
+    """K22's launches for a packed split of the given leaves (indices into
+    the layout's): the non-empty segments in groups of ``MAX_SEGMENTS``
+    times the leaves in groups of ``MAX_LEAVES``; in each launch segment
+    ``s`` owns blocks ``[block0[s], block0[s + 1])``,
+    ``ceil(lanes / LANES_PER_BLOCK)`` of them."""
+    segs, lane = [], 0
+    for s, m in enumerate(layout.counts):
+        if m:
+            segs.append((s, lane, m))
+        lane += m
+    leaves = list(leaves)
+    out = []
+    for g in range(0, len(segs), MAX_SEGMENTS):
+        group = segs[g:g + MAX_SEGMENTS]
+        block0 = [0]
+        for _s, _l, m in group:
+            block0.append(block0[-1] + -(-m // LANES_PER_BLOCK))
+        for f in range(0, len(leaves), MAX_LEAVES):
+            part = leaves[f:f + MAX_LEAVES]
+            out.append(GatherLaunch(
+                [s for s, _l, _m in group], [l for _s, l, _m in group],
+                [m for _s, _l, m in group], block0, part,
+                [[layout.offs[s][j] for j in part] for s, _l, _m in group]))
+    return out
+
+
+def _leaf_mode(leaf: torch.Tensor) -> Tuple[int, int]:
+    """(row bytes, unit): unit 0 sends the leaf down the 4-lane path (a
+    row of 1, 2, 4 or 8 bytes at an address it divides); any other leaf
+    copies rows in the widest unit dividing its row and address."""
+    row = _row_bytes(leaf)
+    if row in _NARROW and leaf.data_ptr() % row == 0:
+        return row, 0
+    return row, _unit(leaf.data_ptr(), row)
+
+
 def gather_args_plain(leaves: Sequence[torch.Tensor], idx: torch.Tensor,
                       bounds: Optional[Sequence[int]] = None
                       ) -> Tuple[torch.Tensor, List[List[torch.Tensor]],
@@ -170,9 +239,9 @@ def gather_args(leaves: Sequence[torch.Tensor], idx: torch.Tensor,
                 ) -> Tuple[torch.Tensor, List[List[torch.Tensor]],
                            SplitLayout]:
     """Every leaf's rows ``idx`` (segment by segment when ``bounds`` cut
-    ``idx``) in one launch per 64 pieces: returns the uint8 staging
-    buffer, per segment each leaf's ``[m_s, *width]`` view into it, and
-    the layout."""
+    ``idx``) in one launch per ``MAX_SEGMENTS`` non-empty segments and
+    ``MAX_LEAVES`` leaves: returns the uint8 staging buffer, per segment
+    each leaf's ``[m_s, *width]`` view into it, and the layout."""
     leaves = list(leaves)
     _check(leaves, idx)
     if idx.device.type == "cpu":
@@ -180,29 +249,24 @@ def gather_args(leaves: Sequence[torch.Tensor], idx: torch.Tensor,
     layout = split_layout(leaves, _counts(idx.shape[0], bounds))
     staging = torch.empty(layout.size, dtype=torch.uint8, device=idx.device)
     views = split_views(staging, leaves, layout)
-    base = staging.data_ptr()
-    pieces = []
-    lane = 0
-    for s, m in enumerate(layout.counts):
-        for leaf, off in zip(leaves, layout.offs[s]):
-            row = _row_bytes(leaf)
-            if m and row:
-                u = _unit(leaf.data_ptr(), base + off, row)
-                pieces.append((leaf.data_ptr(), off, lane, m,
-                               leaf.shape[0], row // u, u))
-        lane += m
-    if not pieces:
+    live = [j for j, leaf in enumerate(leaves) if _row_bytes(leaf)]
+    if not live or not idx.shape[0]:
         return staging, views, layout
+    modes = {j: _leaf_mode(leaves[j]) for j in live}
     lib = _build.library("router", _SIGNATURES)
     stream = torch.cuda.current_stream(idx.device).cuda_stream
-    for i in range(0, len(pieces), MAX_PIECES):
-        part = pieces[i:i + MAX_PIECES]
+    i64, i32 = ctypes.c_int64, ctypes.c_int32
+    for launch in plan_gather(layout, live):
+        picked = launch.leaves
         err = lib.gather_args(
-            len(part), *(_table([p[k] for p in part], ctypes.c_int64)
-                         for k in range(5)),
-            _table([p[5] for p in part], ctypes.c_int32),
-            _table([p[6] for p in part], ctypes.c_int32),
-            idx.data_ptr(), base, stream)
+            len(launch.lanes), _table(launch.lane0, i64),
+            _table(launch.lanes, i64), _table(launch.block0, i64),
+            _table([o for row in launch.offs for o in row], i64),
+            len(picked), _table([leaves[j].data_ptr() for j in picked], i64),
+            _table([leaves[j].shape[0] for j in picked], i64),
+            _table([modes[j][0] for j in picked], i32),
+            _table([modes[j][1] for j in picked], i32),
+            idx.data_ptr(), staging.data_ptr(), stream)
         _build.check(lib, err, "gather_args")
         _build.note_launch(gather_args)
     return staging, views, layout

@@ -26,8 +26,12 @@ the windows; a rollback restores both from the chain's pin.  A window
 advances the tick clock by whole windows, so the engine's periodic
 write-back cadence (``checkpoint_every_ticks``) is honoured after each
 one — verifying the chain first: a write taken before verification could
-persist a window that later rolls back.  The cluster ring that the JAX
-fuser also consults belongs to a later slice of the port.
+persist a window that later rolls back.
+
+On a clustered silo the signature carries the ring's version: a pattern
+fuses only while every source key is ring-owned here (checked when a
+window program is built), and a ban, whether for remote keys or for
+repeated rollbacks, holds until the ring changes.
 """
 
 from __future__ import annotations
@@ -136,7 +140,8 @@ class AutoFuser:
         self._programs: Dict[Tuple, FusedTickProgram] = {}
         # pin buffers per program: arena → column → copy
         self._pins: Dict[int, Dict[str, Dict[str, torch.Tensor]]] = {}
-        self._disabled: set = set()   # banned signatures
+        # banned signatures → the ring version they were banned at
+        self._disabled: Dict[Tuple, int] = {}
         # rollback hysteresis: cumulative rollbacks per signature
         self._rollback_counts: Dict[Tuple, int] = {}
         # identity-memoized CONTENT digests of key arrays: a loader
@@ -169,6 +174,10 @@ class AutoFuser:
         return digest
 
     # ================= detection ==========================================
+
+    def _ring_version(self) -> int:
+        silo = self.engine.silo
+        return silo.ring.version if silo is not None else 0
 
     def _reset(self) -> None:
         self._sig = None
@@ -255,8 +264,8 @@ class AutoFuser:
         if entries is None:
             self._break()
             return False
-        sig = tuple(e[3] for e in entries)
-        if sig in self._disabled:
+        sig = (tuple(e[3] for e in entries), self._ring_version())
+        if self._disabled.get(sig) == self._ring_version():
             self._break()
             return False
 
@@ -330,6 +339,16 @@ class AutoFuser:
                        for s, e in zip(prog.sources, entries))):
             prog = None  # content-digest collision: never reuse blindly
         if prog is None:
+            # clustered silos: every source's key set must be entirely
+            # ring-owned here (the contract of engine.fuse_ticks)
+            router = self.engine.router
+            if router is not None:
+                for key, b, _args, _p in entries:
+                    _local, remote = router.partition(key[0], b.keys_host)
+                    if remote:
+                        self._disabled[sig] = self._ring_version()
+                        self._reset()
+                        return False
             prog = FusedTickProgram.multi(
                 self.engine,
                 [(key[0], key[1], b.keys_host)
@@ -497,9 +516,9 @@ class AutoFuser:
         self._rollback_counts[sig] = strikes
         if strikes >= max(1, engine.config.auto_fusion_max_rollbacks):
             # hysteresis: a pattern that keeps rolling back pays for
-            # fusion without getting it — ban it (a generation change
-            # gives it a new signature)
-            self._disabled.add(sig)
+            # fusion without getting it — ban it until the ring changes
+            # (a generation change gives it a new signature too)
+            self._disabled[sig] = self._ring_version()
             self._pins.pop(id(self._programs.pop(sig, prog)), None)
             for k in [k for k in self._frozen if k[0] == sig]:
                 del self._frozen[k]

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import samples.presence  # noqa: F401 — registers the JAX presence grains
+import tests.test_torch_fused  # noqa: F401 — TwinHopGrain, TwinLwwGrain
 import tests.test_vector_router  # noqa: F401 — JAX RouteCounter, FenceGrain
 from orleans_tpu.config import SiloConfig as JaxSiloConfig
 from orleans_tpu.hashing import ring_hash_int_keys as jax_ring_hash_int_keys
@@ -36,6 +37,7 @@ from orleans_tpu.ids import SiloAddress as JaxSiloAddress
 from orleans_tpu.runtime import messaging as jax_messaging
 from orleans_tpu.runtime.ring import VirtualBucketsRing as JaxRing
 from orleans_tpu.runtime.runtime_client import CallbackData as JaxCallback
+from orleans_tpu.tensor.engine import BatchInjector as JaxBatchInjector
 from orleans_tpu.tensor.fanout import DeviceFanout as JaxFanout
 from orleans_tpu.tensor.persistence import MemoryVectorStore as JaxMVS
 from orleans_tpu.tensor.router import _gather_args_dev
@@ -52,6 +54,7 @@ from orleans_tpu_torch.runtime import messaging as port_messaging
 from orleans_tpu_torch.runtime.ring import VirtualBucketsRing
 from orleans_tpu_torch.runtime.runtime_client import CallbackData
 from orleans_tpu_torch.samples.presence import run_presence_load
+from orleans_tpu_torch.tensor.engine import BatchInjector
 from orleans_tpu_torch.tensor.fanout import DeviceFanout
 from orleans_tpu_torch.tensor.router import ClusterInjector
 from orleans_tpu_torch.tensor.vector_grain import (
@@ -159,12 +162,14 @@ J = types.SimpleNamespace(
     name="jax", cluster=_jax_cluster, Fanout=JaxFanout,
     keys_dev=lambda n: jnp.arange(n, dtype=jnp.int32),
     vals=lambda a: jnp.asarray(a), msg=jax_messaging, Callback=JaxCallback,
-    GrainId=JaxGrainId, presence=jax_presence_load)
+    GrainId=JaxGrainId, presence=jax_presence_load,
+    Injector=JaxBatchInjector)
 P = types.SimpleNamespace(
     name="port", cluster=_port_cluster, Fanout=DeviceFanout,
     keys_dev=lambda n: torch.arange(n, dtype=torch.int32),
     vals=lambda a: torch.from_numpy(np.asarray(a)), msg=port_messaging,
-    Callback=CallbackData, GrainId=GrainId, presence=run_presence_load)
+    Callback=CallbackData, GrainId=GrainId, presence=run_presence_load,
+    Injector=BatchInjector)
 
 
 def arena_rows(cluster, type_name):
@@ -329,6 +334,71 @@ def test_gather_args_split_segments_and_edges():
     assert views[0][0].shape == (0,)
     with pytest.raises(TypeError):
         krouter.gather_args([one], torch.zeros(3, dtype=torch.int64))
+
+
+def _block_lanes(launch, block):
+    """(segment, first lane, end lane) of ``idx`` that ``block`` of a K22
+    launch covers, as csrc/router.cu's kernel finds them."""
+    s = 0
+    while s + 1 < len(launch.lanes) and launch.block0[s + 1] <= block:
+        s += 1
+    lo = (block - launch.block0[s]) * krouter.LANES_PER_BLOCK
+    hi = min(lo + krouter.LANES_PER_BLOCK, launch.lanes[s])
+    return launch.segments[s], launch.lane0[s] + lo, launch.lane0[s] + hi
+
+
+@pytest.mark.parametrize("counts,widths", [
+    ([3 * 1024 + 5, 0, 1, 4097], [4, 1, 16]),
+    ([7] * 20, [4, 8, 1, 2, 16, 12, 3, 4, 8, 4]),
+    ([0, 0], [4]),
+    ([524_291, 524_285], [4, 4, 4]),
+])
+def test_k22_block_plan_covers_every_lane_once(counts, widths):
+    """K22's host-side block plan: in every launch each block covers a
+    run of at most ``LANES_PER_BLOCK`` lanes of one segment, the blocks
+    cover every lane of every non-empty segment once, each (segment,
+    leaf) piece is planned once at its 16-byte aligned offset, and a
+    gather emulated block by block through the plan equals the plain
+    version's packed buffer."""
+    rng = np.random.default_rng(len(counts))
+    m = sum(counts)
+    leaves = [torch.from_numpy(rng.integers(0, 255, (64, w), dtype=np.uint8))
+              for w in widths]
+    layout = krouter.split_layout(leaves, counts)
+    plans = krouter.plan_gather(layout, range(len(leaves)))
+    assert all(off % 16 == 0 for row in layout.offs for off in row)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    covered = np.zeros((len(counts), len(leaves)), np.int64)
+    lanes_hit = np.zeros(m, np.int64)
+    for launch in plans:
+        assert len(launch.lanes) <= krouter.MAX_SEGMENTS
+        assert len(launch.leaves) <= krouter.MAX_LEAVES
+        for i, s in enumerate(launch.segments):
+            assert launch.offs[i] == [layout.offs[s][j] for j in launch.leaves]
+            covered[s, launch.leaves] += 1
+        for b in range(launch.block0[-1]):
+            s, lo, hi = _block_lanes(launch, b)
+            assert starts[s] <= lo < hi <= starts[s + 1]
+            assert hi - lo <= krouter.LANES_PER_BLOCK
+            if launch.leaves[0] == 0:
+                lanes_hit[lo:hi] += 1
+    np.testing.assert_array_equal(lanes_hit, 1)
+    np.testing.assert_array_equal(covered, np.broadcast_to(
+        np.array(counts)[:, None] > 0, covered.shape))
+    # the kernel's writes, emulated through the plan
+    idx = rng.integers(-3, 70, m).astype(np.int32)
+    want, _, _ = krouter.gather_args_plain(leaves, torch.from_numpy(idx),
+                                           starts.tolist())
+    got = np.zeros(layout.size, np.uint8)
+    for launch in plans:
+        for b in range(launch.block0[-1]):
+            s, lo, hi = _block_lanes(launch, b)
+            rows = np.clip(idx[lo:hi], 0, 63)
+            for j in launch.leaves:
+                off = layout.offs[s][j] + (lo - starts[s]) * widths[j]
+                got[off:off + (hi - lo) * widths[j]] = \
+                    leaves[j].numpy()[rows].reshape(-1)
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 # -- the vector router twins -------------------------------------------------
@@ -521,6 +591,105 @@ def test_fuse_ticks_rejects_remote_keys_and_call_slab_hop_bound(run):
     run(main())
 
 
+# -- auto-fusion on a clustered silo ----------------------------------------
+
+def _fusing(**cfg):
+    """A silo setup that engages auto-fusion after 3 ticks, windows of 4."""
+    def setup(silo):
+        engine_cfg = silo.tensor_engine.config
+        engine_cfg.auto_fusion_ticks = 3
+        engine_cfg.auto_fusion_window = 4
+        for k, v in cfg.items():
+            setattr(engine_cfg, k, v)
+    return setup
+
+
+async def _hop_ticks(engine, inj, n, ticks, t0, dst_of):
+    """tests/test_torch_fused.py's hop loop from tick ``t0``."""
+    for t in range(t0, t0 + ticks):
+        inj.inject({"dst": np.full(n, dst_of(t), np.int32),
+                    "v": np.full(n, t + 1, np.int32)})
+        await engine.drain_queues()
+    await engine.flush()
+
+
+def _owned(silo, type_name, lo, count):
+    """The first ``count`` keys from ``lo`` that ``silo`` owns."""
+    cand = np.arange(lo, lo + 8 * count, dtype=np.int64)
+    local, _ = silo.vector_router.partition(type_name, cand)
+    return cand[np.asarray(local)][:count]
+
+
+def test_autofuse_ban_lifts_when_the_ring_changes(run):
+    """A pattern banned by rollbacks on a clustered silo fuses again once
+    the ring changes (a silo leaves): the ring version is part of the
+    fuser's signature and of its ban.  Sources and destinations are keys
+    that silo a owns, which differ between the sides, so each side's
+    destination rows are checked against the same expectation."""
+    n, W = 32, 4
+
+    async def scenario(side):
+        cluster = await side.cluster(
+            2, store=True,
+            setup=_fusing(auto_fusion_max_rollbacks=2)).start()
+        a, b = cluster.silos
+        engine = a.tensor_engine
+        src, dst = _owned(a, "TwinHopGrain", 0, n), \
+            _owned(a, "TwinLwwGrain", 1000, 8)
+        inj = engine.make_injector("TwinHopGrain", "send", src)
+        # a fresh cold destination every window: windows roll back
+        await _hop_ticks(engine, inj, n, 32, 0, lambda t: dst[t // W])
+        await cluster.quiesce_engines()
+        af = engine.autofuser
+        banned = (af.windows_rolled_back, bool(af._disabled))
+        ran = af.windows_run
+        await cluster.stop_silo(b)
+        await cluster.wait_for_liveness_convergence()
+        # one warm destination, the same injector: the pattern fuses again
+        await _hop_ticks(engine, inj, n, 24, 32, lambda t: dst[0])
+        await cluster.quiesce_engines()
+        return cluster, (banned, af.windows_run - ran)
+
+    (rows_j, (bj, fj)), (rows_p, (bp, fp)) = both(
+        run, scenario, type_name="TwinLwwGrain", compare=False)
+    assert bj == bp == (2, True)
+    assert fj > 0 and fp > 0, (fj, fp)
+    for rows in (rows_j, rows_p):  # each side's own destinations
+        got = sorted((int(r["count"]), int(r["value"]))
+                     for _, r in rows.values())
+        assert got == sorted([(n * W, 4 * w + 4) for w in range(1, 8)]
+                             + [(n * (W + 24), 56)])
+
+
+def test_autofuse_never_fuses_a_source_with_remote_owned_keys(run):
+    """A steady pattern whose key set is not all ring-owned here never
+    fuses (tests/test_autofuse.py test_clustered_ban_for_remote_keys): an
+    injector built directly, bypassing the ownership split, as a stale
+    split would.  Delivery stays exact through the unfused path."""
+    n, T = 64, 12
+
+    async def scenario(side):
+        cluster = await side.cluster(2, setup=_fusing()).start()
+        a = cluster.silos[0]
+        keys = np.arange(n, dtype=np.int64)
+        _, remote = a.vector_router.partition("TwinLwwGrain", keys)
+        assert remote, "expected a split key set"
+        engine = a.tensor_engine
+        inj = side.Injector(engine, "TwinLwwGrain", "put", keys)
+        for t in range(T):
+            inj.inject({"v": np.full(n, t + 1, np.int32)})
+            await engine.drain_queues()
+        await cluster.quiesce_engines()
+        af = engine.autofuser
+        return cluster, (af.windows_run, bool(af._disabled))
+
+    (rows, fj), (_, fp) = both(run, scenario, type_name="TwinLwwGrain")
+    assert fj == fp == (0, True)
+    assert set(rows) == set(range(n))
+    assert all(int(r["count"]) == T and int(r["value"]) == T
+               for _, r in rows.values())
+
+
 def test_dispatcher_forwards_vector_message_to_owner(run):
     """A vector grain's request entering a non-owner silo's message center
     forwards to the owner (reference: Dispatcher.TryForwardRequest :474);
@@ -575,12 +744,30 @@ def test_graceful_handoff_restores_state(run):
     assert all(int(r["count"]) == 2 for _, r in rows.values())
 
 
+def _miss_tolerant(cfg):
+    """Liveness that tolerates missed probes until ``_fast_again``.  The
+    JAX silos compile their step, plan and checkpoint programs on the
+    silos' shared event loop during the first ticks: stalls of 0.2 to
+    1.8 s on the CPU, longer under load.  A stall longer than
+    ``probe_timeout`` while a probe is out counts as a missed probe, so
+    two of them made the healthy silos declare each other dead."""
+    cfg.liveness.num_missed_probes_limit = 1_000_000
+
+
+def _fast_again(cluster):
+    """Back to ``_fast``'s limit of two missed probes (read live by the
+    prober), so a kill from here on is detected at once."""
+    for silo in cluster.silos:
+        silo.config.liveness.num_missed_probes_limit = 2
+
+
 def test_hard_kill_restores_from_periodic_checkpoint(run):
     def setup(silo):
         silo.tensor_engine.config.checkpoint_every_ticks = 1
 
     async def scenario(side):
-        cluster = await side.cluster(2, store=True, setup=setup).start()
+        cluster = await side.cluster(2, store=True, tune=_miss_tolerant,
+                                     setup=setup).start()
         a, b = cluster.silos
         n = 200
         keys = np.arange(n, dtype=np.int64)
@@ -590,6 +777,7 @@ def test_hard_kill_restores_from_periodic_checkpoint(run):
             await cluster.quiesce_engines()
         on_b = sum(1 for s, _ in arena_rows(cluster, "RouteCounter").values()
                    if s == b.name)
+        _fast_again(cluster)
         cluster.kill_silo(b)
         await cluster.wait_for_liveness_convergence()
         a.tensor_engine.send_batch("RouteCounter", "add", keys,

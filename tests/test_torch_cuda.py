@@ -508,26 +508,41 @@ def test_attr_match_matches_plain(cuda_device):
                                   if e % 5 == 1 or e % 7 == 2)
 
 
-@pytest.mark.parametrize("kind", ["ties", "zipf", "sparse", "zero"])
+@pytest.mark.parametrize("k", [16, 2500, "cap"])
+@pytest.mark.parametrize("kind", ["ties", "zipf", "sparse", "zero", "wide",
+                                  "tied_kth", "few"])
 @pytest.mark.parametrize("cap,n_shards", [(1 << 16, 1), (1 << 16, 4),
-                                          (3000, 1)])
-def test_attr_snapshot_matches_plain(cuda_device, kind, cap, n_shards):
+                                          (3000, 1), (1 << 21, 1)])
+def test_attr_snapshot_matches_plain(cuda_device, kind, cap, n_shards, k):
+    """K9's edges: every radix digit live (counts of 2^24 and above and
+    negative ones), ties on the k-th value over far more than k rows,
+    k above nnz, k = cap, a k that sorts its candidates with the radix
+    passes (above 2048), a non-power-of-two cap and 4 shards."""
     from orleans_tpu_torch.kernels import attr
 
     rng = np.random.default_rng(43)
+    k = cap if k == "cap" else k
+    tied = np.full(cap, 5)
+    tied[rng.choice(cap, 7, replace=False)] = rng.integers(6, 50, 7)
     counts = {"ties": np.full(cap, 17),
               "zipf": rng.zipf(1.3, cap) % 100000,
               "sparse": np.where(rng.random(cap) < 0.01,
                                  rng.integers(1, 9, cap), 0),
-              "zero": np.zeros(cap)}[kind].astype(np.int32)
+              "zero": np.zeros(cap),
+              "wide": np.where(rng.random(cap) < 0.5,
+                               rng.integers(-2**31, 2**31 - 1, cap),
+                               rng.integers(2**24, 2**26, cap)),
+              "tied_kth": tied,
+              "few": np.isin(np.arange(cap), [3, 77, 1500]) * 9,
+              }[kind].astype(np.int32)
     c = torch.from_numpy(counts).to(cuda_device)
     cms = torch.from_numpy(rng.integers(0, 99, (4, 8192)).astype(
         np.int32)).to(cuda_device)
-    got = attr.decode_snapshot(attr.attr_snapshot(c, cms, _SEEDS, 16,
+    got = attr.decode_snapshot(attr.attr_snapshot(c, cms, _SEEDS, k,
                                                   n_shards).cpu().numpy(),
-                               16, n_shards)
+                               k, n_shards)
     want = attr.decode_snapshot(attr.attr_snapshot_plain(
-        c, cms, _SEEDS, 16, n_shards).cpu().numpy(), 16, n_shards)
+        c, cms, _SEEDS, k, n_shards).cpu().numpy(), k, n_shards)
     for key in ("vals", "rows", "est", "shard"):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     for key in ("total", "nnz", "p99", "mean_nz"):
@@ -1500,27 +1515,38 @@ def test_fused_window_rebuilds_after_adoption_on_card(cuda_device):
         np.testing.assert_array_equal(got[name], want, err_msg=name)
 
 
-@pytest.mark.parametrize("bounds", [None, (0, 700, 700, 1500, 2048)])
-def test_gather_args_matches_plain(cuda_device, bounds):
-    """K22 against its plain version bit for bit: bool, int32, float32
-    ``[n]`` and ``[n, 4]``, int64 leaves, one permutation cut into
-    segments (an empty one among them), m = 0 and out-of-range indices
-    (both clip)."""
+@pytest.mark.parametrize("double_tree", [False, True])
+@pytest.mark.parametrize("bounds", [
+    None, (0, 700, 700, 1500, 2048),
+    (0, 100, 300, 301, 700, 700, 1500, 1800, 2048),
+    tuple(range(0, 2048, 101)) + (2048,)])
+def test_gather_args_matches_plain(cuda_device, bounds, double_tree):
+    """K22 against its plain version bit for bit: bool, int16, int32,
+    float32 ``[n]`` and ``[n, 4]``, uint8 ``[n, 3]``, int64 leaves (twice
+    over with ``double_tree``: 14 leaves, two launches' worth), one
+    permutation cut into segments (an empty one, a one-lane one, lengths
+    not a multiple of a thread's 4 lanes, 40 and more pieces, 21 segments
+    over two launches), m = 0 and out-of-range indices (both clip)."""
     from orleans_tpu_torch.kernels import _build
     from orleans_tpu_torch.kernels import router as kr
 
     rng = np.random.default_rng(22)
     n = 4096
     leaves = [torch.from_numpy(a).to(cuda_device) for a in (
-        rng.random(n) < 0.5, rng.integers(-2**31, 2**31 - 1, n, dtype=np.int32),
+        rng.random(n) < 0.5, rng.integers(-2**15, 2**15, n, dtype=np.int16),
+        rng.integers(-2**31, 2**31 - 1, n, dtype=np.int32),
         rng.random(n, dtype=np.float32), rng.random((n, 4), dtype=np.float32),
+        rng.integers(0, 255, (n, 3), dtype=np.uint8),
         rng.integers(-2**62, 2**62, n, dtype=np.int64))]
+    if double_tree:
+        leaves = leaves + [x.flip(0).contiguous() for x in leaves]
     idx = rng.permutation(n)[:2048].astype(np.int32)
     idx[:3] = [-5, n, n + 100]
     idx_d = torch.from_numpy(idx).to(cuda_device)
     _build.reset_launch_counts()
     s, v, layout = kr.gather_args(leaves, idx_d, bounds)
-    assert kr.gather_args.launches == 1
+    assert kr.gather_args.launches == len(kr.plan_gather(
+        layout, range(len(leaves))))
     ws, wv, _ = kr.gather_args_plain(leaves, idx_d, bounds)
     # piece by piece: the alignment padding between pieces is unwritten
     for seg, want in zip(v, wv):
@@ -1531,9 +1557,10 @@ def test_gather_args_matches_plain(cuda_device, bounds):
         for seg, views in zip(host, v[1:]):
             for h, d in zip(seg, views):
                 np.testing.assert_array_equal(h, d.cpu().numpy())
+    before = kr.gather_args.launches
     _, v0, _ = kr.gather_args(leaves, idx_d[:0])
     assert all(x.shape[0] == 0 for x in v0[0])
-    assert kr.gather_args.launches == 1  # m = 0 launches nothing
+    assert kr.gather_args.launches == before  # m = 0 launches nothing
 
 
 def test_two_silo_cluster_on_card_matches_cpu(cuda_device):
