@@ -553,18 +553,45 @@ def check_kernels(dev, timer, card: str):
             f"resolve_sorted != plain ({what})")
     cold = resolve.resolve_sorted(empty_d, norows_d, games_d, valid_d)
     require(int(cold[1]) == m, "resolve_sorted: empty arena must miss all")
-    steps = math.ceil(math.log2(cap_g + 1))
+
+    def sorted_bound(n_sorted, lanes):
+        steps = math.ceil(math.log2(n_sorted + 1))
+        return bound(lanes * (4 + 1 + 4) + 2 * n_sorted * 4 + 4,
+                     int_ops=lanes * steps * 2)
+
     results["resolve_sorted"] = dict(
         max_abs_err=0,
         library="torch.searchsorted (search only)",
-        bound=bound(m * (4 + 1 + 4) + 2 * cap_g * 4 + 4,
-                    int_ops=m * steps * 2),
+        bound=sorted_bound(cap_g, m),
         **measure(timer,
                   lambda: resolve.resolve_sorted(skeys_d, srows_d, games_d,
                                                  valid_d),
                   lambda: resolve.resolve_sorted_plain(skeys_d, srows_d,
                                                        games_d, valid_d),
                   lambda: torch.searchsorted(skeys_d, games_d)))
+    # the second mirror size: 524,288 random keys (the routing sweep's sink
+    # count), 1,048,576 lanes, nine in ten on a live key
+    n_big, m_big = 524_288, 1 << 20
+    big = np.sort(rng.choice(1 << 30, n_big, replace=False)).astype(np.int32)
+    big_d, big_rows_d = t(big), t(rng.permutation(n_big).astype(np.int32))
+    lanes_d = t(np.where(rng.random(m_big) < 0.9,
+                         big[rng.integers(0, n_big, m_big)],
+                         rng.integers(0, 1 << 30, m_big)).astype(np.int32))
+    big_valid_d = t(rng.random(m_big) < 0.95)
+    require(same_resolve(
+        resolve.resolve_sorted(big_d, big_rows_d, lanes_d, big_valid_d),
+        resolve.resolve_sorted_plain(big_d, big_rows_d, lanes_d,
+                                     big_valid_d)),
+        "resolve_sorted != plain (524,288-entry mirror)")
+    results["resolve_sorted"]["variants"] = [dict(
+        name=f"{n_big} random keys, {m_big} lanes",
+        bound_ms=sorted_bound(n_big, m_big)[0],
+        **measure(timer,
+                  lambda: resolve.resolve_sorted(big_d, big_rows_d, lanes_d,
+                                                 big_valid_d),
+                  lambda: resolve.resolve_sorted_plain(
+                      big_d, big_rows_d, lanes_d, big_valid_d),
+                  lambda: torch.searchsorted(big_d, lanes_d)))]
 
     # -- K3 row_scatter: every op and dtype ----------------------------------
     variants = []
@@ -965,7 +992,13 @@ def check_attr_kernels(dev, timer, card: str) -> dict:
         times["bound_ms"] = bound(
             nbytes, int_ops=(m if rows is not None else counts.shape[0])
             * (12 * depth if cms is not None else 2))[0]
-        variants.append(dict(name=name, on_fused_tick=on_tick, **times))
+        plan = attr.fold_plan(
+            (kw["weight"] if rows is None else rows).shape[0],
+            counts.shape[0], *(cms.shape if cms is not None else (0, 1)),
+            rows is None)
+        variants.append(dict(name=name, on_fused_tick=on_tick,
+                             path=f"cluster of {plan.cluster}"
+                             if plan.cluster else "direct", **times))
         if on_tick:
             for key in fold_sum:
                 fold_sum[key] += times[key]
@@ -1105,7 +1138,8 @@ def check_attr_kernels(dev, timer, card: str) -> dict:
     for v in variants:
         lib = "null" if v["library_ms"] is None else \
             f"{v['library_ms']:.4f}"
-        print(f"  attr_fold {v['name']}: {v['ms']:.4f} ms, host "
+        print(f"  attr_fold {v['name']} [{v['path']}]: {v['ms']:.4f} ms, "
+              f"host "
               f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
               f"{lib}, bound {v['bound_ms']:.4f})", flush=True)
     return results
@@ -2177,6 +2211,40 @@ def idle_share(f: dict) -> float:
     return 1 - busy / f["pipelined_stream_ms"]
 
 
+def window_bound(parts, per_replay: dict, what: str) -> float:
+    """One fused window's bound, as the Presence window's: the sum over
+    the window's kernel launches of each launch's bound (the bytes it
+    must move, each input read once and each output written once; the
+    plain torch operations between the launches are not counted).
+    ``parts`` lists (kernel, launches a window, bound ms a launch); their
+    launches must be the window's captured ones."""
+    counts = {}
+    for name, n, _ms in parts:
+        counts[name] = counts.get(name, 0) + n
+    require(counts == {k: v for k, v in per_replay.items() if v},
+            f"{what} window bound: launches {counts} != the window's "
+            f"{per_replay}")
+    return sum(n * ms for _name, n, ms in parts)
+
+
+def fold_bounds(lanes_rows, weighted_rows) -> list:
+    """K7's parts of a window: a counts-only fold per (lanes, rows they
+    touch) a tick, 16 times, and a weighted fold per (arena capacity,
+    live rows) once — the bytes of check_attr_kernels' variants, the
+    sketch buckets those rows touch counted."""
+    from orleans_tpu_torch.tensor.attribution import CMS_SEEDS
+
+    def buckets(n):
+        h = np_cms_hash(np.arange(n), CMS_SEEDS[:4], 8192)
+        return sum(len(np.unique(h[d])) for d in range(4))
+
+    return [("attr_fold", 16, bound(5 * lanes + 8 * rows + 8)[0])
+            for lanes, rows in lanes_rows] + [
+        ("attr_fold", 1, bound(4 * cap + 8 * live + 8 * buckets(live),
+                               int_ops=cap * 12 * 4)[0])
+        for cap, live in weighted_rows]
+
+
 def drive_wide_path(dev, card: str, wide: dict) -> dict:
     """Phase 6: WidePresence, 1,000,000 players and 10,000 wide games,
     unfused (auto-fusion off), then auto-fused at the default config;
@@ -2230,6 +2298,8 @@ def drive_wide_path(dev, card: str, wide: dict) -> dict:
             "resolve_wide never replayed")
     out["fused"].update(autofuse=af, rebuilds=dict(prog.rebuilds),
                         per_replay=dict(prog._per_replay))
+    out["caps"] = {n: run.engine.arena_for(n).capacity
+                   for n in ("WidePresence", "WideGame")}
     u, f = out["unfused"], out["fused"]
     print(f"wide presence {PLAYERS} players / {WIDE_GAMES} wide games: "
           f"unfused {u['messages_per_sec']:.1f} messages/s pipelined over "
@@ -2329,6 +2399,9 @@ def drive_chirper_path(dev, card: str, graph: dict) -> dict:
     require(out["report"]["chirper_fused"]["fanout_expand"]["replayed"] > 0,
             "fanout_expand never replayed")
     out["fused"].update(autofuse=af, rebuilds=dict(prog.rebuilds))
+    arena = run.engine.arena_for("ChirperAccount")
+    out["caps"] = {"ChirperAccount": arena.capacity,
+                   "dense": arena.dense_index().shape[0]}
     u, f = out["unfused"], out["fused"]
     print(f"chirper {ACCOUNTS} accounts / {len(graph['dst'])} edges: "
           f"unfused {u['messages_per_sec']:.1f} messages/s pipelined over "
@@ -3235,6 +3308,9 @@ def drive_streams_path(dev, card: str, timer) -> dict:
                         stream_ms_6_windows=stream_ms,
                         per_replay=dict(prog._per_replay),
                         rebuilds=dict(prog.rebuilds))
+    out["caps"] = {n: engine.arena_for(n).capacity
+                   for n in ("ChatRoomGrain", "ChatUserGrain")}
+    out["caps"]["edges"] = edges
     del prog, engine, subs, stacked, base
     gc.collect()
 
@@ -5799,6 +5875,53 @@ def main() -> int:
           f"window with it, {fused['window_off_device_ms']:.4f} without); "
           f"the parked miss-check copies {runs['park_copy_ms']:.4f} ms per "
           f"unfused tick; on {card}", flush=True)
+
+    # the windows' bounds beside Presence's: WidePresence (K10 for K1, one
+    # K3 add), Chirper (200,000 publishers and the fan-out's lanes over the
+    # accounts) and chat (4,096 rooms, the pull layout's edges over the
+    # users); lanes and rows as the paths run them
+    m, caps = PLAYERS, wide_out["caps"]
+    cap_wg = caps["WideGame"]
+    wide_bound = window_bound(
+        [("resolve_wide", 16, results["resolve_wide"]["bound"][0]),
+         ("row_scatter", 16, bound(m * 16)[0]),
+         ("seg_sum", 32, bound(m * 8 + cap_wg * 4)[0]),
+         ("hist_count", 48, bound(m + 4)[0])]
+        + fold_bounds([(m, m), (m, WIDE_GAMES)],
+                      [(caps["WidePresence"], m), (cap_wg, WIDE_GAMES)]),
+        wide_out["fused"]["per_replay"], "wide")
+    a, w, caps = ACCOUNTS, len(graph["dst"]), chirper_out["caps"]
+    cap_a = caps["ChirperAccount"]
+    chirper_bound = window_bound(
+        [("fanout_expand", 16, results["fanout_expand"]["bound"][0]),
+         ("resolve_dense", 16, bound(w * 9 + caps["dense"] * 4 + 4)[0]),
+         ("seg_sum", 16, bound(a * 8 + cap_a * 4)[0]),
+         ("seg_sum", 32, bound(w * 8 + cap_a * 4)[0]),
+         ("row_scatter", 16, bound(w * 8 + cap_a * 4)[0]),
+         ("hist_count", 16, bound(a + 4)[0]),
+         ("hist_count", 32, bound(w + 4)[0])]
+        + fold_bounds([(a, a), (w, a)], [(cap_a, a)]),
+        chirper_out["fused"]["per_replay"], "chirper")
+    r, caps = CHAT_ROOMS, streams["caps"]
+    e, cap_r, cap_u = caps["edges"], caps["ChatRoomGrain"], \
+        caps["ChatUserGrain"]
+    chat_bound = window_bound(
+        [("seg_sum", 16, bound(r * 8 + cap_r * 4)[0]),
+         ("row_scatter", 16, bound(r * 8 + cap_r * 4)[0]),
+         ("hist_count", 16, bound(r + 4)[0]),
+         ("hist_count", 32, bound(e + 4)[0]),
+         ("seg_pull", 48, bound(4 * e + 4 * (cap_u + 1) + 4 * cap_u)[0]),
+         ("seg_pull", 16, bound(e + 4 * (cap_u + 1) + 8 * cap_u + 8)[0])]
+        + fold_bounds([(r, r)], [(cap_r, r), (cap_u, CHAT_USERS)]),
+        streams["fused"]["per_replay"], "chat")
+    print(f"window bounds (sum of each launch's bytes bound, one window of "
+          f"16): Presence {fused['window_bound_ms']:.4f} ms (device "
+          f"{fused['window_device_ms']:.4f}), WidePresence "
+          f"{wide_bound:.4f} ({wide_out['fused']['window_device_ms']:.4f})"
+          f", Chirper {chirper_bound:.4f} "
+          f"({chirper_out['fused']['window_device_ms']:.4f}), chat "
+          f"{chat_bound:.4f} ({streams['fused']['window_device_ms']:.4f}); "
+          f"on {card}", flush=True)
 
     # device launches per path (eager + graph replays), each path's counts
     # zeroed just before it and read just after

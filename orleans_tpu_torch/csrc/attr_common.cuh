@@ -32,19 +32,3 @@ __device__ __forceinline__ uint32_t ot_cms_bucket(int32_t row, uint32_t seed,
   u ^= u >> 13;
   return u & width_mask;
 }
-
-// sum of v over the block (every thread must call it); thread 0 holds the
-// result.  `scratch` has a slot per warp.
-template <typename T>
-__device__ __forceinline__ T ot_block_sum(T v, T* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  T total = 0;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
-      total += scratch[w];
-    }
-  }
-  return total;
-}

@@ -23,6 +23,38 @@ inline unsigned int ot_blocks(int64_t work, int64_t cap = 1 << 16) {
   return static_cast<unsigned int>(b < cap ? b : cap);
 }
 
+// streaming multiprocessors of the current device, read once per library
+// (a host query, never a stream operation: safe while a graph captures)
+inline int ot_sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms < 1) {
+      cudaGetLastError();  // clear it: the launch reports its own status
+      sms = 132;
+    }
+  }
+  return sms;
+}
+
+// sum of v over the block (every thread must call it); thread 0 holds the
+// result.  `scratch` has a slot per warp.
+template <typename T>
+__device__ __forceinline__ T ot_block_sum(T v, T* scratch) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T total = 0;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+      total += scratch[w];
+    }
+  }
+  return total;
+}
+
 // error text for the wrapper's exception
 OT_EXPORT const char* ot_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -7,11 +7,26 @@
 // Bound on an H100: bytes.  Per lane the kernel reads a key (4 B) and a
 // valid flag (1 B) and writes a row (4 B); the directory (dense map or
 // sorted keys/rows) is small enough to sit in the 50 MB L2 after the
-// first touches.  Design: one thread per lane, coalesced key/valid/row
-// accesses; the miss count is reduced per warp with __ballot_sync +
-// __popc and lands with ONE atomicAdd per warp, so the count costs no
-// second pass and stays on the device (the engine reads it only at its
-// miss-check drain).
+// first touches.  The miss count stays on the device (the engine reads it
+// only at its miss-check drain).
+//
+// K1: one thread per lane, coalesced key/valid/row accesses, one gather;
+// the miss count is reduced per warp with __ballot_sync + __popc and
+// lands with ONE atomicAdd per warp.
+//
+// K2: a lower-bound search is a chain of dependent loads, and one search
+// per thread leaves each warp waiting on one L1/L2 round trip a step,
+// its lanes diverging on the loop's trip count.  So: a persistent grid
+// (one or two blocks of 512 threads an SM) whose blocks each load the top
+// of the search into shared memory once, as an Eytzinger tree of at most
+// 4,095 splitters (every s-th key, s a power of two >= 8; the whole
+// mirror when it has at most 4,095 keys); every lane descends it in the
+// same number of branch-free steps; the last log2(s) steps run in L2,
+// lifting over runs of 8 keys and ending on one 32-byte run read as two
+// int4.  Each thread carries 4 lanes (16-byte key loads, 4-byte valid
+// loads, a 16-byte row store where aligned), so 4 independent searches
+// overlap their loads.  The miss count is summed per block and lands
+// with ONE atomicAdd per block.
 #include "common.cuh"
 
 namespace {
@@ -49,38 +64,157 @@ __global__ void resolve_dense_kernel(const int32_t* __restrict__ dense,
   add_warp_misses(local, miss_count);
 }
 
-__global__ void resolve_sorted_kernel(const int32_t* __restrict__ sorted_keys,
-                                      const int32_t* __restrict__ sorted_rows,
-                                      int32_t n_sorted,
-                                      const int32_t* __restrict__ keys,
-                                      const uint8_t* __restrict__ valid,
-                                      int32_t* __restrict__ rows,
-                                      int32_t* __restrict__ miss_count,
-                                      int64_t m) {
-  int local = 0;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x;
-       base < m; base += stride) {
-    const int64_t i = base + threadIdx.x;
-    bool miss = false;
-    if (i < m) {
-      const int32_t k = keys[i];
-      const bool v = valid[i] && k < OT_KEY_SENTINEL;
-      // lower bound == jnp.searchsorted(side="left"), then clip to n-1
-      int32_t lo = 0, hi = n_sorted;
-      while (lo < hi) {
-        const int32_t mid = lo + ((hi - lo) >> 1);
-        if (__ldg(sorted_keys + mid) < k) lo = mid + 1; else hi = mid;
-      }
-      const int32_t idx = lo < n_sorted - 1 ? lo : n_sorted - 1;
-      const bool hit = v && __ldg(sorted_keys + idx) == k;
-      rows[i] = hit ? __ldg(sorted_rows + idx) : -1;
-      miss = hit != v;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, miss);
-    local += __popc(ballot);
+// -- K2 ----------------------------------------------------------------------
+// The sorted mirror's search tree, in shared memory in Eytzinger (BFS)
+// order: node i has children 2i and 2i + 1, so level l of every lane's
+// descent reads the 2**l consecutive words [2**l, 2**(l+1)) and a warp's
+// random keys spread over the banks instead of all striking the one bank
+// that a sorted array's midpoints at power-of-two strides share.
+//
+// WHOLE: the tree holds the mirror itself (n <= 2**levels - 1, padded with
+// INT32_MAX), and the descent's leaf is the lower bound.  Otherwise the
+// tree holds the splitters sk[(j + 1) << log_s], and its leaf b is the
+// bucket [b << log_s, (b + 1) << log_s) that holds the lower bound; the
+// bucket is searched in global memory (L2) by lifting over sub-buckets of
+// 8 keys, then one 32-byte run of 8 keys loaded as two int4.
+constexpr int R_THREADS = 512;
+constexpr int R_LANES = 4;
+constexpr int32_t R_INF = 2147483647;
+
+struct SortedArgs {
+  const int32_t* sk;
+  const int32_t* sr;
+  int32_t n;
+  int levels;      // the tree's depth: 2**levels - 1 nodes
+  int log_s;       // bucket width 2**log_s (>= 8 unless WHOLE)
+  bool vec_lanes;  // keys 16-byte, valid 4-byte and rows 16-byte aligned
+  bool vec_bucket; // sk 16-byte aligned and n % 8 == 0
+  const int32_t* keys;
+  const uint8_t* valid;
+  int32_t* rows;
+  int32_t* miss_count;
+  int64_t m;
+};
+
+// the lower bound of k, and the key there (R_INF past the end), for one
+// lane, given the tree leaf b and the successor `upper` the descent found
+template <bool WHOLE>
+__device__ __forceinline__ int32_t bucket_search(const SortedArgs& a,
+                                                 int32_t k, int32_t b,
+                                                 int32_t& upper) {
+  if (WHOLE) return b;
+  int32_t pos = b << a.log_s;
+  // lift over sub-buckets of 8: sk[pos] < k (or pos == 0) and
+  // sk[pos + step] == upper hold at every step
+  for (int step = (1 << a.log_s) >> 1; step >= 8; step >>= 1) {
+    const int32_t cand = pos + step;
+    const int32_t v = cand < a.n ? __ldg(a.sk + cand) : R_INF;
+    const bool lt = v < k;
+    pos = lt ? cand : pos;
+    upper = lt ? upper : v;
   }
-  add_warp_misses(local, miss_count);
+  int32_t vals[8];
+  if (a.vec_bucket) {
+    const int4 lo = __ldg(reinterpret_cast<const int4*>(a.sk + pos));
+    const int4 hi = __ldg(reinterpret_cast<const int4*>(a.sk + pos) + 1);
+    vals[0] = lo.x; vals[1] = lo.y; vals[2] = lo.z; vals[3] = lo.w;
+    vals[4] = hi.x; vals[5] = hi.y; vals[6] = hi.z; vals[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      vals[j] = pos + j < a.n ? __ldg(a.sk + pos + j) : R_INF;
+    }
+  }
+  int32_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool lt = vals[j] < k;
+    c += lt;
+    upper = (!lt && vals[j] < upper) ? vals[j] : upper;
+  }
+  return pos + c;
+}
+
+template <bool WHOLE>
+__global__ void __launch_bounds__(R_THREADS)
+resolve_sorted_kernel(SortedArgs a) {
+  extern __shared__ int32_t tree[];  // nodes 1 .. 2**levels - 1
+  __shared__ int warp_sums[R_THREADS / 32];
+  const int size = (1 << a.levels) - 1;
+  for (int j = threadIdx.x; j < size; j += blockDim.x) {
+    // in-order element j sits at depth levels-1-t, index q of its level
+    const int64_t src = WHOLE ? j
+                              : (static_cast<int64_t>(j) + 1) << a.log_s;
+    const int t = __ffs(j + 1) - 1;
+    tree[(1 << (a.levels - 1 - t)) + ((j + 1) >> (t + 1))] =
+        src < a.n ? __ldg(a.sk + src) : R_INF;
+  }
+  __syncthreads();
+
+  int local = 0;
+  const int64_t groups = (a.m + R_LANES - 1) / R_LANES;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       g < groups; g += stride) {
+    const int64_t base = g * R_LANES;
+    const bool full = a.vec_lanes && base + R_LANES <= a.m;
+    int32_t k[R_LANES];
+    bool v[R_LANES];
+    if (full) {
+      const int4 kk = *reinterpret_cast<const int4*>(a.keys + base);
+      const uchar4 vv = *reinterpret_cast<const uchar4*>(a.valid + base);
+      k[0] = kk.x; k[1] = kk.y; k[2] = kk.z; k[3] = kk.w;
+      v[0] = vv.x; v[1] = vv.y; v[2] = vv.z; v[3] = vv.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < R_LANES; ++j) {
+        const bool in = base + j < a.m;
+        k[j] = in ? a.keys[base + j] : 0;
+        v[j] = in && a.valid[base + j];
+      }
+    }
+    // the four descents interleaved: the same steps for every lane, no
+    // branch, four independent shared loads in flight a step
+    int32_t node[R_LANES], upper[R_LANES];
+#pragma unroll
+    for (int j = 0; j < R_LANES; ++j) {
+      node[j] = 1;
+      upper[j] = R_INF;
+    }
+    for (int l = 0; l < a.levels; ++l) {
+#pragma unroll
+      for (int j = 0; j < R_LANES; ++j) {
+        const int32_t t = tree[node[j]];
+        const bool lt = t < k[j];
+        upper[j] = lt ? upper[j] : t;
+        node[j] = 2 * node[j] + lt;
+      }
+    }
+    int32_t out[R_LANES];
+#pragma unroll
+    for (int j = 0; j < R_LANES; ++j) {
+      const int32_t idx =
+          bucket_search<WHOLE>(a, k[j], node[j] - (1 << a.levels), upper[j]);
+      const bool live = v[j] && k[j] < OT_KEY_SENTINEL;
+      // past the end the clipped index holds a key below k: a miss
+      const bool hit = live && idx < a.n && upper[j] == k[j];
+      out[j] = hit ? __ldg(a.sr + idx) : -1;
+      local += hit != live;
+    }
+    if (full) {
+      *reinterpret_cast<int4*>(a.rows + base) =
+          make_int4(out[0], out[1], out[2], out[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < R_LANES; ++j) {
+        if (base + j < a.m) a.rows[base + j] = out[j];
+      }
+    }
+  }
+  // one atomic per block
+  const int sum = ot_block_sum(local, warp_sums);
+  if (threadIdx.x == 0 && sum != 0) atomicAdd(a.miss_count, sum);
 }
 
 }  // namespace
@@ -95,13 +229,32 @@ OT_EXPORT int resolve_dense(const int32_t* dense, int32_t size,
   return static_cast<int>(cudaGetLastError());
 }
 
+// levels/log_s/whole: the tree plan of kernels/resolve.py resolve_plan;
+// blocks_per_sm: the persistent grid's blocks on each SM
 OT_EXPORT int resolve_sorted(const int32_t* sorted_keys,
                              const int32_t* sorted_rows, int32_t n_sorted,
                              const int32_t* keys, const uint8_t* valid,
                              int32_t* rows, int32_t* miss_count, int64_t m,
-                             void* stream) {
-  resolve_sorted_kernel<<<ot_blocks(m), OT_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      sorted_keys, sorted_rows, n_sorted, keys, valid, rows, miss_count, m);
+                             int whole, int levels, int log_s,
+                             int blocks_per_sm, void* stream) {
+  const auto aligned = [](const void* p, uintptr_t to) {
+    return reinterpret_cast<uintptr_t>(p) % to == 0;
+  };
+  SortedArgs a{sorted_keys, sorted_rows, n_sorted, levels, log_s,
+               aligned(keys, 16) && aligned(valid, 4) && aligned(rows, 16),
+               aligned(sorted_keys, 16) && n_sorted % 8 == 0,
+               keys, valid, rows, miss_count, m};
+  const int64_t groups = (m + R_LANES - 1) / R_LANES;
+  int64_t blocks = (groups + R_THREADS - 1) / R_THREADS;
+  const int64_t cap = static_cast<int64_t>(ot_sm_count()) * blocks_per_sm;
+  blocks = blocks < cap ? blocks : cap;
+  if (blocks < 1) blocks = 1;
+  const size_t smem = sizeof(int32_t) << levels;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (whole) {
+    resolve_sorted_kernel<true><<<blocks, R_THREADS, smem, st>>>(a);
+  } else {
+    resolve_sorted_kernel<false><<<blocks, R_THREADS, smem, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -147,10 +147,13 @@ def build_all() -> Dict[str, Path]:
     return targets
 
 
-def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+def library(name: str, signatures: Dict[str, tuple],
+            init: Optional[str] = None) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use) with
     ``argtypes`` set from ``signatures`` (function → argtypes); every
-    function returns a ``cudaError_t`` as ``int``."""
+    function returns a ``cudaError_t`` as ``int``.  ``init`` names a
+    function of no arguments called once, when the library loads (its
+    kernels' attributes, set before any graph can capture them)."""
     lib = _LIBS.get(name)
     if lib is None:
         path = _target(name)
@@ -163,6 +166,8 @@ def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.ot_error_string.argtypes = [ctypes.c_int]
         lib.ot_error_string.restype = ctypes.c_char_p
+        if init is not None:
+            check(lib, getattr(lib, init)(), init)
         _LIBS[name] = lib
     return lib
 

@@ -31,7 +31,7 @@ design does about it is in the note at the top of its source.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,7 +42,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _SIG_FOLD = {"attr_fold": (_P, _I64, _P, _INT, _I64, _P, _P, _P, _P, _P,
-                           _I64, _P, _P, _P)}
+                           _I64, _P, _P, _INT, _INT, _INT, _I64, _INT, _P),
+             "attr_fold_init": ()}
 _SIG_APPLY = {"attr_apply": (_P, _P, _I64, _P, _P, _I64, _P, _P,
                              ctypes.c_int32, _P, _P),
               "attr_match": (_P, _P, _INT, _P, _P, _I64, _P, _P, _P)}
@@ -143,6 +144,64 @@ def _stream(device: torch.device) -> int:
 
 # -- K7 attr_fold -------------------------------------------------------------
 
+#: blocks of a thread-block cluster that sum their histograms together
+#: (8 is the portable size)
+FOLD_CLUSTER = 8
+#: histogram bytes each block of a cluster holds at most (a full copy;
+#: the kernel lets a block take up to 200 KB)
+FOLD_BLOCK_BYTES = 128 * 1024
+#: lanes (times depths) per histogram word from which a target is
+#: privatized in the blocks' shared memory
+FOLD_MIN_PER_WORD = 8
+#: persistent grids: blocks on each SM, of 256 threads (direct) and of
+#: 1,024 (cluster)
+FOLD_BLOCKS_PER_SM = 4
+FOLD_CLUSTER_BLOCKS_PER_SM = 1
+
+
+class FoldPlan(NamedTuple):
+    """K7's path for one call's shapes: every block of a cluster of
+    ``cluster`` blocks (0: direct atomics only) folds its lanes into its
+    own histogram of the counts and/or the sketch, then block ``r`` sums
+    the cluster's words ``[r * chunk, (r + 1) * chunk)``."""
+    cluster: int
+    hist_counts: bool
+    hist_cms: bool
+    chunk: int
+
+    def block_words(self, cap: int, depth: int, width: int
+                    ) -> List[Tuple[int, int]]:
+        """The histogram words ``[lo, hi)`` each block of a cluster sums
+        and adds into global memory: the counts' rows first when held,
+        then the sketch's ``d * width + bucket``."""
+        words = cap * self.hist_counts + depth * width * self.hist_cms
+        return [(min(r * self.chunk, words), min((r + 1) * self.chunk, words))
+                for r in range(self.cluster)]
+
+
+def fold_plan(m: int, cap: int, depth: int, width: int,
+              weighted: bool) -> FoldPlan:
+    """K7's path from shapes alone (a CUDA graph bakes the launch, so it
+    never looks at data): ``m`` lanes (weighted: rows), ``cap`` counts
+    rows, a ``depth`` x ``width`` sketch (depth 0: none).  A target goes
+    into the blocks' histograms when at least ``FOLD_MIN_PER_WORD``
+    lanes per word may hit it — never the weighted counts, which each
+    row owns — and the histogram fits a block; the sketch is preferred
+    when both do not fit."""
+    hist_counts = not weighted and cap > 0 and m >= FOLD_MIN_PER_WORD * cap
+    hist_cms = depth > 0 and m >= FOLD_MIN_PER_WORD * width
+    budget = FOLD_BLOCK_BYTES // 4
+    if hist_cms and depth * width > budget:
+        hist_cms = False
+    if hist_counts and cap + depth * width * hist_cms > budget:
+        hist_counts = False
+    if not (hist_counts or hist_cms):
+        return FoldPlan(0, False, False, 0)
+    words = cap * hist_counts + depth * width * hist_cms
+    chunk = -(-words // FOLD_CLUSTER)
+    return FoldPlan(FOLD_CLUSTER, hist_counts, hist_cms, -(-chunk // 4) * 4)
+
+
 def _check_fold(counts, cms, seeds, rows, valid, total, slot, weight, gate,
                 stale) -> torch.device:
     dev = _device_of(counts, cms, weight, rows)
@@ -227,12 +286,15 @@ def attr_fold(counts: Optional[torch.Tensor], cms: Optional[torch.Tensor],
     m = (weight if weight is not None else rows).shape[0]
     depth, width = cms.shape if cms is not None else (0, 1)
     cap = counts.shape[0] if counts is not None else m
+    plan = fold_plan(m, cap, depth, width, weight is not None)
     seeds_arr = _seed_array(seeds)
-    lib = _build.library("attr_fold", _SIG_FOLD)
+    lib = _build.library("attr_fold", _SIG_FOLD, init="attr_fold_init")
     err = lib.attr_fold(
         _ptr(counts), cap, _ptr(cms), depth, width,
         ctypes.addressof(seeds_arr), _ptr(total, slot), _ptr(rows),
         _ptr(valid), _ptr(weight), m, _ptr(gate), _ptr(stale),
+        plan.cluster, int(plan.hist_counts), int(plan.hist_cms), plan.chunk,
+        FOLD_CLUSTER_BLOCKS_PER_SM if plan.cluster else FOLD_BLOCKS_PER_SM,
         _stream(dev))
     _build.check(lib, err, "attr_fold")
     _build.note_launch(attr_fold)

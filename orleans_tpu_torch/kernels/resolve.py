@@ -46,7 +46,8 @@ _SIGNATURES = {
     "resolve_dense": (_P, ctypes.c_int32, _P, _P, _P, _P, ctypes.c_int64,
                       _P),
     "resolve_sorted": (_P, _P, ctypes.c_int32, _P, _P, _P, _P,
-                       ctypes.c_int64, _P),
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, _P),
 }
 _SIG_WIDE = {"resolve_wide": (_P, _P, ctypes.c_int32, _P, _P, ctypes.c_int32,
                               _P, _P, _P, _P, _P, ctypes.c_int64, _P)}
@@ -137,6 +138,37 @@ def resolve_dense(dense: torch.Tensor, keys: torch.Tensor,
 
 # -- K2 ----------------------------------------------------------------------
 
+#: deepest shared-memory search tree K2 builds: 2**12 - 1 = 4,095 keys,
+#: 16 KB a block
+TREE_LEVELS = 12
+#: K2's persistent grid, blocks of 512 threads on each SM: 2 where no
+#: lane lifts through L2 (the whole mirror in the tree, or buckets of 8
+#: keys read at once), 1 where lanes lift through larger buckets
+#: (measured on an H100, see PERF.md)
+SORTED_BLOCKS_PER_SM_RUN = 2
+SORTED_BLOCKS_PER_SM_LIFT = 1
+
+
+def resolve_plan(n: int) -> Tuple[bool, int, int, int]:
+    """K2's search plan for a mirror of ``n`` keys: ``(whole, levels,
+    log_s, blocks_per_sm)``.  A mirror of at most ``2**TREE_LEVELS - 1``
+    keys goes whole into the shared-memory tree of ``2**levels - 1``
+    nodes; a longer one leaves there its splitters ``sorted_keys[(j + 1)
+    * 2**log_s]``, the first key of each bucket of ``s = 2**log_s`` keys
+    after the first bucket, with ``s >= 8`` the least power of two that
+    needs at most ``2**TREE_LEVELS`` buckets; and the grid's blocks on
+    each SM."""
+    if n < 1:
+        raise ValueError("an empty mirror has no plan")
+    if n < 1 << TREE_LEVELS:
+        return True, max(1, n.bit_length()), 0, SORTED_BLOCKS_PER_SM_RUN
+    log_s = max(3, (-(-n >> TREE_LEVELS) - 1).bit_length())
+    buckets = -(-n >> log_s)
+    return (False, max(1, (buckets - 1).bit_length()), log_s,
+            SORTED_BLOCKS_PER_SM_RUN if log_s == 3
+            else SORTED_BLOCKS_PER_SM_LIFT)
+
+
 def resolve_sorted_plain(sorted_keys: torch.Tensor, sorted_rows: torch.Tensor,
                          keys: torch.Tensor, valid: torch.Tensor, misses=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -173,10 +205,11 @@ def resolve_sorted(sorted_keys: torch.Tensor, sorted_rows: torch.Tensor,
     rows = torch.empty(m, dtype=torch.int32, device=keys.device)
     misses = _miss_counter(misses, keys)
     if m:
+        whole, levels, log_s, per_sm = resolve_plan(sorted_keys.shape[0])
         _launch("resolve_sorted", rows, sorted_keys.data_ptr(),
                 sorted_rows.data_ptr(), sorted_keys.shape[0],
                 keys.data_ptr(), valid.data_ptr(), rows.data_ptr(),
-                misses.data_ptr(), m)
+                misses.data_ptr(), m, int(whole), levels, log_s, per_sm)
         _build.note_launch(resolve_sorted)
     return rows, misses
 

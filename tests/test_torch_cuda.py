@@ -80,6 +80,79 @@ def test_resolve_kernels_match_plain(cuda_device, kind):
     assert int(miss) == int(want_miss)
 
 
+def _sorted_mirror(rng, n, fill):
+    """A sorted mirror of ``n`` entries: ``fill`` "half" live keys then
+    sentinels, "empty" all sentinels (the cold tick), "full" no padding;
+    live keys spread over int32, negative ones and -2**31 included."""
+    live = {"half": n // 2, "empty": 0, "full": n}[fill]
+    keys = np.unique(rng.integers(-2**31, KEY_SENTINEL, 2 * live + 8))
+    keys = np.sort(rng.choice(keys, live, replace=False)).astype(np.int32)
+    if live:
+        keys[0] = -2**31
+    sk = np.full(n, KEY_SENTINEL, np.int32)
+    sk[:live] = keys
+    sr = np.full(n, -1, np.int32)
+    sr[:live] = rng.permutation(n)[:live]
+    return sk, sr
+
+
+def _sorted_lanes(rng, sk, m):
+    """Lanes hitting live keys, their neighbours, -2**31, negative keys,
+    the sentinel and keys past the last live key."""
+    live = sk[sk < KEY_SENTINEL]
+    pick = rng.integers(0, 6, m)
+    keys = rng.integers(-2**31, KEY_SENTINEL, m).astype(np.int64)
+    if len(live):
+        at = live[rng.integers(0, len(live), m)].astype(np.int64)
+        keys = np.where(pick == 0, at, keys)
+        keys = np.where(pick == 1, np.clip(at + 1, -2**31, 2**31 - 1), keys)
+        keys = np.where(pick == 2, int(live[-1]) + rng.integers(1, 9, m),
+                        keys)
+    keys = np.where(pick == 3, -2**31, keys)
+    keys = np.where(pick == 4, KEY_SENTINEL, keys)
+    keys = np.clip(keys, -2**31, 2**31 - 1).astype(np.int32)
+    return keys, rng.random(m) < 0.9
+
+
+@pytest.mark.parametrize("fill", ["half", "empty", "full"])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 32768, 524288])
+def test_resolve_sorted_mirror_sizes_match_plain(cuda_device, n, fill):
+    """K2 on both sides of the whole-mirror tree (4,095 keys) and with
+    buckets of 8 and 128 keys, on padded, all-sentinel and unpadded
+    mirrors; the lane count is not a multiple of 4."""
+    rng = np.random.default_rng(n)
+    sk, sr = _sorted_mirror(rng, n, fill)
+    keys, valid = _sorted_lanes(rng, sk, 20_003)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (sk, sr, keys, valid)]
+    rows, miss = resolve.resolve_sorted(*args)
+    want_rows, want_miss = resolve.resolve_sorted_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, want_rows)
+    assert int(miss) == int(want_miss)
+
+
+@pytest.mark.parametrize("m", [0, 1, 5, 4099])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_resolve_sorted_lane_edges_match_plain(cuda_device, m, offset):
+    """K2 on short lane counts, on key and valid views that start off
+    the 16- and 4-byte boundaries, adding into a given ``misses``."""
+    rng = np.random.default_rng(m + offset)
+    sk, sr = _sorted_mirror(rng, 32768, "half")
+    keys, valid = _sorted_lanes(rng, sk, m + offset)
+    sk_d, sr_d = (torch.from_numpy(a).to(cuda_device) for a in (sk, sr))
+    keys_d = torch.from_numpy(keys).to(cuda_device)[offset:]
+    valid_d = torch.from_numpy(valid).to(cuda_device)[offset:]
+    got_miss = torch.full((1,), 7, dtype=torch.int32, device=cuda_device)
+    want_miss = got_miss.clone()
+    rows, _ = resolve.resolve_sorted(sk_d, sr_d, keys_d, valid_d, got_miss)
+    want_rows, _ = resolve.resolve_sorted_plain(sk_d, sr_d, keys_d, valid_d,
+                                                want_miss)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, want_rows)
+    assert int(got_miss) == int(want_miss)
+
+
 @pytest.mark.parametrize("scalar", [False, True])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 @pytest.mark.parametrize("op", ["set", "add", "max"])
@@ -459,6 +532,124 @@ def test_attr_fold_gated_in_a_graph(cuda_device):
     assert counts[:8].tolist() == [3] * 8 and int(counts.sum()) == 24
     assert total.tolist() == [0, 24] and int(stale[0]) == 3
     assert cms.sum(dim=1).tolist() == [24] * 4
+
+
+def _fold_case(rng, dev, path, mode, cap, width):
+    """Accumulators and lanes for one K7 call whose shapes give ``path``:
+    "cluster" puts 16 lanes (weighted: rows) on each counts row and
+    sketch bucket, "direct" one lane on every 16 rows (weighted: fewer
+    than 8 rows on each bucket)."""
+    if mode == "weighted":
+        width = max(1, cap // 16) if path == "cluster" else 2 * cap
+        width = 1 << (width.bit_length() - 1)
+        counts, cms, _, _, _ = _attr_inputs(rng, dev, cap, 8, width)
+        return (counts, cms, _SEEDS), dict(weight=torch.from_numpy(
+            rng.integers(-3, 5, cap).astype(np.int32)).to(dev))
+    m = 16 * max(cap, width) if path == "cluster" else max(cap // 16, 8)
+    counts, cms, slots, rows, valid = _attr_inputs(rng, dev, cap, m, width)
+    gate = stale = None
+    if mode.startswith("gate"):
+        gate = torch.tensor([int(mode == "gate_open")], dtype=torch.int32,
+                            device=dev)
+        stale = torch.tensor([3], dtype=torch.int32, device=dev)
+    return ((counts, None if mode == "counts_only" else cms, _SEEDS, rows,
+             valid), dict(total=slots, slot=5, gate=gate, stale=stale))
+
+
+@pytest.mark.parametrize("mode", ["full", "counts_only", "weighted",
+                                  "gate_open", "gate_shut"])
+@pytest.mark.parametrize("cap,width", [(1001, 16), (4096, 1024),
+                                       (32768, 8192)])
+@pytest.mark.parametrize("path", ["direct", "cluster"])
+def test_attr_fold_paths_match_plain(cuda_device, path, cap, width, mode):
+    """K7 on both sides of ``fold_plan``'s threshold, in each mode, with a
+    cap that is not a multiple of the cluster size and a sketch of width
+    16; the lanes hold rows out of range and -2**31."""
+    from orleans_tpu_torch.kernels import attr
+
+    rng = np.random.default_rng(cap + len(mode))
+    args, kw = _fold_case(rng, cuda_device, path, mode, cap, width)
+    weighted = "weight" in kw
+    m = (kw["weight"] if weighted else args[3]).shape[0]
+    depth, w = (0, 1) if args[1] is None else args[1].shape
+    assert (attr.fold_plan(m, cap, depth, w, weighted).cluster > 0) \
+        == (path == "cluster")
+    outs = []
+    for fn in (attr.attr_fold, attr.attr_fold_plain):
+        a = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
+        k = {n: v.clone() if isinstance(v, torch.Tensor) else v
+             for n, v in kw.items()}
+        fn(*a, **k)
+        outs.append([x for x in a + list(k.values())
+                     if isinstance(x, torch.Tensor)])
+    torch.cuda.synchronize()
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_attr_fold_no_lanes(cuda_device, weighted):
+    """m = 0: nothing folds, the gate's stale count still moves."""
+    from orleans_tpu_torch.kernels import attr
+
+    dev = cuda_device
+    counts = torch.zeros(0 if weighted else 64, dtype=torch.int32,
+                         device=dev)
+    cms = torch.zeros((4, 16), dtype=torch.int32, device=dev)
+    total = torch.full((2,), 4, dtype=torch.int32, device=dev)
+    gate = torch.ones(1, dtype=torch.int32, device=dev)
+    stale = torch.zeros(1, dtype=torch.int32, device=dev)
+    if weighted:
+        attr.attr_fold(counts, cms, _SEEDS, total=total, slot=1,
+                       weight=torch.zeros(0, dtype=torch.int32, device=dev),
+                       gate=gate, stale=stale)
+    else:
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        attr.attr_fold(counts, cms, _SEEDS, empty, empty.bool(), total=total,
+                       slot=1, gate=gate, stale=stale)
+    torch.cuda.synchronize()
+    assert int(counts.sum()) == 0 and int(cms.sum()) == 0
+    assert total.tolist() == [4, 4] and int(stale[0]) == 1
+
+
+def test_attr_fold_cluster_path_gated_in_a_graph(cuda_device):
+    """K7's cluster path (GameGrain's counts column and a 4x8192 sketch)
+    gated on a device flag and captured once: a shut gate leaves every
+    block of every cluster before its first cluster barrier, an open one
+    folds."""
+    from orleans_tpu_torch.kernels import attr
+
+    dev = cuda_device
+    rng = np.random.default_rng(44)
+    cap, width, m = 32768, 8192, 1 << 19
+    assert attr.fold_plan(m, cap, 4, width, False).cluster > 0
+    rows = torch.from_numpy(rng.integers(-5, cap + 5, m).astype(
+        np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(m) < 0.9).to(dev)
+    counts = torch.zeros(cap, dtype=torch.int32, device=dev)
+    cms = torch.zeros((4, width), dtype=torch.int32, device=dev)
+    total = torch.zeros(2, dtype=torch.int32, device=dev)
+    gate = torch.zeros(1, dtype=torch.int32, device=dev)
+    stale = torch.zeros(1, dtype=torch.int32, device=dev)
+    attr.attr_fold(counts, cms, _SEEDS, rows, valid, total=total, slot=1,
+                   gate=gate, stale=stale)  # load the module first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        attr.attr_fold(counts, cms, _SEEDS, rows, valid, total=total,
+                       slot=1, gate=gate, stale=stale)
+    for flag in (0, 1, 0, 1, 1):
+        gate.fill_(flag)
+        graph.replay()
+    torch.cuda.synchronize()
+    want_c = torch.zeros_like(counts)
+    want_s = torch.zeros_like(cms)
+    want_t = torch.zeros_like(total)
+    for _ in range(3):
+        attr.attr_fold_plain(want_c, want_s, _SEEDS, rows, valid,
+                             total=want_t, slot=1)
+    assert torch.equal(counts, want_c) and torch.equal(cms, want_s)
+    assert torch.equal(total, want_t) and int(stale[0]) == 3
 
 
 @pytest.mark.parametrize("device_k", [False, True])

@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
@@ -111,3 +113,18 @@ def test_trace_script_imports_nothing_of_jax():
                         "collections", "numpy", "torch", "chip_smoke",
                         "orleans_tpu_torch"}, imported
     assert "orleans_tpu_torch" in imported
+
+
+@pytest.mark.parametrize("script", ["probe_k9_k22.py", "probe_k2_k7.py"])
+def test_probe_scripts_import_nothing_of_jax(script):
+    """The kernel probes run on the card beside the smoke, on the parent
+    tree too: the standard library, torch, numpy, the port and the
+    smoke's helpers only."""
+    imported = set()
+    for line in (REPO / script).read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            imported.add(words[1].split(".")[0])
+    assert imported <= {"__future__", "asyncio", "json", "sys", "numpy",
+                        "torch", "chip_smoke", "trace_hot_grain",
+                        "orleans_tpu_torch"}, imported
