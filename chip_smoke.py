@@ -20,7 +20,12 @@ Phases, each of which fails loudly (exit code other than 0):
    main path's inputs and on adversarial inputs (padding rows -1, rows
    past the end, sentinel, negative, out-of-range and unseen keys, more
    unique misses than the drain's buffer); the attribution kernels K7–K9
-   in every mode the plane uses (``check_attr_kernels``).  Integers must
+   in every mode the plane uses (``check_attr_kernels``); K4 on every
+   path (direct, privatized blocks flushing alone, clusters of 2 and 8)
+   at Presence's game fan-in and at the routing sample's 256 sinks
+   and hot sink (1,048,576 lanes on 1,024 rows), its zero fill timed
+   apart; K8 on views whose words start past a 16-byte line, end short
+   of one, or differ from their delta's modulo 16.  Integers must
    match exactly; float32 sums within Higham's bound for recursive
    summation (see ``_fan_in_tol``).  Each kernel is timed (median of
    CUDA-event times over 25 launches, L2 flushed before each) beside its
@@ -241,6 +246,7 @@ CHURN_USERS, CHURN_ROOMS, CHURN_MEAN = 100_000, 256, 2.0
 # hot-grain replicas: bench.py _single_hot_grain_tier's routing shape (all
 # sources to one of 256 sinks) at the Presence-scale population
 HOT_SOURCES, HOT_SINKS, HOT_TICKS, HOT_WINDOWS = 1_048_576, 256, 20, 4
+SINK_ROWS = 1024               # the sink arena's capacity at 256 sinks
 SPREAD_LANES = 1_048_576
 # GPSTracker (bench.py --devices) and TwitterSentiment (bench.py
 # --tweets-per-tick / --hashtags; _streams_twitter for the grouped path)
@@ -694,36 +700,89 @@ def check_kernels(dev, timer, card: str):
         bound=(totals["bound_ms"], "bytes"),
         per="sum of the 5 launches of one steady tick", variants=variants)
 
-    # -- K4 seg_sum: the game fan-in -----------------------------------------
-    seg_ms = dict(ms=0.0, host_ms=0.0, plain_ms=0.0, library_ms=0.0)
-    seg_bound = 0.0
-    seg_err = 0.0
-    adv_rows_d = t(adversarial_rows(cap_g, unique=False))
-    for vals_d in (scores_d, ones_d):
-        for rows_d in (grow_d, adv_rows_d):
-            a = segment.seg_sum(vals_d, rows_d, cap_g)
-            b = segment.seg_sum_plain(vals_d, rows_d, cap_g)
+    # -- K4 seg_sum: the game fan-in, and the routing sample's sinks -------
+    # every path, forced, on each shape: the wrapper's own choice, direct
+    # atomics, every block flushing alone, clusters of 2 and of 8
+    def seg_forced(cluster, n_rows):
+        chunk = -(-n_rows // max(cluster, 1))
+        return segment.SegPlan(cluster, -(-chunk // 4) * 4 if cluster else 0,
+                               *(segment.SEG_DIRECT if cluster == 0
+                                 else segment.SEG_PRIVATE))
+
+    def seg_check(vals_d, rows_d, n_rows, what):
+        err = 0.0
+        planned = segment.seg_plan(rows_d.shape[0], n_rows, 1, vals_d.dtype)
+        b = segment.seg_sum_plain(vals_d, rows_d, n_rows)
+        for plan in (None, *(seg_forced(c, n_rows) for c in (0, 1, 2, 8))):
+            if plan is None:
+                a = segment.seg_sum(vals_d, rows_d, n_rows)
+            else:
+                a = torch.zeros_like(b)
+                segment.launch(vals_d, rows_d, a, plan)
             if vals_d.dtype == torch.int32:
-                require(torch.equal(a, b), "seg_sum i32 != plain")
+                require(torch.equal(a, b), f"seg_sum i32 != plain ({what}, "
+                        f"{plan or planned})")
             else:
                 diff = (a - b).abs().cpu().numpy()
                 tol = _fan_in_tol(vals_d.cpu().numpy(), rows_d.cpu().numpy(),
-                                  cap_g)
-                require(bool(np.all(diff <= tol)),
-                        "seg_sum f32 beyond tolerance")
-                seg_err = max(seg_err, float(diff.max()))
+                                  n_rows)
+                require(bool(np.all(diff <= tol)), f"seg_sum f32 beyond "
+                        f"tolerance ({what}, {plan or planned})")
+                err = max(err, float(diff.max()))
+        return err, planned
+
+    def seg_path(plan):
+        return "direct" if plan.cluster == 0 else \
+            f"privatized, clusters of {plan.cluster}"
+
+    seg_ms = dict(ms=0.0, host_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                  fill_ms=0.0)
+    seg_bound = 0.0
+    seg_err = 0.0
+    seg_variants = []
+    adv_rows_d = t(adversarial_rows(cap_g, unique=False))
+    for vals_d in (scores_d, ones_d):
+        for rows_d, what in ((grow_d, "games"), (adv_rows_d, "adversarial")):
+            err, planned = seg_check(vals_d, rows_d, cap_g, what)
+            seg_err = max(seg_err, err)
         out = torch.zeros(cap_g, dtype=vals_d.dtype, device=dev)
         times = measure(
             timer, lambda: segment.seg_sum(vals_d, grow_d, cap_g),
             lambda: segment.seg_sum_plain(vals_d, grow_d, cap_g),
             lambda: out.index_add_(0, grow_d, vals_d))
+        # the wrapper's zero fill alone (part of ms)
+        times["fill_ms"] = timer(lambda: torch.zeros(
+            cap_g, dtype=vals_d.dtype, device=dev))
         for key in seg_ms:
             seg_ms[key] += times[key]
         seg_bound += bound(m * 8 + cap_g * 4)[0]
+    # the routing sample's shapes: 1,048,576 lanes on the sink arena's
+    # 1,024 rows, uniform over 256 sinks and all on one hot sink
+    srng = np.random.default_rng(20260806)
+    sink_vals_d = t(srng.integers(1, 8, HOT_SOURCES).astype(np.float32))
+    for name, rows_d in (
+            ("256 sinks, float32", t(srng.integers(
+                0, HOT_SINKS, HOT_SOURCES).astype(np.int32))),
+            ("one hot sink, float32", torch.full(
+                (HOT_SOURCES,), 3, dtype=torch.int32, device=dev))):
+        err, planned = seg_check(sink_vals_d, rows_d, SINK_ROWS, name)
+        seg_err = max(seg_err, err)
+        sink_out = torch.zeros(SINK_ROWS, device=dev)
+        times = measure(
+            timer, lambda: segment.seg_sum(sink_vals_d, rows_d, SINK_ROWS),
+            lambda: segment.seg_sum_plain(sink_vals_d, rows_d, SINK_ROWS),
+            lambda: sink_out.index_add_(0, rows_d, sink_vals_d))
+        seg_variants.append(dict(
+            name=f"{name}: {HOT_SOURCES} lanes, {SINK_ROWS} rows",
+            path=seg_path(planned), max_abs_err=err,
+            bound_ms=bound(HOT_SOURCES * 8 + SINK_ROWS * 4)[0], **times))
     results["seg_sum"] = dict(
-        max_abs_err=seg_err, library="index_add_",
+        max_abs_err=seg_err, library="index_add_ (into a zeroed tensor "
+        "allocated beforehand; the wrapper's time includes its fill)",
         bound=(seg_bound, "bytes"), **seg_ms,
-        per="sum of the 2 launches of one steady tick")
+        path=seg_path(segment.seg_plan(m, cap_g, 1, torch.float32)),
+        per="sum of the 2 launches of one steady tick, their zero fills "
+            "included (fill_ms: the fills alone)", variants=seg_variants)
 
     # -- seg_max (K3 MAX into a -inf column) and seg_mean (K4 twice) -------
     from orleans_tpu_torch.tensor.vector_grain import seg_max, seg_mean
@@ -845,11 +904,16 @@ def check_kernels(dev, timer, card: str):
               f"library {r['library_ms']:.4f} [{r['library']}], bound "
               f"{r['bound'][0]:.4f} by {r['bound'][1]}) max_abs_err "
               f"{r['max_abs_err']:.3g} on {card}", flush=True)
+        if "fill_ms" in r:
+            print(f"  {name}: its zero fills {r['fill_ms']:.4f} ms of it; "
+                  f"path {r['path']}", flush=True)
         for v in r.get("variants", []):
             print(f"  {name} {v['name']}: {v['ms']:.4f} ms, host "
                   f"{v['host_ms']:.4f} (plain "
                   f"{v['plain_ms']:.4f}, library {v['library_ms']:.4f}, "
-                  f"bound {v['bound_ms']:.4f})", flush=True)
+                  f"bound {v['bound_ms']:.4f})"
+                  + (f" path {v['path']}" if "path" in v else ""),
+                  flush=True)
     return results
 
 
@@ -1028,8 +1092,34 @@ def check_attr_kernels(dev, timer, card: str) -> dict:
         attr.attr_apply_plain(b[0], cd, b[1], sd, k, total=b[2], slot=3, n=n)
         require(all(torch.equal(x, y) for x, y in zip(a, b)),
                 f"attr_apply != plain ({name})")
+    # the PresenceGrain flush on views 1 and 3 words past a 16-byte line
+    # and a word short of their length (a head, a tail, odd lengths), and
+    # with the counts and the delta on different lines (word by word)
+    def shifted(x, off, n_words):
+        flat = torch.empty(n_words + 8, dtype=x.dtype, device=dev)
+        v = flat[off:off + n_words]
+        v.copy_(x.reshape(-1)[:n_words])
+        return v
+
+    n_c, n_s = cap_p - 1, depth * width - 1
+    for acc_off, delta_off in ((1, 1), (3, 3), (1, 2)):
+        cd = shifted(cdelta_p, delta_off, n_c)
+        sd = shifted(sdelta_p, delta_off, n_s).view(1, -1)
+        cnt, cms = base(n_c), base(1, n_s)
+        a = [shifted(cnt, acc_off, n_c),
+             shifted(cms, acc_off, n_s).view(1, -1), slots.clone()]
+        b = [cnt.clone(), cms.clone(), slots.clone()]
+        attr.attr_apply(a[0], cd, a[1], sd, 16, total=a[2], slot=3, n=n_p)
+        attr.attr_apply_plain(b[0], cd, b[1], sd, 16, total=b[2], slot=3,
+                              n=n_p)
+        require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"attr_apply != plain (views at {acc_off} / {delta_off} "
+                f"words)")
     counts_p, cms_p = base(cap_p), base(depth, width)
     nnz_sd = int((sdelta_p != 0).sum())
+    counts_g, cms_g = base(cap_g), base(depth, width)
+    nnz_sg = int((sdelta_g != 0).sum())
+    k_alpha = int(k_dev[0])
     results["attr_apply"] = dict(
         max_abs_err=0, library="add_(cdelta, alpha=k) (the counts only)",
         bound=bound(4 * cap_p + 4 * depth * width + 8 * m + 8 * nnz_sd + 12),
@@ -1042,6 +1132,18 @@ def check_attr_kernels(dev, timer, card: str) -> dict:
                                                 sdelta_p, 16, total=slots,
                                                 slot=3, n=n_p),
                   lambda: counts_p.add_(cdelta_p, alpha=16)))
+    results["attr_apply"]["variants"] = [dict(
+        name="GameGrain flush, k read on the device",
+        bound_ms=bound(4 * cap_g + 4 * depth * width + 8 * touched_g
+                       + 8 * nnz_sg + 16)[0],
+        **measure(timer,
+                  lambda: attr.attr_apply(counts_g, cdelta_g, cms_g,
+                                          sdelta_g, k_dev, total=slots,
+                                          slot=3, n=n_g),
+                  lambda: attr.attr_apply_plain(counts_g, cdelta_g, cms_g,
+                                                sdelta_g, k_dev, total=slots,
+                                                slot=3, n=n_g),
+                  lambda: counts_g.add_(cdelta_g, alpha=k_alpha)))]
 
     # -- K8 attr_match: 16 stacked GameGrain entries, two of them stale ----
     k = 16
@@ -1142,6 +1244,11 @@ def check_attr_kernels(dev, timer, card: str) -> dict:
               f"host "
               f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
               f"{lib}, bound {v['bound_ms']:.4f})", flush=True)
+    for v in results["attr_apply"]["variants"]:
+        print(f"  attr_apply {v['name']}: {v['ms']:.4f} ms, host "
+              f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
+              f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f})",
+              flush=True)
     return results
 
 
@@ -3696,14 +3803,23 @@ def drive_hot_grain_path(dev, card: str) -> dict:
     n_rows = sink_arena.capacity
     for name, rows in arm_rows.items():
         rows_d = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        # integer values below 2**24 in all: exact in any order
+        for vals in (values_d, ones_d):
+            require(torch.equal(segment.seg_sum(vals, rows_d, n_rows),
+                                segment.seg_sum_plain(vals, rows_d, n_rows)),
+                    f"seg_sum != plain on arm {name}'s rows")
         k4 = timer(lambda: segment.seg_sum(values_d, rows_d, n_rows)) \
             + timer(lambda: segment.seg_sum(ones_d, rows_d, n_rows))
         a = out["arms"][name]
-        a.update(k4_ms=k4, k4_share=k4 / a["tick_device_ms"])
+        plan = segment.seg_plan(len(rows), n_rows, 1, torch.float32)
+        a.update(k4_ms=k4, k4_share=k4 / a["tick_device_ms"],
+                 k4_path="direct" if plan.cluster == 0
+                 else f"privatized, clusters of {plan.cluster}")
     for name, a in out["arms"].items():
         print(f"hot-grain arm {name} (k = {a['k']}): "
               f"{a['tick_device_ms']:.4f} ms per tick on the device, "
               f"{a['tick_host_ms']:.4f} on the host; K4 {a['k4_ms']:.4f} ms "
+              f"({a['k4_path']}) "
               f"= {a['k4_share']:.3f} of the tick; {a['messages_per_sec']:.1f}"
               f" messages/s pipelined over {HOT_TICKS} ticks; "
               f"{a['spread_launches']} K18 launches in {a['ticks']} ticks; "
@@ -5992,8 +6108,9 @@ def main() -> int:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if "library_note" in r:
             entry["library_note"] = r["library_note"]
-        if "per" in r:
-            entry["per"] = r["per"]
+        for key in ("per", "fill_ms", "path"):
+            if key in r:
+                entry[key] = r[key]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

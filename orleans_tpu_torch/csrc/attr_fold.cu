@@ -43,9 +43,9 @@
 //     thread-block cluster (one block of 1,024 threads an SM) folds its
 //     lanes into its own full copy in shared memory with shared-memory
 //     atomics; after cluster.sync() block r sums chunk r of the
-//     cluster's copies through distributed shared memory
-//     (map_shared_rank, 16-byte reads) and adds each nonzero sum into
-//     global memory with one atomic.  Global atomics fall from one per
+//     cluster's copies through distributed shared memory and adds each
+//     nonzero sum into global memory with one atomic (cluster_hist.cuh,
+//     shared with K4).  Global atomics fall from one per
 //     lane and depth to one per touched word per cluster.  (Routing each
 //     lane's increment straight into the owning block's words, one
 //     remote atomic per lane, measured slower than direct global atomics
@@ -55,6 +55,7 @@
 #include <cooperative_groups.h>
 
 #include "attr_common.cuh"
+#include "cluster_hist.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -139,11 +140,7 @@ attr_fold_kernel(FoldArgs a) {
   __shared__ int warp_sums[32];
   const int64_t cms_word = a.hist_counts ? a.cap : 0;
   if (CLUSTER) {
-    const int64_t n4 = cg::this_cluster().num_blocks() * a.chunk / 4;
-    for (int64_t w = threadIdx.x; w < n4; w += blockDim.x) {
-      hist4[w] = make_int4(0, 0, 0, 0);
-    }
-    __syncthreads();
+    ot_hist_zero(hist4, cg::this_cluster().num_blocks() * a.chunk / 4);
   }
   const uint32_t width_mask = static_cast<uint32_t>(a.width - 1);
   int local = 0;
@@ -179,30 +176,19 @@ attr_fold_kernel(FoldArgs a) {
     if (threadIdx.x == 0 && sum != 0) atomicAdd(a.total, sum);
   }
   if (CLUSTER) {
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();  // every block's copy is complete
     const int64_t words = (a.hist_counts ? a.cap : 0) +
                           (a.hist_cms ? a.depth * a.width : 0);
-    const int64_t lo = static_cast<int64_t>(cluster.block_rank()) * a.chunk;
-    const unsigned blocks = cluster.num_blocks();
-    for (int64_t q = threadIdx.x; q < a.chunk / 4; q += blockDim.x) {
-      int4 s = make_int4(0, 0, 0, 0);
-      for (unsigned b = 0; b < blocks; ++b) {
-        const int4 v = cluster.map_shared_rank(hist4, b)[lo / 4 + q];
-        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-      }
-      const auto flush = [&](int64_t w, int32_t v) {
-        if (w >= words || v == 0) return;
-        if (w < cms_word) atomicAdd(a.counts + w, v);
-        else atomicAdd(a.cms + (w - cms_word), v);
-      };
-      const int64_t w = lo + 4 * q;
-      flush(w, s.x);
-      flush(w + 1, s.y);
-      flush(w + 2, s.z);
-      flush(w + 3, s.w);
-    }
-    cluster.sync();  // no block leaves while its copy is read
+    const auto add = [&](int64_t w, int32_t v) {
+      if (w >= words || v == 0) return;
+      if (w < cms_word) atomicAdd(a.counts + w, v);
+      else atomicAdd(a.cms + (w - cms_word), v);
+    };
+    ot_cluster_sum<int32_t>(hist4, a.chunk, [&](int64_t w, int4 s) {
+      add(w, s.x);
+      add(w + 1, s.y);
+      add(w + 2, s.z);
+      add(w + 3, s.w);
+    });
   }
   if (a.gate != nullptr && a.stale != nullptr && blockIdx.x == 0 &&
       threadIdx.x == 0) {
@@ -210,11 +196,11 @@ attr_fold_kernel(FoldArgs a) {
   }
 }
 
+// blocks: whole clusters, cut to the clusters the card holds at once
 template <bool WEIGHTED>
 cudaError_t launch_cluster(const FoldArgs& a, unsigned blocks, int cluster,
                            cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(F_CLUSTER_THREADS);
   cfg.dynamicSmemBytes = sizeof(int32_t) * cluster * a.chunk;
   cfg.stream = stream;
@@ -225,6 +211,9 @@ cudaError_t launch_cluster(const FoldArgs& a, unsigned blocks, int cluster,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  const int64_t fit = ot_max_clusters(cfg, attr_fold_kernel<WEIGHTED, true>);
+  if (fit > 0 && fit * cluster < blocks) blocks = fit * cluster;
+  cfg.gridDim = dim3(blocks);
   return cudaLaunchKernelEx(&cfg, attr_fold_kernel<WEIGHTED, true>, a);
 }
 

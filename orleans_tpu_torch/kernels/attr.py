@@ -44,8 +44,9 @@ _INT = ctypes.c_int
 _SIG_FOLD = {"attr_fold": (_P, _I64, _P, _INT, _I64, _P, _P, _P, _P, _P,
                            _I64, _P, _P, _INT, _INT, _INT, _I64, _INT, _P),
              "attr_fold_init": ()}
-_SIG_APPLY = {"attr_apply": (_P, _P, _I64, _P, _P, _I64, _P, _P,
-                             ctypes.c_int32, _P, _P),
+_SIG_APPLY = {"attr_apply": (_P, _P, _I64, _I64, _INT, _P, _P, _I64, _I64,
+                             _INT, _P, _P, ctypes.c_int32, _P, _INT, _INT,
+                             _P),
               "attr_match": (_P, _P, _INT, _P, _P, _I64, _P, _P, _P)}
 _SIG_SNAPSHOT = {"attr_snapshot": (_P, _I64, _P, _INT, _I64, _P, _INT, _INT,
                                    _P, _P, _P),
@@ -302,6 +303,76 @@ def attr_fold(counts: Optional[torch.Tensor], cms: Optional[torch.Tensor],
 
 # -- K8 attr_apply / attr_match -----------------------------------------------
 
+#: threads of an ``attr_apply`` block (halved, down to
+#: ``APPLY_MIN_THREADS``, while the grid would cover fewer threads than the
+#: SMs hold, so a small flush spreads over the SMs), and the persistent
+#: grid's blocks on each SM
+APPLY_THREADS = 256
+APPLY_MIN_THREADS = 64
+APPLY_BLOCKS_PER_SM = 4
+#: a flush of at most this many words reads each accumulator group with
+#: its delta, not after it: one round trip to device memory instead of
+#: two, at the price of reading the groups its delta leaves untouched
+APPLY_EAGER_WORDS = 1 << 17
+
+
+class ApplySplit(NamedTuple):
+    """How K8 walks one array of ``n`` words: ``head`` words one by one,
+    then ``groups`` 16-byte groups of 4 words, then ``tail`` words one by
+    one.  An accumulator and a delta that differ in their address modulo
+    16 bytes go word by word (``head == n``)."""
+    head: int
+    groups: int
+    tail: int
+
+
+def apply_split(n: int, acc_ptr: int, delta_ptr: int) -> ApplySplit:
+    """K8's split of one array from its length and its two addresses (a
+    CUDA graph bakes them, so nothing here depends on data)."""
+    if (acc_ptr - delta_ptr) % 16:
+        return ApplySplit(n, 0, 0)
+    head = min((-delta_ptr % 16) // 4, n)
+    groups = (n - head) // 4
+    return ApplySplit(head, groups, n - head - 4 * groups)
+
+
+class ApplyPlan(NamedTuple):
+    """K8's launch: ``blocks_c`` blocks on the counts, then ``blocks_s``
+    on the sketch, of ``threads`` threads; ``eager``: read the
+    accumulator groups together with their deltas."""
+    blocks_c: int
+    blocks_s: int
+    threads: int
+    eager: bool
+
+
+def apply_plan(counts: ApplySplit, cms: ApplySplit, sms: int) -> ApplyPlan:
+    """K8's launch from the two splits: one 16-byte group (or word, for
+    the word-by-word part) per thread where the grid allows, else the
+    ``sms * APPLY_BLOCKS_PER_SM`` blocks of the persistent grid shared in
+    proportion to each range's groups, at least one block to a range that
+    has any word."""
+
+    def units(s: ApplySplit) -> int:
+        return max(s.groups, s.head + s.tail)
+
+    threads = APPLY_THREADS
+    while threads > APPLY_MIN_THREADS \
+            and units(counts) + units(cms) < sms * threads:
+        threads //= 2
+    wc, ws = (-(-units(s) // threads) for s in (counts, cms))
+    cap = max(2, sms * APPLY_BLOCKS_PER_SM)
+    if wc + ws > cap:
+        bc = min(wc, max(1 if wc else 0, cap * wc // (wc + ws)))
+        wc, ws = bc, min(ws, max(1 if ws else 0, cap - bc))
+    words = sum(s.head + 4 * s.groups + s.tail for s in (counts, cms))
+    return ApplyPlan(wc, ws, threads, words <= APPLY_EAGER_WORDS)
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _check_apply(counts, cdelta, cms, sdelta, k, total, slot, n
                  ) -> torch.device:
     dev = _device_of(counts)
@@ -353,11 +424,15 @@ def attr_apply(counts: torch.Tensor, cdelta: torch.Tensor, cms: torch.Tensor,
                                 slot=slot, n=n)
     k_dev = k if isinstance(k, torch.Tensor) else None
     k_host = 0 if k_dev is not None else int(k)
+    sc = apply_split(counts.shape[0], counts.data_ptr(), cdelta.data_ptr())
+    ss = apply_split(cms.numel(), cms.data_ptr(), sdelta.data_ptr())
+    plan = apply_plan(sc, ss, _sm_count(dev))
     lib = _build.library("attr_apply", _SIG_APPLY)
     err = lib.attr_apply(
-        counts.data_ptr(), cdelta.data_ptr(), counts.shape[0],
-        cms.data_ptr(), sdelta.data_ptr(), cms.numel(), _ptr(total, slot),
-        _ptr(n), k_host, _ptr(k_dev), _stream(dev))
+        counts.data_ptr(), cdelta.data_ptr(), counts.shape[0], sc.head,
+        plan.blocks_c, cms.data_ptr(), sdelta.data_ptr(), cms.numel(),
+        ss.head, plan.blocks_s, _ptr(total, slot), _ptr(n), k_host,
+        _ptr(k_dev), plan.threads, int(plan.eager), _stream(dev))
     _build.check(lib, err, "attr_apply")
     _build.note_launch(attr_apply)
 

@@ -181,21 +181,55 @@ def test_row_scatter_matches_plain(cuda_device, op, dtype, scalar):
         assert torch.equal(got, want)
 
 
+# K4 forced onto each path: (cluster, threads, blocks per SM); None takes
+# seg_plan's choice
+_SEG_PATHS = {"planned": None, "direct": (0, 256, 32), "alone": (1, 256, 4),
+              "cluster2": (2, 512, 2), "cluster8": (8, 512, 2),
+              "cluster16": (16, 1024, 1)}
+
+
+@pytest.mark.parametrize("shape", ["wide", "few_rows", "hot", "inner",
+                                   "odd"])
+@pytest.mark.parametrize("path", list(_SEG_PATHS))
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-def test_seg_sum_matches_plain(cuda_device, dtype):
+def test_seg_sum_matches_plain(cuda_device, dtype, path, shape, monkeypatch):
+    """Every K4 path at small shapes: 4,096 rows, 300 rows (many lanes a
+    word), a hot row that whole warps hit, [m, 3] lanes, and odd lengths."""
     rng = np.random.default_rng(2)
-    rows = _rows(rng, N_ROWS, M)
-    vals = rng.integers(-50, 50, M).astype(np.int32) if dtype == torch.int32 \
-        else rng.standard_normal(M).astype(np.float32)
+    n_rows, m, inner = {"wide": (N_ROWS, M, 1), "few_rows": (300, M, 1),
+                        "hot": (300, M, 1), "inner": (700, M, 3),
+                        "odd": (37, 1001, 1)}[shape]
+    rows = _rows(rng, n_rows, m)
+    if shape == "hot":
+        rows[:40_000] = 123
+    vshape = (m,) if inner == 1 else (m, inner)
+    vals = rng.integers(-2**31, 2**31, vshape).astype(np.int32) \
+        if dtype == torch.int32 else rng.standard_normal(vshape).astype(
+            np.float32)
+    forced = _SEG_PATHS[path]
+    if forced is not None:
+        cluster, threads, per_sm = forced
+        chunk = -(-n_rows * inner // max(cluster, 1))
+        plan = segment.SegPlan(cluster, -(-chunk // 4) * 4 if cluster else 0,
+                               threads, per_sm)
+        monkeypatch.setattr(segment, "seg_plan", lambda *a: plan)
     v_d = torch.from_numpy(vals).to(cuda_device)
     r_d = torch.from_numpy(rows).to(cuda_device)
-    got = segment.seg_sum(v_d, r_d, N_ROWS)
-    want = segment.seg_sum_plain(v_d, r_d, N_ROWS)
+    before = segment.seg_sum.launches
+    got = segment.seg_sum(v_d, r_d, n_rows)
+    torch.cuda.synchronize()
+    assert segment.seg_sum.launches == before + 1
+    want = segment.seg_sum_plain(v_d, r_d, n_rows)
     if dtype == torch.int32:
         assert torch.equal(got, want)
     else:
-        tol = _fan_in_tol(vals, rows, N_ROWS)
-        assert np.all(np.abs((got - want).cpu().numpy()) <= tol)
+        keep = (rows >= 0) & (rows < n_rows)
+        for j in range(inner):
+            col = vals if inner == 1 else vals[:, j]
+            tol = _fan_in_tol(col, rows, n_rows)
+            diff = (got - want).cpu().numpy().reshape(n_rows, inner)[:, j]
+            assert np.all(np.abs(diff) <= tol)
+        assert keep.any()
 
 
 def test_wrappers_count_only_kernel_launches(cuda_device):
@@ -652,8 +686,14 @@ def test_attr_fold_cluster_path_gated_in_a_graph(cuda_device):
     assert torch.equal(total, want_t) and int(stale[0]) == 3
 
 
+@pytest.mark.parametrize("layout", ["whole", "offset_views", "odd_lengths",
+                                    "misaligned", "k_zero"])
 @pytest.mark.parametrize("device_k", [False, True])
-def test_attr_apply_matches_plain(cuda_device, device_k):
+def test_attr_apply_matches_plain(cuda_device, device_k, layout):
+    """K8 on the attribution inputs, on views at word offsets (a head before
+    the first 16-byte group), on lengths that are no multiple of 4 (a
+    tail), on an accumulator and delta that differ in their address
+    modulo 16 (word by word), and with k = 0."""
     from orleans_tpu_torch.kernels import attr
 
     rng = np.random.default_rng(41)
@@ -662,14 +702,35 @@ def test_attr_apply_matches_plain(cuda_device, device_k):
                            device=cuda_device)
     sdelta = torch.randint(0, 3, cms.shape, dtype=torch.int32,
                            device=cuda_device)
+    cdelta[1000:5000] = 0
     n = torch.tensor([123], dtype=torch.int32, device=cuda_device)
-    k = torch.tensor([5], dtype=torch.int32, device=cuda_device) \
-        if device_k else 5
-    a = [counts.clone(), cms.clone(), slots.clone()]
-    b = [counts.clone(), cms.clone(), slots.clone()]
+    kv = 0 if layout == "k_zero" else 5
+    k = torch.tensor([kv], dtype=torch.int32, device=cuda_device) \
+        if device_k else kv
+
+    def view(t, off, n_words):
+        """A copy of t's first ``n_words`` words ``off`` words into a
+        fresh buffer (whose own start is 256-byte aligned)."""
+        flat = torch.empty(n_words + 8, dtype=t.dtype, device=t.device)
+        v = flat[off:off + n_words]
+        v.copy_(t.reshape(-1)[:n_words])
+        return v
+
+    acc_off, delta_off, trim = {
+        "whole": (0, 0, 0), "offset_views": (1, 1, 0),
+        "odd_lengths": (3, 3, 3), "misaligned": (1, 2, 1),
+        "k_zero": (2, 2, 1)}[layout]
+    n_c, n_s = counts.numel() - trim, cms.numel() - trim
+    cdelta = view(cdelta, delta_off, n_c)
+    sdelta = view(sdelta, delta_off, n_s).view(1, -1)
+    base_c, base_s = counts[:n_c], cms.reshape(-1)[:n_s].view(1, -1)
+    a = [view(base_c, acc_off, n_c), view(base_s, acc_off, n_s).view(1, -1),
+         slots.clone()]
+    b = [base_c.clone(), base_s.clone(), slots.clone()]
     attr.attr_apply(a[0], cdelta, a[1], sdelta, k, total=a[2], slot=9, n=n)
     attr.attr_apply_plain(b[0], cdelta, b[1], sdelta, k, total=b[2], slot=9,
                           n=n)
+    torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

@@ -118,7 +118,8 @@ def main() -> int:
         # (one stream: the kernels run in call order)
         k4_runs = sorted((e for e in prof.events()
                           if _device_us(e) > 0
-                          and "seg_sum_kernel" in e.name),
+                          and ("seg_private_kernel" in e.name
+                               or "seg_direct_kernel" in e.name)),
                          key=lambda e: e.time_range.start)
         offsets = [{"out_mod_1k": a % 1024, "out_mod_64k": a,
                     "ms": _device_us(e) / 1e3}
@@ -157,7 +158,7 @@ def main() -> int:
     rows_d = torch.from_numpy(
         sink.lookup_rows(uniform)[0].astype(np.int32)).to(dev)
     n_rows = sink.capacity
-    lib = _build.library("segment", segment._SIGNATURES)
+    plan = segment.seg_plan(rows_d.shape[0], n_rows, 1, torch.float32)
     big = torch.zeros(64 << 10, dtype=torch.float32, device=dev)
     base = big.data_ptr() % 65536
     timer = cs.Timer(dev)
@@ -166,11 +167,9 @@ def main() -> int:
         off = step * 128  # floats: 512 B
 
         def k4(off=off):
-            big[off:off + n_rows].zero_()
-            lib.seg_sum_f32(values_d.data_ptr(), rows_d.data_ptr(),
-                            rows_d.shape[0], 1, big[off:].data_ptr(),
-                            n_rows,
-                            torch.cuda.current_stream().cuda_stream)
+            out = big[off:off + n_rows]
+            out.zero_()
+            segment.launch(values_d, rows_d, out, plan)
 
         ms = timer(k4)
         sweep.append({"out_mod_64k": (base + 4 * off) % 65536, "ms": ms})
