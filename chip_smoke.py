@@ -24,7 +24,10 @@ Phases, each of which fails loudly (exit code other than 0):
    path (direct, privatized blocks flushing alone, clusters of 2 and 8)
    at Presence's game fan-in and at the routing sample's 256 sinks
    and hot sink (1,048,576 lanes on 1,024 rows), its zero fill timed
-   apart; K8 on views whose words start past a 16-byte line, end short
+   apart; K3 on every op and dtype, with the path ``scatter_plan`` chose,
+   the routing sample's touch of its 256 sinks and of its hot sink
+   included; K1 with the wrapper's fresh miss counter and into a given
+   one; K8 on views whose words start past a 16-byte line, end short
    of one, or differ from their delta's modulo 16.  Integers must
    match exactly; float32 sums within Higham's bound for recursive
    summation (see ``_fan_in_tol``).  Each kernel is timed (median of
@@ -540,6 +543,14 @@ def check_kernels(dev, timer, card: str):
                   lambda: resolve.resolve_dense_plain(dense_d, games_d,
                                                       valid_d),
                   lambda: torch.index_select(dense_d, 0, games_d)))
+    # the unfused tick's call takes a fresh miss counter from a zeroed pool
+    # (part of ms); a fused window adds into its one total: the kernel
+    # alone, and the zero fill a counter of its own would cost
+    total_d = torch.zeros(1, dtype=torch.int32, device=dev)
+    results["resolve_dense"]["fill_ms"] = timer(
+        lambda: torch.zeros((), dtype=torch.int32, device=dev))
+    results["resolve_dense"]["kernel_ms"] = timer(
+        lambda: resolve.resolve_dense(dense_d, games_d, valid_d, total_d))
 
     # -- K2 resolve_sorted: the cold tick's resolve -------------------------
     skeys = np.concatenate([np.arange(GAMES, dtype=np.int32),
@@ -609,6 +620,13 @@ def check_kernels(dev, timer, card: str):
     tick_full_d = torch.full((m,), tick, dtype=torch.int32, device=dev)
     tick_0d = torch.tensor(tick, dtype=torch.int32, device=dev)
     fvals_d = t(rng.standard_normal(m).astype(np.float32))
+    sink_rows_d = t(np.random.default_rng(20260806).integers(
+        0, HOT_SINKS, HOT_SOURCES).astype(np.int32))
+    sink_rows64_d = sink_rows_d.long()
+    hot_rows_d = torch.full((HOT_SOURCES,), 3, dtype=torch.int32, device=dev)
+    hot_rows64_d = hot_rows_d.long()
+    hot_tick_d = torch.full((HOT_SOURCES,), tick, dtype=torch.int32,
+                            device=dev)
     # (name, op, column factory, rows, values, library call,
     #  bytes, on the steady tick's path)
     cases = [
@@ -645,6 +663,17 @@ def check_kernels(dev, timer, card: str):
          dtype=torch.float32, device=dev), grow_d, fvals_d,
          lambda c: c.scatter_reduce_(0, grow64_d, fvals_d, "amax"),
          m * 8 + GAMES * 8, False),
+        # the routing sample's touch of its sinks: 1,048,576 lanes on the
+        # sink arena's 1,024 rows, uniform over the 256 live ones, and its
+        # hot sink, every lane on one row
+        ("max i32 touch sinks (scalar)", "max", lambda: torch.zeros(
+         SINK_ROWS, dtype=torch.int32, device=dev), sink_rows_d, tick,
+         lambda c: c.scatter_reduce_(0, sink_rows64_d, hot_tick_d, "amax"),
+         HOT_SOURCES * 4 + HOT_SINKS * 8, False),
+        ("max i32 touch hot sink (scalar)", "max", lambda: torch.zeros(
+         SINK_ROWS, dtype=torch.int32, device=dev), hot_rows_d, tick,
+         lambda c: c.scatter_reduce_(0, hot_rows64_d, hot_tick_d, "amax"),
+         HOT_SOURCES * 4 + 8, False),
     ]
     for name, op, make, rows_d, values, library, nbytes, on_path in cases:
         col = make()
@@ -688,8 +717,13 @@ def check_kernels(dev, timer, card: str):
             lambda: scatter.row_scatter_plain(col, rows_d, values, op),
             lambda: library(col))
         times["bound_ms"] = bound(nbytes)[0]
-        variants.append(dict(name=name, on_steady_tick=on_path,
-                             max_abs_err=err, **times))
+        plan = scatter.scatter_plan(rows_d.shape[0], n, 1, op,
+                                    not isinstance(values, torch.Tensor)
+                                    or values.dim() == 0)
+        variants.append(dict(
+            name=name, on_steady_tick=on_path, max_abs_err=err,
+            path="direct" if plan.cluster == 0
+            else f"privatized, clusters of {plan.cluster}", **times))
         if on_path:
             for key in totals:
                 totals[key] += times[key]
@@ -904,7 +938,11 @@ def check_kernels(dev, timer, card: str):
               f"library {r['library_ms']:.4f} [{r['library']}], bound "
               f"{r['bound'][0]:.4f} by {r['bound'][1]}) max_abs_err "
               f"{r['max_abs_err']:.3g} on {card}", flush=True)
-        if "fill_ms" in r:
+        if "kernel_ms" in r:
+            print(f"  {name}: the kernel alone, into a given counter, "
+                  f"{r['kernel_ms']:.4f} ms; a counter's zero fill alone "
+                  f"{r['fill_ms']:.4f}", flush=True)
+        elif "fill_ms" in r:
             print(f"  {name}: its zero fills {r['fill_ms']:.4f} ms of it; "
                   f"path {r['path']}", flush=True)
         for v in r.get("variants", []):
@@ -6108,11 +6146,12 @@ def main() -> int:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if "library_note" in r:
             entry["library_note"] = r["library_note"]
-        for key in ("per", "fill_ms", "path"):
+        for key in ("per", "fill_ms", "kernel_ms", "path", "variants"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels}))
+    # numpy scalars (a variant's error or bound) print as floats
+    print(json.dumps({"kernels": kernels}, default=float))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,15 +1,17 @@
-// Privatized histograms summed over a thread-block cluster, shared by K4
-// seg_sum (segment.cu) and K7 attr_fold (attr_fold.cu).
+// Privatized histograms combined over a thread-block cluster, shared by
+// K4 seg_sum (segment.cu), K7 attr_fold (attr_fold.cu) and K3 row_scatter
+// (scatter.cu).
 //
 // Every block of a cluster folds its lanes into its own full copy of a
 // histogram in shared memory (cluster size times chunk words, chunk a
-// multiple of 4).  After a cluster.sync(), block r sums words
+// multiple of 4).  After a cluster.sync(), block r combines words
 // [r * chunk, (r + 1) * chunk) of every block's copy through distributed
 // shared memory (map_shared_rank, 16-byte reads) and hands each group of 4
-// sums to the caller's flush, which adds the nonzero ones into global
-// memory.  Global atomics fall from one per lane to one per touched word
-// per cluster; the flushes of a word come from as many clusters as the
-// grid holds, never from every lane.
+// results to the caller's flush, which applies the touched ones to global
+// memory.  The combine is a sum unless the caller names another (K3's
+// MAX takes the maximum of int32 words).  Global atomics fall from one per
+// lane to one per touched word per cluster; the flushes of a word come
+// from as many clusters as the grid holds, never from every lane.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -27,10 +29,40 @@ struct OtVec4<float> {
   using type = float4;
 };
 
-// sums chunk words of the cluster's copies (hist4: this block's copy as
-// 16-byte groups) and calls flush(first word, 4-word sum) for each group
-// of this block's chunk; no block leaves while its copy may be read
-template <typename T, typename Flush>
+// the combines of ot_cluster_sum: an identity and a 4-word step
+struct OtSum {
+  template <typename V4>
+  __device__ static V4 identity() {
+    return V4{};
+  }
+  template <typename V4>
+  __device__ static void add(V4& s, const V4& v) {
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+};
+
+struct OtMaxI32 {
+  template <typename V4>
+  __device__ static V4 identity() {
+    return make_int4(INT32_MIN, INT32_MIN, INT32_MIN, INT32_MIN);
+  }
+  template <typename V4>
+  __device__ static void add(V4& s, const V4& v) {
+    s.x = max(s.x, v.x);
+    s.y = max(s.y, v.y);
+    s.z = max(s.z, v.z);
+    s.w = max(s.w, v.w);
+  }
+};
+
+// combines chunk words of the cluster's copies (hist4: this block's copy
+// as 16-byte groups; Combine: OtSum unless named) and calls flush(first
+// word, 4-word result) for each group of this block's chunk; no block
+// leaves while its copy may be read
+template <typename T, typename Combine = OtSum, typename Flush>
 __device__ __forceinline__ void ot_cluster_sum(
     typename OtVec4<T>::type* hist4, int64_t chunk, Flush&& flush) {
   using V4 = typename OtVec4<T>::type;
@@ -40,23 +72,21 @@ __device__ __forceinline__ void ot_cluster_sum(
   const int64_t lo = static_cast<int64_t>(cluster.block_rank()) * chunk;
   const unsigned blocks = cluster.num_blocks();
   for (int64_t q = threadIdx.x; q < chunk / 4; q += blockDim.x) {
-    V4 s{};
+    V4 s = Combine::template identity<V4>();
     for (unsigned b = 0; b < blocks; ++b) {
-      const V4 v = cluster.map_shared_rank(hist4, b)[lo / 4 + q];
-      s.x += v.x;
-      s.y += v.y;
-      s.z += v.z;
-      s.w += v.w;
+      Combine::add(s, cluster.map_shared_rank(hist4, b)[lo / 4 + q]);
     }
     flush(lo + 4 * q, s);
   }
   cluster.sync();  // no block leaves while its copy is read
 }
 
-// zero this block's copy of n4 16-byte groups, then __syncthreads()
+// fill this block's copy of n4 16-byte groups with `fill` (zero unless
+// given), then __syncthreads()
 template <typename V4>
-__device__ __forceinline__ void ot_hist_zero(V4* hist4, int64_t n4) {
-  for (int64_t w = threadIdx.x; w < n4; w += blockDim.x) hist4[w] = V4{};
+__device__ __forceinline__ void ot_hist_zero(V4* hist4, int64_t n4,
+                                             V4 fill = V4{}) {
+  for (int64_t w = threadIdx.x; w < n4; w += blockDim.x) hist4[w] = fill;
   __syncthreads();
 }
 

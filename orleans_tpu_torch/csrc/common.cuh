@@ -39,6 +39,38 @@ inline int ot_sm_count() {
   return sms;
 }
 
+// blocks of `threads` threads (and `smem` bytes of dynamic shared memory)
+// one SM holds at once for `kernel`, 1 when the query fails; asked once per
+// kernel and shape (a host query, never a stream operation: safe while a
+// graph captures).  A persistent grid past that runs in a second wave.
+template <typename Kernel>
+int ot_max_blocks(Kernel kernel, int threads, size_t smem = 0) {
+  struct Seen {
+    const void* fn;
+    int threads;
+    size_t smem;
+    int fit;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen[i].fn == fn && seen[i].threads == threads &&
+        seen[i].smem == smem) {
+      return seen[i].fit;
+    }
+  }
+  int fit = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, threads,
+                                                    smem) != cudaSuccess ||
+      fit < 1) {
+    cudaGetLastError();  // clear it: the launch reports its own status
+    fit = 1;
+  }
+  if (n_seen < 64) seen[n_seen++] = {fn, threads, smem, fit};
+  return fit;
+}
+
 // sum of v over the block (every thread must call it); thread 0 holds the
 // result.  `scratch` has a slot per warp.
 template <typename T>

@@ -10,9 +10,18 @@
 // first touches.  The miss count stays on the device (the engine reads it
 // only at its miss-check drain).
 //
-// K1: one thread per lane, coalesced key/valid/row accesses, one gather;
-// the miss count is reduced per warp with __ballot_sync + __popc and
-// lands with ONE atomicAdd per warp.
+// K1: one thread a lane (a 4-byte key load, a 1-byte valid load and a
+// dependent gather) leaves few bytes in flight.  So each thread carries 4
+// lanes: one 16-byte key load, one 4-byte load of their valid flags, 4
+// independent gathers through L1 (__ldg), one 16-byte row store.  Lanes
+// before the keys' first 16-byte boundary (head) are taken one by one, as
+// are the lanes of the last partial group; where keys, valid flags and
+// rows do not share their offset from those boundaries, every group loads
+// word by word.  A persistent grid cut to the blocks the card holds at
+// once; the miss count is summed per block and lands with ONE atomicAdd
+// per block.  (Staging Presence's 64 KiB map in every block's shared
+// memory measured slower on an H100: the copies cost more L2 traffic than
+// the gathers they save, see PERF.md.)
 //
 // K2: a lower-bound search is a chain of dependent loads, and one search
 // per thread leaves each warp waiting on one L1/L2 round trip a step,
@@ -31,37 +40,73 @@
 
 namespace {
 
-// all 32 lanes of every warp reach the ballot: the loop bound is
-// block-uniform (base < m), and out-of-range lanes vote false
-__device__ __forceinline__ void add_warp_misses(int local, int32_t* count) {
-  if (local && (threadIdx.x & 31) == 0) atomicAdd(count, local);
+struct DenseArgs {
+  const int32_t* dense;
+  int32_t size;
+  const int32_t* keys;
+  const uint8_t* valid;
+  int32_t* rows;
+  int32_t* miss_count;
+  int64_t m;
+  int64_t head;  // lanes before the 16-byte groups (0 unless vec)
+  bool vec;      // keys, rows + head 16-byte, valid + head 4-byte aligned
+};
+
+// one lane's row (-1 unless it resolves), counting a miss
+__device__ __forceinline__ int32_t dense_row(const DenseArgs& a, int32_t k,
+                                             bool v, int& misses) {
+  const bool live = v && k < OT_KEY_SENTINEL;
+  const bool in_range = live && k >= 0 && k < a.size;
+  const int32_t r = in_range ? __ldg(a.dense + k) : -1;
+  misses += (in_range && r >= 0) != live;
+  return r;
 }
 
-__global__ void resolve_dense_kernel(const int32_t* __restrict__ dense,
-                                     int32_t size,
-                                     const int32_t* __restrict__ keys,
-                                     const uint8_t* __restrict__ valid,
-                                     int32_t* __restrict__ rows,
-                                     int32_t* __restrict__ miss_count,
-                                     int64_t m) {
+__global__ void __launch_bounds__(1024)
+resolve_dense_kernel(DenseArgs a) {
+  __shared__ int warp_sums[32];
   int local = 0;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x;
-       base < m; base += stride) {
-    const int64_t i = base + threadIdx.x;
-    bool miss = false;
-    if (i < m) {
-      const int32_t k = keys[i];
-      const bool v = valid[i] && k < OT_KEY_SENTINEL;
-      const bool in_range = v && k >= 0 && k < size;
-      const int32_t r = in_range ? __ldg(dense + k) : -1;
-      rows[i] = r;
-      miss = (in_range && r >= 0) != v;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, miss);
-    local += __popc(ballot);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  if (first < a.head) {
+    a.rows[first] = dense_row(a, a.keys[first], a.valid[first], local);
   }
-  add_warp_misses(local, miss_count);
+  const int64_t groups = (a.m - a.head + 3) / 4;
+  for (int64_t g = first; g < groups; g += stride) {
+    const int64_t base = a.head + 4 * g;
+    const bool full = a.vec && base + 4 <= a.m;
+    int32_t k[4];
+    bool v[4];
+    if (full) {
+      const int4 kk = *reinterpret_cast<const int4*>(a.keys + base);
+      const uchar4 vv = *reinterpret_cast<const uchar4*>(a.valid + base);
+      k[0] = kk.x; k[1] = kk.y; k[2] = kk.z; k[3] = kk.w;
+      v[0] = vv.x; v[1] = vv.y; v[2] = vv.z; v[3] = vv.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = base + j < a.m;
+        k[j] = in ? a.keys[base + j] : 0;
+        v[j] = in && a.valid[base + j];
+      }
+    }
+    int32_t r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r[j] = dense_row(a, k[j], v[j], local);
+    if (full) {
+      *reinterpret_cast<int4*>(a.rows + base) = make_int4(r[0], r[1], r[2],
+                                                          r[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (base + j < a.m) a.rows[base + j] = r[j];
+      }
+    }
+  }
+  // one atomic per block
+  const int sum = ot_block_sum(local, warp_sums);
+  if (threadIdx.x == 0 && sum != 0) atomicAdd(a.miss_count, sum);
 }
 
 // -- K2 ----------------------------------------------------------------------
@@ -219,13 +264,35 @@ resolve_sorted_kernel(SortedArgs a) {
 
 }  // namespace
 
+// threads a block (a multiple of 32, at most 1,024), at most
+// blocks_per_sm blocks an SM (fewer where the SM holds fewer at once)
 OT_EXPORT int resolve_dense(const int32_t* dense, int32_t size,
                             const int32_t* keys, const uint8_t* valid,
                             int32_t* rows, int32_t* miss_count, int64_t m,
-                            void* stream) {
-  resolve_dense_kernel<<<ot_blocks(m), OT_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      dense, size, keys, valid, rows, miss_count, m);
+                            int threads, int blocks_per_sm, void* stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 || blocks_per_sm < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto at = [](const void* p) {
+    return static_cast<int64_t>(reinterpret_cast<uintptr_t>(p) % 16);
+  };
+  // keys' lanes before their first 16-byte boundary; the 4-lane groups
+  // after it are 16-byte loads and stores where rows and valid agree
+  int64_t head = (16 - at(keys)) % 16 / 4;
+  if (head > m) head = m;
+  const bool vec = head < m && (at(rows) + 4 * head) % 16 == 0 &&
+                   (at(valid) + head) % 4 == 0;
+  if (!vec) head = 0;
+  const DenseArgs a{dense, size, keys, valid, rows, miss_count, m, head, vec};
+  const int64_t groups = (m - head + 3) / 4;
+  int64_t blocks = (groups + threads - 1) / threads;
+  const int fit = ot_max_blocks(resolve_dense_kernel, threads);
+  const int64_t cap = static_cast<int64_t>(ot_sm_count()) *
+                      (fit < blocks_per_sm ? fit : blocks_per_sm);
+  blocks = blocks < cap ? blocks : cap;
+  if (blocks < 1) blocks = 1;
+  resolve_dense_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,7 +24,7 @@ notes at the top of ``csrc/resolve.cu`` and ``csrc/resolve_wide.cu``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,10 +41,18 @@ KEY_SENTINEL = 2**31 - 1
 #: through the exact host path
 WIDE_PROBES = 4
 
+#: K1's persistent grid: threads a block, at most this many blocks on
+#: each SM (fewer where an SM holds fewer at once)
+DENSE_THREADS = 512
+DENSE_BLOCKS_PER_SM = 4
+#: fresh miss counters handed out from one zeroed block of this many
+#: (one fill a block, not one a call: see ``_miss_counter``)
+COUNTER_POOL = 1024
+
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "resolve_dense": (_P, ctypes.c_int32, _P, _P, _P, _P, ctypes.c_int64,
-                      _P),
+                      ctypes.c_int, ctypes.c_int, _P),
     "resolve_sorted": (_P, _P, ctypes.c_int32, _P, _P, _P, _P,
                        ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, _P),
@@ -77,10 +85,33 @@ def _check_lanes(keys: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {keys.device}")
 
 
+# (device, stream) -> [a zeroed pool of counters, the next one to hand out]
+_POOLS: Dict[Tuple[torch.device, int], list] = {}
+
+
+def _fresh_counter(device: torch.device) -> torch.Tensor:
+    """A zeroed int32 scalar on ``device``.  On a card it is the next
+    unused element of a pool zeroed by one fill (a fill launch per call
+    would cost the unfused tick's resolve a kernel of its own, about as
+    long as the resolve); no element is handed out twice, and each keeps
+    its pool alive.  A pool is zeroed on the stream that uses it.  While a
+    CUDA graph captures, the counter is filled in the graph, so every
+    replay starts from zero."""
+    if device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return torch.zeros((), dtype=torch.int32, device=device)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    pool = _POOLS.get(key)
+    if pool is None or pool[1] == COUNTER_POOL:
+        pool = _POOLS[key] = [torch.zeros(COUNTER_POOL, dtype=torch.int32,
+                                          device=device), 0]
+    pool[1] += 1
+    return pool[0][pool[1] - 1]
+
+
 def _miss_counter(misses, keys: torch.Tensor) -> torch.Tensor:
     """A fresh zeroed int32 scalar, or the caller's accumulator."""
     if misses is None:
-        return torch.zeros((), dtype=torch.int32, device=keys.device)
+        return _fresh_counter(keys.device)
     if not isinstance(misses, torch.Tensor) or misses.dtype != torch.int32 \
             or misses.numel() != 1 or misses.device != keys.device:
         raise TypeError("misses must be a one-element int32 tensor on the "
@@ -131,7 +162,7 @@ def resolve_dense(dense: torch.Tensor, keys: torch.Tensor,
     if m:
         _launch("resolve_dense", rows, dense.data_ptr(), dense.shape[0],
                 keys.data_ptr(), valid.data_ptr(), rows.data_ptr(),
-                misses.data_ptr(), m)
+                misses.data_ptr(), m, DENSE_THREADS, DENSE_BLOCKS_PER_SM)
         _build.note_launch(resolve_dense)
     return rows, misses
 

@@ -15,8 +15,12 @@ which is what a fused window's CUDA graph needs (a replay reads the tick
 copied into the graph's input buffer, not the one baked at capture).
 SET with duplicate rows keeps one of the writers, not a chosen one.
 
-What bounds the kernel on an H100 and what it does about it is in the
-note at the top of ``csrc/scatter.cu``.
+``scatter_plan`` picks the kernel's path from shapes alone (a CUDA graph
+bakes the launch): direct global atomics, combined first among the lanes
+of a warp that share a word, or, for ADD and MAX onto few words, a copy of
+the column privatized in each block's shared memory and combined over a
+thread-block cluster.  What bounds the kernel on an H100 and what it does
+about it is in the note at the top of ``csrc/scatter.cu``.
 """
 
 from __future__ import annotations
@@ -29,20 +33,64 @@ import numpy as np
 import torch
 
 from orleans_tpu_torch.kernels import _build
+from orleans_tpu_torch.kernels.segment import (
+    SEG_BLOCK_BYTES,
+    SEG_CLUSTER,
+    SegPlan,
+)
 
 OPS = {"set": 0, "add": 1, "max": 2}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_INT = ctypes.c_int
 _SIGNATURES = {
     "row_scatter_i32": (_P, _I64, _P, _I64, _I64, _P, _I64,
-                        ctypes.c_int32, ctypes.c_int, _P),
+                        ctypes.c_int32, _INT, _INT, _I64, _INT, _INT, _P),
     "row_scatter_f32": (_P, _I64, _P, _I64, _I64, _P, _I64, ctypes.c_float,
-                        ctypes.c_int, _P),
+                        _INT, _INT, _I64, _INT, _INT, _P),
+    "row_scatter_init": (),
 }
 _FN = {torch.int32: "row_scatter_i32", torch.float32: "row_scatter_f32"}
 
 Values = Union[torch.Tensor, numbers.Number, np.generic, np.ndarray]
+
+#: elements per column word from which ADD and MAX are privatized: on an
+#: H100 the direct path wins at 16 lanes a word and loses at 32, for ADD,
+#: MAX and the touch alike, the times crossing near 20
+#: (``probe_k1_k3.py --sweep``, PERF.md)
+SCATTER_MIN_PER_WORD = 20
+#: threads a block and at most this many blocks on each SM (fewer where an
+#: SM holds fewer at once): direct, privatized (K4's)
+SCATTER_DIRECT = (256, 8)
+SCATTER_PRIVATE = (512, 2)
+
+
+def scatter_plan(m: int, n: int, inner: int, op: str,
+                 scalar: bool) -> SegPlan:
+    """K3's path from shapes alone: ``m`` lanes of ``inner`` elements into
+    a column of ``n`` rows under ``op``, the value a broadcast scalar
+    (``scalar``) or each lane's own.  The plan has K4's fields
+    (``SegPlan``): ``cluster`` 0 for a direct path, else every block holds
+    a copy of ``cluster * chunk`` column words.
+
+    SET is always direct.  ADD and MAX (of lane values, or of a broadcast
+    scalar: the touch, whose block copies are masks of touched words) are
+    privatized where the ``m * inner`` elements put at least
+    ``SCATTER_MIN_PER_WORD`` (20) on each of the ``n * inner`` column
+    words, that is ``m / n`` lanes a row, and the column's words (4 bytes
+    each) fit ``SEG_BLOCK_BYTES``, K4's 128 KiB of a block's shared
+    memory; then clusters of ``SEG_CLUSTER`` blocks, as K4's.  Else
+    direct.  ``scalar`` names the touch; on an H100 its two paths cross
+    where ADD's and MAX's do, so it takes their threshold."""
+    if op not in OPS:
+        raise ValueError(f"op must be one of {sorted(OPS)}, got {op!r}")
+    words = n * inner
+    if op == "set" or words == 0 or m * inner < SCATTER_MIN_PER_WORD * words \
+            or 4 * words > SEG_BLOCK_BYTES:
+        return SegPlan(0, 0, *SCATTER_DIRECT)
+    chunk = -(-words // SEG_CLUSTER)
+    return SegPlan(SEG_CLUSTER, -(-chunk // 4) * 4, *SCATTER_PRIVATE)
 
 
 def _is_host_scalar(values) -> bool:
@@ -103,6 +151,38 @@ def row_scatter_plain(column: torch.Tensor, rows: torch.Tensor,
     return column
 
 
+def _is_scalar(values: Values) -> bool:
+    """A host scalar or a 0-d tensor: one value for every lane."""
+    return _is_host_scalar(values) or values.dim() == 0
+
+
+def launch(column: torch.Tensor, rows: torch.Tensor, values: Values,
+           op: str, plan: SegPlan) -> None:
+    """Launch K3 on CUDA tensors along ``plan``.  Not counted:
+    ``row_scatter`` is the path's entry; this is for probes that force a
+    path."""
+    m = rows.shape[0]
+    if m == 0:
+        return
+    if _is_host_scalar(values):
+        ptr, step = None, 0
+        scalar = int(values) if column.dtype == torch.int32 \
+            else float(values)
+    else:
+        if values.dim() and not values.is_contiguous():
+            raise ValueError("values must be contiguous")
+        # a device scalar is one element every lane reads (step 0)
+        ptr, step, scalar = values.data_ptr(), int(values.dim() > 0), 0
+    fn_name = _FN[column.dtype]
+    lib = _build.library("scatter", _SIGNATURES, init="row_scatter_init")
+    err = getattr(lib, fn_name)(
+        column.data_ptr(), column.shape[0], rows.data_ptr(), m,
+        column[0].numel(), ptr, step, scalar, OPS[op], plan.cluster,
+        plan.chunk, plan.threads, plan.blocks_per_sm,
+        torch.cuda.current_stream(column.device).cuda_stream)
+    _build.check(lib, err, fn_name)
+
+
 @_build.counted
 def row_scatter(column: torch.Tensor, rows: torch.Tensor, values: Values,
                 op: str) -> torch.Tensor:
@@ -114,22 +194,8 @@ def row_scatter(column: torch.Tensor, rows: torch.Tensor, values: Values,
     m = rows.shape[0]
     if m == 0:
         return column
-    inner = column[0].numel()
-    if _is_host_scalar(values):
-        ptr, step = None, 0
-        scalar = int(values) if column.dtype == torch.int32 \
-            else float(values)
-    else:
-        if values.dim() and not values.is_contiguous():
-            raise ValueError("values must be contiguous")
-        # a device scalar is one element every lane reads (step 0)
-        ptr, step, scalar = values.data_ptr(), int(values.dim() > 0), 0
-    fn_name = _FN[column.dtype]
-    lib = _build.library("scatter", _SIGNATURES)
-    err = getattr(lib, fn_name)(
-        column.data_ptr(), column.shape[0], rows.data_ptr(), m, inner, ptr,
-        step, scalar, OPS[op],
-        torch.cuda.current_stream(column.device).cuda_stream)
-    _build.check(lib, err, fn_name)
+    launch(column, rows, values, op,
+           scatter_plan(m, column.shape[0], column[0].numel(), op,
+                        _is_scalar(values)))
     _build.note_launch(row_scatter)
     return column

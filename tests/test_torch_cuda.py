@@ -314,6 +314,252 @@ def test_resolve_adds_into_a_given_counter(cuda_device):
     assert total.tolist() == [[14, 10]]
 
 
+# -- K1's 4-lane groups and K3's paths ----------------------------------------
+
+@pytest.mark.parametrize("m", [0, 1, 3, 5, 4099, 1 << 20])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_resolve_dense_lane_edges_match_plain(cuda_device, m, offset):
+    """K1 on short lane counts and on key and valid views that start off
+    the 16- and 4-byte boundaries (head lanes, word-by-word groups, the
+    partial last group), adding into a given ``misses``."""
+    rng = np.random.default_rng(m + 7 * offset)
+    dense = rng.permutation(1 << 14).astype(np.int32)
+    dense[rng.random(1 << 14) < 0.2] = -1
+    keys = rng.integers(-10, (1 << 14) + 10, m + offset).astype(np.int32)
+    keys[rng.random(m + offset) < 0.05] = KEY_SENTINEL
+    valid = rng.random(m + offset) < 0.9
+    d_d = torch.from_numpy(dense).to(cuda_device)
+    for k_off, v_off in ((offset, offset), (offset, 0), (0, offset)):
+        keys_d = torch.from_numpy(keys).to(cuda_device)[k_off:k_off + m]
+        valid_d = torch.from_numpy(valid).to(cuda_device)[v_off:v_off + m]
+        if keys_d.shape != valid_d.shape:
+            continue
+        got_miss = torch.full((1,), 7, dtype=torch.int32, device=cuda_device)
+        want_miss = got_miss.clone()
+        rows, _ = resolve.resolve_dense(d_d, keys_d, valid_d, got_miss)
+        want_rows, _ = resolve.resolve_dense_plain(d_d, keys_d, valid_d,
+                                                   want_miss)
+        torch.cuda.synchronize()
+        assert torch.equal(rows, want_rows), (k_off, v_off)
+        assert int(got_miss) == int(want_miss), (k_off, v_off)
+
+
+def test_resolve_fresh_miss_counters_are_distinct_zeros(cuda_device):
+    """Fresh miss counters come from zeroed pools: across a pool's end
+    each call's count is its own, none is handed out twice, and a counter
+    taken while a graph captures is zeroed by every replay."""
+    dense = torch.tensor([0, -1, 2], dtype=torch.int32, device=cuda_device)
+    keys = torch.tensor([0, 1, 2, 5], dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(4, dtype=torch.bool, device=cuda_device)
+    counts = [resolve.resolve_dense(dense, keys, valid)[1]
+              for _ in range(resolve.COUNTER_POOL + 5)]
+    torch.cuda.synchronize()
+    assert [int(c) for c in counts] == [2] * len(counts)
+    assert len({c.data_ptr() for c in counts}) == len(counts)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, count = resolve.resolve_dense(dense, keys, valid)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(count) == 2
+
+
+def _scatter_forced(path, n, inner=1):
+    """K3's plan forced onto ``path``: "direct" or "private" (clusters of
+    8, or of 2 when ``path`` is "private2")."""
+    if path == "direct":
+        return segment.SegPlan(0, 0, *scatter.SCATTER_DIRECT)
+    cluster = 2 if path == "private2" else 8
+    chunk = -(-n * inner // cluster)
+    return segment.SegPlan(cluster, -(-chunk // 4) * 4,
+                               *scatter.SCATTER_PRIVATE)
+
+
+def _scatter_values(rng, form, dtype, m, inner, dev):
+    """The lanes' values in ``form``: "lanes" (a tensor [m, ...]), "host"
+    (a host scalar) or "device" (a 0-d tensor on the card)."""
+    shape = (m,) if inner == 1 else (m, inner)
+    if form == "host":
+        return np.int32(9) if dtype == torch.int32 else 0.75
+    if form == "device":
+        return torch.tensor(9 if dtype == torch.int32 else 0.75, dtype=dtype,
+                            device=dev)
+    vals = rng.integers(-2**31, 2**31, shape).astype(np.int32) \
+        if dtype == torch.int32 else rng.standard_normal(shape).astype(
+            np.float32)
+    return torch.from_numpy(vals).to(dev)
+
+
+def _assert_scatter(got, want, op, rows, values, base, n, inner):
+    if op == "add" and got.dtype == torch.float32:
+        m = len(rows)
+        lanes = values.cpu().numpy() if isinstance(values, torch.Tensor) \
+            else np.asarray(values, np.float32)
+        lanes = np.broadcast_to(lanes, (m, inner) if inner > 1 else (m,))
+        for j in range(inner):
+            col = lanes if inner == 1 else lanes[:, j]
+            b = base if inner == 1 else base[:, j]
+            tol = _fan_in_tol(col, rows, n, base=b)
+            diff = (got - want).cpu().numpy().reshape(n, inner)[:, j]
+            assert np.all(np.abs(diff) <= tol)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("form", ["lanes", "host", "device"])
+@pytest.mark.parametrize("shape", ["hot", "sinks", "inner", "odd"])
+@pytest.mark.parametrize("path", ["planned", "direct", "private",
+                                  "private2"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_row_scatter_paths_match_plain(cuda_device, op, dtype, path, shape,
+                                       form, monkeypatch):
+    """K3's ADD and MAX on each path: a hot row that whole warps hit
+    among other rows, 1,024 rows fed by 1,048,576 lanes (256 live, the
+    routing sample's sinks), [m, 3] lanes, and an odd lane count; each with
+    its own values, a host scalar and a 0-d device scalar.  int32 values
+    span the whole range, so ADD wraps."""
+    rng = np.random.default_rng(11)
+    n, m, inner = {"hot": (300, 50_000, 1), "sinks": (1024, 1 << 20, 1),
+                   "inner": (700, 50_000, 3), "odd": (37, 1001, 1)}[shape]
+    rows = _rows(rng, n, m)
+    if shape == "hot":
+        rows[:40_000] = 123
+    if shape == "sinks":
+        rows = rng.integers(0, 256, m).astype(np.int32)
+    if path != "planned":
+        plan = _scatter_forced(path, n, inner)
+        monkeypatch.setattr(scatter, "scatter_plan", lambda *a: plan)
+    values = _scatter_values(rng, form, dtype, m, inner, cuda_device)
+    base = rng.integers(-1000, 1000, (n, inner) if inner > 1 else n)
+    col = torch.from_numpy(base.astype(np.int32)).to(cuda_device).to(dtype)
+    r_d = torch.from_numpy(rows).to(cuda_device)
+    before = scatter.row_scatter.launches
+    got = scatter.row_scatter(col.clone(), r_d, values, op)
+    torch.cuda.synchronize()
+    assert scatter.row_scatter.launches == before + 1
+    want = scatter.row_scatter_plain(col.clone(), r_d, values, op)
+    _assert_scatter(got, want, op, rows, values, base, n, inner)
+
+
+@pytest.mark.parametrize("path", ["direct", "private"])
+@pytest.mark.parametrize("op", ["set", "add", "max"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_row_scatter_views_offset_match_plain(cuda_device, dtype, op, path,
+                                              monkeypatch):
+    """Rows, values and the column as views 4 B past a 16-byte boundary
+    (and rows and values at different offsets): SET's scalar head and
+    tail around its 16-byte groups, and its word-by-word values."""
+    rng = np.random.default_rng(12)
+    n, m = (2048, 40_003) if op != "set" else (1 << 16, 40_003)
+    if path == "private" and op != "set":
+        plan = _scatter_forced(path, n)
+        monkeypatch.setattr(scatter, "scatter_plan", lambda *a: plan)
+    rows = _rows(rng, n, m + 2, unique=(op == "set"))
+    if op == "set":
+        # distinct rows, 4,000 of them in a row (on and off 16-byte
+        # boundaries of the column), 10% dropped
+        run = np.arange(64, 4064, dtype=np.int32)
+        perm = rng.permutation(n).astype(np.int32)
+        rest = perm[~np.isin(perm, run)]
+        rows = np.concatenate([rest[:100], run, rest[100:]])[:m + 2]
+        rows[rng.random(m + 2) < 0.1] = -1
+    vals = rng.integers(-1000, 1000, m + 2).astype(np.int32)
+    base = rng.integers(-1000, 1000, n + 1).astype(np.int32)
+    for r_off, v_off in ((1, 1), (1, 2), (0, 1), (2, 0)):
+        r_d = torch.from_numpy(rows).to(cuda_device)[r_off:r_off + m]
+        v_d = torch.from_numpy(vals).to(cuda_device).to(dtype)[
+            v_off:v_off + m]
+        col = torch.from_numpy(base).to(cuda_device).to(dtype)[1:]
+        got = scatter.row_scatter(col.clone(), r_d, v_d, op)
+        want = scatter.row_scatter_plain(col.clone(), r_d, v_d, op)
+        torch.cuda.synchronize()
+        _assert_scatter(got, want, op, rows[r_off:r_off + m],
+                        vals[v_off:v_off + m].astype(np.float32), base[1:],
+                        n, 1)
+
+
+@pytest.mark.parametrize("path", ["direct", "private"])
+def test_row_scatter_max_propagates_nan(cuda_device, path, monkeypatch):
+    """float32 MAX: a NaN lane makes its row NaN on both paths, a row
+    already NaN stays NaN, -inf and -0.0 order as the plain version's."""
+    rng = np.random.default_rng(13)
+    n, m = 512, 60_000
+    plan = _scatter_forced(path, n)
+    monkeypatch.setattr(scatter, "scatter_plan", lambda *a: plan)
+    rows = _rows(rng, n, m)
+    vals = rng.standard_normal(m).astype(np.float32)
+    vals[rng.random(m) < 0.0005] = np.nan
+    vals[rng.random(m) < 0.01] = -np.inf
+    base = rng.standard_normal(n).astype(np.float32)
+    base[::50] = np.nan
+    base[1::50] = -np.inf
+    col = torch.from_numpy(base).to(cuda_device)
+    r_d = torch.from_numpy(rows).to(cuda_device)
+    v_d = torch.from_numpy(vals).to(cuda_device)
+    got = scatter.row_scatter(col.clone(), r_d, v_d, "max").cpu().numpy()
+    want = scatter.row_scatter_plain(col.clone(), r_d, v_d,
+                                     "max").cpu().numpy()
+    assert np.isnan(got).sum() > np.isnan(base).sum()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok], want[ok])
+
+
+@pytest.mark.parametrize("path", ["direct", "private"])
+def test_row_scatter_int32_add_wraps(cuda_device, path, monkeypatch):
+    """int32 ADD wraps around 2**31 on both paths, as the plain version's
+    does."""
+    n, m = 64, 100_000
+    plan = _scatter_forced(path, n)
+    monkeypatch.setattr(scatter, "scatter_plan", lambda *a: plan)
+    rows = (np.arange(m) % n).astype(np.int32)
+    col = torch.full((n,), 2**31 - 5, dtype=torch.int32, device=cuda_device)
+    r_d = torch.from_numpy(rows).to(cuda_device)
+    vals = torch.full((m,), 2**30 + 3, dtype=torch.int32, device=cuda_device)
+    got = scatter.row_scatter(col.clone(), r_d, vals, "add")
+    want = scatter.row_scatter_plain(col.clone(), r_d, vals, "add")
+    assert torch.equal(got, want)
+    lanes = int(np.bincount(rows)[0])
+    expect = (np.int64(2**31 - 5) + lanes * np.int64(2**30 + 3)) % 2**32
+    assert int(got[0]) == int(np.int64(expect).astype(np.uint32).astype(
+        np.int32))
+
+
+@pytest.mark.parametrize("shape", ["sinks", "hot", "players"])
+def test_row_scatter_touch_replays_a_new_tick(cuda_device, shape):
+    """The touch (MAX of a 0-d device tick) captured into a CUDA graph on
+    the path ``scatter_plan`` chose, replayed after the tick changes:
+    each replay stamps the new tick, never the captured one, and a lower
+    tick leaves the column as it was."""
+    from orleans_tpu_torch.kernels import _build
+
+    rng = np.random.default_rng(14)
+    n, m = {"sinks": (1024, 1 << 20), "hot": (1024, 1 << 20),
+            "players": (1 << 21, 1 << 20)}[shape]
+    rows = rng.integers(0, 256, m).astype(np.int32) if shape == "sinks" \
+        else np.full(m, 3, np.int32) if shape == "hot" \
+        else np.arange(m, dtype=np.int32)
+    r_d = torch.from_numpy(rows).to(cuda_device)
+    col = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    tick = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    scatter.row_scatter(col, r_d, tick, "max")  # load the module first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        scatter.row_scatter(col, r_d, tick, "max")
+    want = torch.zeros_like(col)
+    for t in (5, 11, 4):
+        tick.fill_(t)
+        graph.replay()
+        _build.note_replay({"row_scatter": 1})
+        scatter.row_scatter_plain(want, r_d, t, "max")
+        torch.cuda.synchronize()
+        assert torch.equal(col, want), t
+    assert int(col.max()) == 11
+
+
 # -- CUDA graphs over the ctypes-launched kernels ------------------------------
 
 def test_graph_replays_a_ctypes_kernel(cuda_device):
@@ -1099,7 +1345,7 @@ def test_wide_presence_window_on_card_matches_cpu(cuda_device):
     assert np.all(np.abs(g["total_score"] - c["total_score"]) <= tol)
 
 
-# -- the grain lifecycle and the timers plane (K12–K15) ------------------------
+# -- the grain lifecycle and the timers plane (K12–K15) -----------------------
 
 @pytest.mark.parametrize("cutoff", [-2**31 + 1, 0, 37, 2**31 - 1])
 def test_idle_mask_matches_plain(cuda_device, cutoff):
