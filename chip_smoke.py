@@ -897,6 +897,49 @@ def check_kernels(dev, timer, card: str):
                                                 grow_d),
                   library_count))
 
+    # -- K5 hist_count_many: a fused tick's counts in one launch of K5 -------
+    # the Presence tick's three (the heartbeats' and the game updates'
+    # applied lanes into the ledger, the emit's delivered lanes into the
+    # totals), then 1 to 8 counts with an empty one, lengths below a
+    # 16-lane group, bases at odd offsets and rows off their alignment
+    totals_d = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    emask_d = grow_d >= 0
+    tick = [(hist_d, 9, 0, valid_d, None), (totals_d, 0, 1, emask_d, None),
+            (hist_d, 3, 0, emask_d, None)]
+    odd = [(hist_d, k, k % 16, base_adv[k:k + n], rows_adv[1:1 + n]
+            if k % 2 else None)
+           for k, n in enumerate((m - 9, 0, 5, 16, 17, 1, 4099, 70_001))]
+    for entries, what in ((tick, "the Presence tick"),
+                          (odd, "eight odd counts"), (odd[:1], "one")):
+        h0 = t(rng.integers(0, 99, (64, 16)).astype(np.int32))
+        t0 = t(rng.integers(0, 99, (1, 2)).astype(np.int32))
+        ha, ta, hb, tb = h0.clone(), t0.clone(), h0.clone(), t0.clone()
+        hist.hist_count_many([(ha if h is hist_d else ta, *e)
+                              for h, *e in entries])
+        hist.hist_count_many_plain([(hb if h is hist_d else tb, *e)
+                                    for h, *e in entries])
+        require(torch.equal(ha, hb) and torch.equal(ta, tb),
+                f"hist_count_many != plain ({what})")
+
+    tick_cells = [torch.tensor([s_ * h.shape[1] + b_], device=dev)
+                  for h, s_, b_, _m, _r in tick]
+
+    def library_tick():
+        for (h, _s, _b, mk, _r), c in zip(tick, tick_cells):
+            h.view(-1).index_add_(0, c, mk.sum(dtype=torch.int32).view(1))
+
+    tick_ms = measure(timer, lambda: hist.hist_count_many(tick),
+                      lambda: hist.hist_count_many_plain(tick), library_tick)
+    results["hist_count"]["variants"] = [dict(
+        name="fused_tick", max_abs_err=0,
+        per="hist_count_many, one launch: a fused Presence tick's three "
+            f"counts (masks of {m} lanes); library: torch.sum + index_add_ "
+            "per count",
+        ms=tick_ms["ms"], host_ms=tick_ms["host_ms"],
+        plain_ms=tick_ms["plain_ms"], library_ms=tick_ms["library_ms"],
+        bound_ms=bound(m + 2 * m + 12)[0],
+        singles_ms=timer(lambda: [hist.hist_count(*e) for e in tick]))]
+
     # -- K6 miss_keys: the cold drain ----------------------------------------
     cold_rows = torch.full((m,), -1, dtype=torch.int32, device=dev)
     many = t(rng.permutation(8 * m)[:m].astype(np.int32))  # > MISS_BUF
@@ -4391,6 +4434,33 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _split_us(fn, calls: int = 10, tries: int = 3) -> dict:
+    """Device µs a call of each kernel ``fn`` launches, by kernel name, as
+    ``torch.profiler`` reads them over ``calls`` calls after a warm one;
+    a trace with no device time (the profiler drops one now and then) is
+    taken again, up to ``tries`` times, and {} means not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            us = _device_us(evt)
+            if us > 0:
+                name = evt.key.replace("(anonymous namespace)::", "") \
+                    .split("(")[0].split("<")[0].split("::")[-1].split()[-1]
+                out[name] = out.get(name, 0.0) + us / calls
+        if out:
+            break
+    return out
+
+
 def _traced_device_ms(fn) -> float:
     """Device time of everything ``fn`` enqueues (kernels and copies), by
     ``torch.profiler``."""
@@ -5420,6 +5490,19 @@ def check_exchange_kernels(dev, timer, card: str) -> dict:
         dropped = int(want[4][1])
         require((dropped > 0) == name.endswith("overflow"),
                 f"exchange_buckets ({name}): {dropped} lanes dropped")
+    # one hot destination: every valid lane bound for block n - 1 (the
+    # other chunks' lanes all cross to it, its own stay local)
+    hot = t(np.where(rows_np >= 0, (n - 1) * sc + rows_np % sc, -1)
+            .astype(np.int32))
+    for name, plan in (("hot legacy", dict(cap=cap)),
+                       ("hot per-dest", dict(caps=caps, R=R))):
+        got = kx.exchange_buckets(hot, mask, leaves, sc, L, n, **plan)
+        want = kx.exchange_buckets_plain(hot, mask, leaves, sc, L, n,
+                                         **plan)
+        require(torch.equal(got[0], want[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], want[1])) and all(
+            torch.equal(a, b) for a, b in zip(got[2:], want[2:])),
+            f"exchange_buckets ({name}) != plain")
     # timing: K23 probe and cap-0 at the path's lanes; K24 at the legacy
     # grant (the sweep's layout) with the path's two leaves (v, count)
     path_leaves = [leaves[0], t(np.ones(m, np.int32))]
@@ -5484,7 +5567,18 @@ def check_exchange_kernels(dev, timer, card: str) -> dict:
         perdest_ms=timer(lambda: kx.exchange_buckets(
             rows, mask, path_leaves, sc, L, n, caps=caps, R=R)),
         perdest_bound_ms=bound(m * 13 + n * (L + R) * 13 + m)[0])
+    # K24's launches apart (torch.profiler, device µs a call by kernel)
+    out["exchange_buckets"]["per"]["split_us"] = {
+        "legacy": _split_us(lambda: kx.exchange_buckets(
+            rows, mask, path_leaves, sc, L, n, cap=cap)),
+        "perdest": _split_us(lambda: kx.exchange_buckets(
+            rows, mask, path_leaves, sc, L, n, caps=caps, R=R))}
     c, b = out["exchange_classify"], out["exchange_buckets"]
+    for layout, split in b["per"]["split_us"].items():
+        print(f"kernel exchange_buckets {layout} split (device µs a call): "
+              + (", ".join(f"{k} {v:.2f}" for k, v in split.items())
+                 or "not measured (no device time in the traces)")
+              + f"; on {card}", flush=True)
     print(f"kernel exchange_classify: probe {c['ms']:.4f} ms on the device "
           f"(plain {c['plain_ms']:.4f}, composite {c['composite_ms']:.4f}, "
           f"bound {c['bound'][0]:.4f} by {c['bound'][1]}), cap-0 "
@@ -6040,7 +6134,7 @@ def main() -> int:
         [("resolve_wide", 16, results["resolve_wide"]["bound"][0]),
          ("row_scatter", 16, bound(m * 16)[0]),
          ("seg_sum", 32, bound(m * 8 + cap_wg * 4)[0]),
-         ("hist_count", 48, bound(m + 4)[0])]
+         ("hist_count", 16, bound(3 * (m + 4))[0])]
         + fold_bounds([(m, m), (m, WIDE_GAMES)],
                       [(caps["WidePresence"], m), (cap_wg, WIDE_GAMES)]),
         wide_out["fused"]["per_replay"], "wide")
@@ -6052,8 +6146,7 @@ def main() -> int:
          ("seg_sum", 16, bound(a * 8 + cap_a * 4)[0]),
          ("seg_sum", 32, bound(w * 8 + cap_a * 4)[0]),
          ("row_scatter", 16, bound(w * 8 + cap_a * 4)[0]),
-         ("hist_count", 16, bound(a + 4)[0]),
-         ("hist_count", 32, bound(w + 4)[0])]
+         ("hist_count", 16, bound(a + 2 * w + 12)[0])]
         + fold_bounds([(a, a), (w, a)], [(cap_a, a)]),
         chirper_out["fused"]["per_replay"], "chirper")
     r, caps = CHAT_ROOMS, streams["caps"]
@@ -6062,8 +6155,7 @@ def main() -> int:
     chat_bound = window_bound(
         [("seg_sum", 16, bound(r * 8 + cap_r * 4)[0]),
          ("row_scatter", 16, bound(r * 8 + cap_r * 4)[0]),
-         ("hist_count", 16, bound(r + 4)[0]),
-         ("hist_count", 32, bound(e + 4)[0]),
+         ("hist_count", 16, bound(r + 2 * e + 12)[0]),
          ("seg_pull", 48, bound(4 * e + 4 * (cap_u + 1) + 4 * cap_u)[0]),
          ("seg_pull", 16, bound(e + 4 * (cap_u + 1) + 8 * cap_u + 8)[0])]
         + fold_bounds([(r, r)], [(cap_r, r), (cap_u, CHAT_USERS)]),

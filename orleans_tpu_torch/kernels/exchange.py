@@ -28,8 +28,8 @@ below ``R``).  Every other cross lane is dropped (``dropped`` bool ``[m]``,
 input lane order).  Returns ``(rows [n W], leaves [n W, ...], mask [n W],
 dropped [m], stats)``, stats = (Σcross, Σdropped, Σvalid - Σdropped, max_s
 need, Σ_s need).  Every payload leaf — any trailing shape and type — moves
-in one call.  K24 is three CUDA launches (histogram, scan, write); its
-counter counts one per call.
+in one call.  K24 is three CUDA launches (histogram, scan, write with the
+fill of the empty bucket lanes); its counter counts one per call.
 
 The plain versions reproduce the JAX bodies step by step (a stable
 ``torch.argsort``, ``searchsorted`` and a scatter); a CPU tensor takes

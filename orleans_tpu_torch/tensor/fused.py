@@ -100,7 +100,7 @@ import numpy as np
 import torch
 
 from orleans_tpu_torch.kernels import _build
-from orleans_tpu_torch.kernels.hist import hist_count
+from orleans_tpu_torch.kernels.hist import hist_count_many
 from orleans_tpu_torch.kernels.scatter import _is_host_scalar
 from orleans_tpu_torch.tensor.attribution import fold_cms_dense, fold_counts
 from orleans_tpu_torch.tensor.engine import (
@@ -323,6 +323,7 @@ class FusedTickProgram:
         self._streams_on = False
         self._stream_sig: Optional[Tuple] = None
         self._discovering = False
+        self._counts: List[Tuple] = []
         # the cross-shard exchange: baked at build time like the ledger —
         # whether it runs, the sites it runs at with their (lanes in,
         # lanes out) and the plan signature; per source, the host packing
@@ -395,7 +396,8 @@ class FusedTickProgram:
         {"delta": {type: column}, "slots"} or None), all added into in
         place: K1/K2 add each resolve's misses into totals[0, 0], K5 the
         delivered lanes into totals[0, 1], round-cap spills into
-        totals[0, 0] and the applied lanes into hist[slot, 0]; K7 (K16 for
+        totals[0, 0] and the applied lanes into hist[slot, 0] (K5's counts
+        wait in ``self._counts`` for the tick's end); K7 (K16 for
         a pull-mode delivery) folds the applied rows into the type's delta
         column and the lanes into the attribution slot.  ``segments``
         marks a pull-mode delivery; ``host_keys`` is a static source's key
@@ -440,8 +442,8 @@ class FusedTickProgram:
         if hist is not None:
             # every applied lane completes in its own (virtual) tick:
             # delta 0, bucket 0
-            hist_count(hist, engine.ledger.slot_for(type_name, method), 0,
-                       mask)
+            self._count(hist, engine.ledger.slot_for(type_name, method), 0,
+                        mask)
         if attr is not None:
             delta = attr["delta"].get(type_name)
             if delta is None:
@@ -484,7 +486,7 @@ class FusedTickProgram:
         elif fan is not None:
             # a fan-out the round cap keeps from running would lose its
             # deliveries: count its source lanes as misses
-            hist_count(totals, 0, 0, mask)
+            self._count(totals, 0, 0, mask)
 
         route = engine._stream_routes.get((type_name, method)) \
             if self._streams_on else None
@@ -501,7 +503,7 @@ class FusedTickProgram:
                 if isinstance(gargs, dict) and "src_key" not in gargs:
                     gargs = {**gargs, "src_key": pull["src_key"]}
                 emask = mask.index_select(0, lane)
-                hist_count(totals, 0, 1, emask)
+                self._count(totals, 0, 1, emask)
                 states = self._apply_group(
                     states, route.type_name, route.method, pull["rows"],
                     gargs, emask, depth + 1, acc, segments=pull["offsets"])
@@ -521,14 +523,14 @@ class FusedTickProgram:
             # deliveries belong to the host path (the plane is off): its
             # source lanes count as misses, so verify() fails and the
             # unfused replay delivers them
-            hist_count(totals, 0, 0, mask)
+            self._count(totals, 0, 0, mask)
 
         if at_cap:
             # the unfused engine SPILLS round-cap emits to the next tick;
             # a window cannot, so they count as misses: verify() then
             # says the chain is too deep to fuse
             for _t, _m, _k, _a, emask in out_batches:
-                hist_count(totals, 0, 0, emask)
+                self._count(totals, 0, 0, emask)
             return states
 
         for dst_type, dst_method, ekeys, eargs, emask in out_batches:
@@ -539,13 +541,24 @@ class FusedTickProgram:
                 self._resolved.append(site)
             drows, _ = resolve_rows_on_device(dst_arena, ekeys, emask,
                                               misses=totals[0, 0])
-            hist_count(totals, 0, 1, emask)
+            self._count(totals, 0, 1, emask)
             states = self._apply_group(states, dst_type, dst_method, drows,
                                        eargs, drows >= 0, depth + 1, acc)
         return states
 
+    def _count(self, hist: torch.Tensor, slot: int, bucket: int,
+               mask: torch.Tensor) -> None:
+        """A K5 count of ``mask`` into ``hist[slot, bucket]``, held until
+        the tick's end (the list keeps its mask alive and unchanged: no
+        step of a tick writes a mask in place)."""
+        self._counts.append((hist, slot, bucket, mask, None))
+
     def _apply_all(self, states, statics: List[Dict[str, Any]],
                    per_tick: List[Dict[str, torch.Tensor]], acc):
+        """One tick: every source's group, then the tick's K5 counts in
+        one launch (``hist_count_many``; integer sums, so their order
+        leaves ``hist`` and the totals exact)."""
+        self._counts = []
         for i, src in enumerate(self.sources):
             al = self._align[i]
             args_i = {**statics[i], **(per_tick[i] if al is None else
@@ -561,6 +574,8 @@ class FusedTickProgram:
                 states, src.type_name, src.method, rows_i, args_i, mask_i, 1,
                 acc, host_keys=None if src.stacked_rows else src.keys,
                 aligned=al is not None)
+        counts, self._counts = self._counts, []
+        hist_count_many(counts)
         return states
 
     def _align_tree(self, i: int, tree: Dict[str, Any]) -> Dict[str, Any]:

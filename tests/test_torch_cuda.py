@@ -2169,6 +2169,174 @@ def test_exchange_buckets_matches_plain(cuda_device, layout, m, L):
     assert (dropped > 0) == layout.endswith("overflow")
 
 
+def _k24_same(got, want):
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a, b)
+
+
+def _k24_inputs(device, n, case, layout, offset=0):
+    """Lanes over ``n`` blocks of 97 rows with L = 3001 (no multiple of
+    the 1024-lane tile, chunks at every 4-byte phase), 17 lanes short of n
+    chunks; leaves of 1, 2, 12 and 16 bytes a lane; every tensor a view
+    ``offset`` elements into a larger one (4 bytes off for the rows)."""
+    L, sc = 3001, 97
+    m = n * L - 17
+    rng = np.random.default_rng(n * 7 + len(case))
+    chunk = np.minimum(np.arange(m) // L, n - 1)
+    dest = np.where(rng.random(m) < 0.6,
+                    (chunk + rng.integers(1, max(n, 2), m)) % n, chunk)
+    if case == "one_dest":
+        dest[:] = n - 1
+    rows = (dest * sc + rng.integers(0, sc, m)).astype(np.int32)
+    rows[rng.random(m) < 0.04] = -1
+    mask = rng.random(m) < 0.95
+
+    def view(a):
+        t = torch.from_numpy(np.concatenate(
+            [np.zeros((offset, *a.shape[1:]), a.dtype), a])).to(device)
+        return t[offset:]
+
+    leaves = [view(rng.integers(0, 255, m).astype(np.uint8)),
+              view(rng.integers(-9, 9, m).astype(np.int16)),
+              view(rng.integers(0, 9, (m, 3)).astype(np.int32)),
+              view(rng.integers(-2**62, 2**62, (m, 2), dtype=np.int64))]
+    per = max(1, L // max(n, 1))
+    cap = {"spread": per + 5, "one_dest": L, "all_dropped": 0,
+           "cap1": 1}[case]
+    if layout == "legacy":
+        plan = dict(cap=max(cap, 1)) if case != "all_dropped" else \
+            dict(cap=1)
+    else:
+        plan = dict(caps=[cap] * n, R=max(1, n * cap // 2))
+    if case == "all_dropped" and layout == "legacy":
+        mask[:] = mask & (dest != chunk)  # every valid lane crosses
+    return view(rows), view(mask), leaves, sc, L, n, plan
+
+
+@pytest.mark.parametrize("layout", ["legacy", "perdest"])
+@pytest.mark.parametrize("case", ["spread", "one_dest", "all_dropped",
+                                  "cap1"])
+@pytest.mark.parametrize("n", [1, 2, 8, 64])
+def test_exchange_buckets_shapes_match_plain(cuda_device, n, case, layout):
+    """K24 bit for bit at 1, 2, 8 (the ballot path) and 64 blocks (the
+    match path): L off the tile, every lane bound for one destination,
+    everything dropped (caps 0, or cap 1 with every lane crossing), cap 1,
+    leaves of 1, 2, 12 and 16 bytes."""
+    from orleans_tpu_torch.kernels import exchange as kx
+
+    rows, mask, leaves, sc, L, n, plan = _k24_inputs(cuda_device, n, case,
+                                                     layout)
+    got = kx.exchange_buckets(rows, mask, leaves, sc, L, n, **plan)
+    want = kx.exchange_buckets_plain(rows, mask, leaves, sc, L, n, **plan)
+    _k24_same(got, want)
+    if case == "all_dropped" and layout == "perdest":
+        assert int(want[4][1]) == int(want[4][0])
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("layout", ["legacy", "perdest"])
+def test_exchange_buckets_views_off_alignment(cuda_device, layout, offset):
+    """Every input a view ``offset`` elements into its storage (the rows
+    4 or 12 bytes off a 16-byte line): the kernel's scalar paths."""
+    from orleans_tpu_torch.kernels import exchange as kx
+
+    rows, mask, leaves, sc, L, n, plan = _k24_inputs(
+        cuda_device, 8, "spread", layout, offset=offset)
+    assert rows.data_ptr() % 16 != 0
+    got = kx.exchange_buckets(rows, mask, leaves, sc, L, n, **plan)
+    want = kx.exchange_buckets_plain(rows, mask, leaves, sc, L, n, **plan)
+    _k24_same(got, want)
+
+
+@pytest.mark.parametrize("layout", ["legacy", "perdest"])
+def test_exchange_buckets_graph_replay(cuda_device, layout):
+    """K24 captured into a CUDA graph and replayed on new lanes written
+    into its inputs: the replay equals the plain version on them."""
+    from orleans_tpu_torch.kernels import exchange as kx
+
+    rows, mask, leaves, sc, L, n, plan = _k24_inputs(cuda_device, 8,
+                                                     "spread", layout)
+    rows, mask = rows.clone(), mask.clone()
+    leaves = [x.clone() for x in leaves]
+    kx.exchange_buckets(rows, mask, leaves, sc, L, n, **plan)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kx.exchange_buckets(rows, mask, leaves, sc, L, n, **plan)
+    r2, m2, l2, *_ = _k24_inputs(cuda_device, 8, "one_dest", layout)
+    rows.copy_(r2)
+    mask.copy_(m2)
+    for x, y in zip(leaves, l2):
+        x.copy_(y)
+    graph.replay()
+    want = kx.exchange_buckets_plain(rows, mask, leaves, sc, L, n, **plan)
+    _k24_same(out, want)
+
+
+def _count_entries(device, ms, seed):
+    """One count a length of ``ms``, base and rows views at odd offsets
+    (base 1 to 15 bytes, rows 4 bytes off), into two histograms."""
+    rng = np.random.default_rng(seed)
+    ha = torch.from_numpy(rng.integers(0, 9, (16, 8)).astype(
+        np.int32)).to(device)
+    hb = torch.zeros((1, 2), dtype=torch.int32, device=device)
+    entries = []
+    for k, m in enumerate(ms):
+        off = k % 16
+        base = torch.from_numpy(rng.random(m + off) < 0.7).to(device)[off:]
+        rows = torch.from_numpy(rng.integers(-5, 50, m + 1).astype(
+            np.int32)).to(device)[k % 2:k % 2 + m]
+        h, slot, bucket = (ha, k % 16, k % 8) if k % 3 else (hb, 0, k % 2)
+        entries.append((h, slot, bucket, base, rows if k % 2 else None))
+    return ha, hb, entries
+
+
+@pytest.mark.parametrize("ms", [[1_000_000], [5, 0, 1_000_003],
+                                [17, 1, 15, 16, 4099, 0, 70_001, 3],
+                                [0], [300_001] * 8 + [9, 12]])
+def test_hist_count_many_matches_plain(cuda_device, ms):
+    """K5's multi-count: 1 to 10 entries (past 8 a second launch), empty
+    entries, lengths below a 16-lane group, bases at odd offsets, rows
+    off the mask's alignment; exactly the plain version's counts."""
+    from orleans_tpu_torch.kernels import hist
+
+    ha, hb, entries = _count_entries(cuda_device, ms, len(ms))
+    wa, wb = ha.clone(), hb.clone()
+    plain = [((wa if e[0] is ha else wb), *e[1:]) for e in entries]
+    hist.hist_count_many(entries)
+    hist.hist_count_many_plain(plain)
+    torch.cuda.synchronize()
+    assert torch.equal(ha, wa) and torch.equal(hb, wb)
+
+
+def test_hist_count_many_graph_replay(cuda_device):
+    """A tick's counts captured as one launch and replayed twice: each
+    cell gains twice its count."""
+    from orleans_tpu_torch.kernels import _build, hist
+
+    ha, hb, entries = _count_entries(cuda_device, [100_000, 7, 333], 3)
+    wa, wb = ha.clone(), hb.clone()
+    plain = [((wa if e[0] is ha else wb), *e[1:]) for e in entries]
+    hist.hist_count_many(entries)  # warm: the library and the wave
+    hist.hist_count_many_plain(plain)
+    torch.cuda.synchronize()
+    before = _build.captured_counts()["hist_count"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        hist.hist_count_many(entries)
+    assert _build.captured_counts()["hist_count"] == before + 1
+    graph.replay()
+    graph.replay()
+    hist.hist_count_many_plain(plain)
+    hist.hist_count_many_plain(plain)
+    torch.cuda.synchronize()
+    assert torch.equal(ha, wa) and torch.equal(hb, wb)
+
+
 @pytest.mark.parametrize("fused", [0, 4])
 def test_routing_sweep_on_card_matches_cpu(cuda_device, fused):
     """The routing load over 8 blocks at ratio 0.5 with the structured
