@@ -325,6 +325,17 @@ SOURCES = {
     "exchange_buckets": ("orleans_tpu_torch/csrc/exchange.cu",
                          "orleans_tpu/tensor/exchange.py:656"),
 }
+# K6 and K11 before their redesign for the H100 (the previous kernels:
+# K6 a table fill, a CAS per missing lane and a cooperative bitonic sort;
+# K11 a scan in three launches and a binary search per slot), by
+# probe_k6_k11.py on an NVIDIA H100 80GB HBM3 at 700.00 W (the mean of two
+# runs' medians of 25, L2 flushed), by (kernel, variant; None for the
+# main shape): printed beside this run's times at the same shapes, in the
+# readable lines only (the kernels line holds what this run measured)
+PREVIOUS_MS = {("miss_keys", None): 0.0776,
+               ("miss_keys", "cluster_inject"): 0.0604,
+               ("fanout_expand", None): 0.0640,
+               ("fanout_expand", "streams_push"): 0.0425}
 # the kernels each path must launch (launch counts zeroed before it, read
 # after it)
 PRESENCE_KERNELS = ("resolve_dense", "resolve_sorted", "row_scatter",
@@ -940,14 +951,17 @@ def check_kernels(dev, timer, card: str):
         bound_ms=bound(m + 2 * m + 12)[0],
         singles_ms=timer(lambda: [hist.hist_count(*e) for e in tick]))]
 
-    # -- K6 miss_keys: the cold drain ----------------------------------------
+    # -- K6 miss_keys: the cold drain and the cluster inject ------------------
     cold_rows = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    # a 2-silo cluster's inject: the remote silo's games (the odd ones) miss
+    cluster_rows = t(np.where(games % 2 == 1, -1, games).astype(np.int32))
     many = t(rng.permutation(8 * m)[:m].astype(np.int32))  # > MISS_BUF
     dup = torch.full((m,), 41, dtype=torch.int32, device=dev)
     odd_keys, odd_valid = adversarial_keys(4 * GAMES)
     odd_rows = t(np.where(rng.random(m) < 0.5, -1, 3).astype(np.int32))
     for keys, rows, valid, what in (
             (games_d, cold_rows, valid_d, "cold tick (main path)"),
+            (games_d, cluster_rows, valid_d, "cluster inject"),
             (many, cold_rows, valid_d, f"{m} unique misses > {MISS_BUF}"),
             (dup, odd_rows, valid_d, "all-duplicate keys"),
             (odd_keys, odd_rows, odd_valid, "sentinel/negative/hit lanes")):
@@ -956,21 +970,30 @@ def check_kernels(dev, timer, card: str):
             b = miss.miss_keys_plain(keys, rows, valid, miss_buf)
             require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
                     f"miss_keys != plain ({what}, miss_buf {miss_buf})")
+
+    def k6_times(rows):
+        return measure(
+            timer, lambda: miss.miss_keys(games_d, rows, valid_d, MISS_BUF),
+            lambda: miss.miss_keys_plain(games_d, rows, valid_d, MISS_BUF),
+            lambda: torch.unique(torch.where((rows < 0) & valid_d, games_d,
+                                             SENTINEL), sorted=True))
+
+    k6_bound = bound(m * (4 + 4 + 1) + m + MISS_BUF * 4)
     results["miss_keys"] = dict(
         max_abs_err=0,
         library="torch.unique (sorted) of the masked keys",
-        bound=bound(m * (4 + 4 + 1) + m + MISS_BUF * 4),
-        per="one launch of the chain (four kernels: init, mark + hash "
-            "dedupe, one cooperative bitonic sort of the unique misses "
-            "padded to a power of two, emit)",
-        **measure(timer,
-                  lambda: miss.miss_keys(games_d, cold_rows, valid_d,
-                                         MISS_BUF),
-                  lambda: miss.miss_keys_plain(games_d, cold_rows, valid_d,
-                                               MISS_BUF),
-                  lambda: torch.unique(torch.where(
-                      (cold_rows < 0) & valid_d, games_d, SENTINEL),
-                      sorted=True)))
+        bound=k6_bound,
+        per="one launch of the chain (three kernels: the mark with warp "
+            "leaders over a pooled table, a cooperative sort whose path the "
+            "count of unique keys chooses on the device, the emit that "
+            "clears the table's used slots), at the cold tick",
+        **k6_times(cold_rows))
+    cluster_ms = k6_times(cluster_rows)
+    results["miss_keys"]["variants"] = [dict(
+        name="cluster_inject", max_abs_err=0,
+        per=f"{m} lanes over {GAMES} games, the remote silo's half missing "
+            f"({int((games % 2 == 1).sum())} lanes)",
+        bound_ms=k6_bound[0], **cluster_ms)]
 
     for name, r in results.items():
         if not isinstance(r, dict):
@@ -988,14 +1011,27 @@ def check_kernels(dev, timer, card: str):
         elif "fill_ms" in r:
             print(f"  {name}: its zero fills {r['fill_ms']:.4f} ms of it; "
                   f"path {r['path']}", flush=True)
-        for v in r.get("variants", []):
-            print(f"  {name} {v['name']}: {v['ms']:.4f} ms, host "
-                  f"{v['host_ms']:.4f} (plain "
-                  f"{v['plain_ms']:.4f}, library {v['library_ms']:.4f}, "
-                  f"bound {v['bound_ms']:.4f})"
-                  + (f" path {v['path']}" if "path" in v else ""),
-                  flush=True)
+        print_variants(name, r, card)
     return results
+
+
+def print_variants(name: str, r: dict, card: str) -> None:
+    """A kernel's variants, one line each, and where the kernel was
+    redesigned, its previous time (``PREVIOUS_MS``) beside this run's at
+    each shape."""
+    if (name, None) in PREVIOUS_MS:
+        print(f"  {name}: previous kernel {PREVIOUS_MS[name, None]:.4f} ms "
+              f"-> {r['ms']:.4f} ms on {card}", flush=True)
+    for v in r.get("variants", []):
+        previous = PREVIOUS_MS.get((name, v["name"]))
+        print(f"  {name} {v['name']}: {v['ms']:.4f} ms, host "
+              f"{v['host_ms']:.4f} (plain "
+              f"{v['plain_ms']:.4f}, library {v['library_ms']:.4f}, "
+              f"bound {v['bound_ms']:.4f})"
+              + (f" path {v['path']}" if "path" in v else "")
+              + (f"; previous kernel {previous:.4f} ms"
+                 if previous is not None else ""),
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2088,6 +2124,20 @@ def chirper_graph():
     return graph
 
 
+def chat_push_csr(dev) -> tuple:
+    """The streams plane's push CSR (``DeviceSubscriptions.push_csr``: stream
+    keys, offsets, subscriber keys padded to a multiple of 256 with the
+    sentinel) of the chat layout, 4,096 rooms over 1,000,000 users at 1.5
+    memberships: the shape of its push path through K11."""
+    from orleans_tpu_torch.samples.streams import build_membership
+    from orleans_tpu_torch.tensor.streams_plane import DeviceSubscriptions
+
+    subs = DeviceSubscriptions(None, "ChatUserGrain", "receive")
+    subs.subscribe_many(*build_membership(CHAT_ROOMS, CHAT_USERS, CHAT_MEAN,
+                                          seed=0))
+    return subs.push_csr(dev)
+
+
 def check_new_kernels(dev, timer, card: str, wide: dict, graph: dict):
     """K10 and K11 against their plain versions on the card: at the main
     paths' shapes and on adversarial inputs; each timed beside its bound,
@@ -2181,8 +2231,6 @@ def check_new_kernels(dev, timer, card: str, wide: dict, graph: dict):
     # -- K11 fanout_expand: the main path's publish round ---------------------
     fan = graph["fan"]
     csr = fan.csr(dev)
-    width = csr[2].shape[0]
-    n_src = csr[0].shape[0]
     src_d = torch.arange(ACCOUNTS, dtype=torch.int32, device=dev)
     ones_d = torch.ones(ACCOUNTS, dtype=torch.bool, device=dev)
     out = kfan.fanout_expand(*csr, src_d, ones_d)
@@ -2192,42 +2240,75 @@ def check_new_kernels(dev, timer, card: str, wide: dict, graph: dict):
     require(int(out[3]) == n_edges and int(out[5]) == 0
             and int(out[2].sum()) == n_edges,
             f"fanout_expand: total {int(out[3])} != {n_edges} edges")
-    # an empty graph, and a round whose duplicate sources overflow the width
+    # an empty graph, a round whose duplicate sources overflow the width, and
+    # a round whose int32 scan wraps (offs not monotone: the per-slot search)
     top = int(np.argmax(np.bincount(graph["src"], minlength=ACCOUNTS)))
     dup = torch.cat([src_d, torch.full((40,), top, dtype=torch.int32,
                                        device=dev)])
     dup_valid = torch.ones(dup.shape[0], dtype=torch.bool, device=dev)
     empty = DeviceFanout(budget=1 << 12).csr(dev)
+    wrap_csr = (t(np.array([3, 8, 11, 20], np.int32)),
+                t(np.array([0, 5, 2**30 + 5, 2**31 - 9, 2**31 - 2],
+                           np.int32)),
+                t(rng.integers(0, 1000, 1 << 16).astype(np.int32)))
+    wrap_src = t(np.array([3, 8, 8, 20, 11, 8, 3, 8, 99, 11] * 500,
+                          np.int32))
+    wrap_valid = t(rng.random(wrap_src.shape[0]) < 0.9)
     for args, what in (((*csr, dup, dup_valid), "overflowing round"),
-                       ((*empty, src_d, ones_d), "empty graph")):
+                       ((*empty, src_d, ones_d), "empty graph"),
+                       ((*wrap_csr, wrap_src, wrap_valid), "wrapping scan")):
         got = kfan.fanout_expand(*args)
         require(same(got, kfan.fanout_expand_plain(*args)),
                 f"fanout_expand != plain ({what})")
     require(int(kfan.fanout_expand(*csr, dup, dup_valid)[5]) > 0,
             "the overflowing round dropped no lane")
-    deg = np.zeros(ACCOUNTS, np.int64)
-    np.add.at(deg, np.asarray(fan._csr_host[0], np.int64),
-              np.diff(fan._csr_host[1]))
-    deg_d = t(deg)
+
+    def k11_times(csr_, src, valid):
+        keys, offsets, dst = csr_
+        n, width, lanes = keys.shape[0], dst.shape[0], src.shape[0]
+        idx = torch.searchsorted(keys, src).clamp_(max=n - 1)
+        deg = torch.where((keys[idx] == src) & valid,
+                          offsets[idx + 1] - offsets[idx], 0).long()
+        total = int(deg.sum())
+        lane_ids = torch.arange(lanes, device=dev)
+        return dict(
+            bound=bound(8 * n + 4 + 13 * width + 6 * lanes + 8,
+                        int_ops=2 * lanes * math.ceil(math.log2(n + 1))
+                        + 2 * width * math.ceil(math.log2(lanes + 1))),
+            **measure(timer,
+                      lambda: kfan.fanout_expand(*csr_, src, valid),
+                      lambda: kfan.fanout_expand_plain(*csr_, src, valid),
+                      lambda: torch.repeat_interleave(
+                          lane_ids, deg, output_size=total)))
+
     results["fanout_expand"] = dict(
         max_abs_err=0,
         library="torch.repeat_interleave(deg, output_size=edges) "
                 "(src_index only)",
-        bound=bound(8 * n_src + 4 + 13 * width + 6 * ACCOUNTS + 8,
-                    int_ops=2 * ACCOUNTS * math.ceil(math.log2(n_src + 1))
-                    + 2 * width * math.ceil(math.log2(ACCOUNTS + 1))),
-        **measure(timer,
-                  lambda: kfan.fanout_expand(*csr, src_d, ones_d),
-                  lambda: kfan.fanout_expand_plain(*csr, src_d, ones_d),
-                  lambda: torch.repeat_interleave(
-                      torch.arange(ACCOUNTS, device=dev), deg_d,
-                      output_size=n_edges)))
+        per="one launch (two kernels: the lane pass, a scan with decoupled "
+            "look-back; the slot pass from each slot tile's first owner, or "
+            "the per-slot search when the scan wraps), at the Chirper shape",
+        **k11_times(csr, src_d, ones_d))
+    # the streams plane's push path: every chat room publishes
+    push = chat_push_csr(dev)
+    push_src = push[0].clone()
+    push_valid = torch.ones(push_src.shape[0], dtype=torch.bool, device=dev)
+    require(same(kfan.fanout_expand(*push, push_src, push_valid),
+                 kfan.fanout_expand_plain(*push, push_src, push_valid)),
+            "fanout_expand != plain (streams push)")
+    push_t = k11_times(push, push_src, push_valid)
+    results["fanout_expand"]["variants"] = [dict(
+        name="streams_push", max_abs_err=0,
+        per=f"{push_src.shape[0]} rooms publishing through the chat push "
+            f"CSR ({int(push[1][-1])} edges, width {push[2].shape[0]})",
+        bound_ms=push_t.pop("bound")[0], **push_t)]
     for name in ("resolve_wide", "fanout_expand"):
         v = results[name]
         print(f"kernel {name}: {v['ms']:.4f} ms on the device, host "
               f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
               f"{v['library_ms']:.4f}, bound {v['bound'][0]:.4f} by "
               f"{v['bound'][1]}); on {card}", flush=True)
+        print_variants(name, v, card)
     return results
 
 

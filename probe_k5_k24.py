@@ -174,28 +174,12 @@ def probe_k5(dev, timer) -> dict:
     return out
 
 
-def _traced_by_name(fn, calls: int = SPLIT_CALLS) -> dict:
-    """Device µs a call of every CUDA kernel ``fn`` launches, by name, as
-    ``torch.profiler`` reads them over ``calls`` calls after a warm one."""
-    from torch.profiler import ProfilerActivity, profile
+def _traced_by_name(fn) -> dict:
+    """Device µs a call of every CUDA kernel ``fn`` launches, by name
+    (``chip_smoke._split_us`` over ``SPLIT_CALLS`` calls)."""
+    import chip_smoke as cs
 
-    import trace_hot_grain
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        us = trace_hot_grain._device_us(evt)
-        if us > 0:
-            name = evt.key.replace("(anonymous namespace)::", "") \
-                .split("(")[0].split("<")[0].split("::")[-1].split()[-1]
-            out[name] = out.get(name, 0.0) + us / calls
-    return out
+    return cs._split_us(fn, SPLIT_CALLS)
 
 
 def probe_split(dev) -> dict:

@@ -304,6 +304,55 @@ def test_miss_keys_matches_plain(cuda_device, kind):
         assert torch.equal(got_missing, want_missing), miss_buf
 
 
+def _miss_redesign_case(kind, rng):
+    """Lanes for K6's device-chosen sort paths and its pooled table."""
+    if kind == "cold_tick":  # every lane missing over 10,000 games
+        keys = rng.integers(0, 10_000, 1_000_000)
+        rows = np.full(len(keys), -1)
+    elif kind == "radix":  # 100,000 unique misses, negative and extreme
+        keys = rng.permutation(1 << 22)[:100_000] - (1 << 21)
+        keys[:3] = [-(2**31), -1, KEY_SENTINEL - 1]
+        rows = np.full(len(keys), -1)
+    elif kind == "tile_edge":  # exactly the tile path's limit, 16 tiles
+        keys = rng.permutation(1 << 20)[:16_384] - 5
+        rows = np.full(len(keys), -1)
+    elif kind == "one_key":
+        keys = np.full(7, -9)
+        rows = np.full(7, -1)
+    else:  # "cluster": the remote half of 10,000 games missing
+        keys = rng.integers(0, 10_000, 1_000_000)
+        rows = np.where(keys % 2 == 1, -1, keys)
+    valid = rng.random(len(keys)) < 0.95
+    return keys.astype(np.int32), rows.astype(np.int32), valid
+
+
+@pytest.mark.parametrize("kind", ["cold_tick", "radix", "tile_edge",
+                                  "one_key", "cluster"])
+def test_miss_keys_sort_paths_and_clean_pool(cuda_device, kind):
+    """K6's sort chosen on the device by the count of unique keys (tiles
+    up to 16,384, the radix sort above it) against the plain version, twice
+    in a row and then on other lanes: each launch leaves the pooled table
+    all sentinel and its count 0."""
+    from orleans_tpu_torch.kernels import miss
+
+    rng = np.random.default_rng(len(kind))
+    for round_ in range(3):
+        keys, rows, valid = _miss_redesign_case(
+            kind if round_ < 2 else "one_key", rng)
+        args = [torch.from_numpy(a).to(cuda_device)
+                for a in (keys, rows, valid)]
+        for miss_buf in (1 << 17, 1000):
+            got = miss.miss_keys(*args, miss_buf)
+            want = miss.miss_keys_plain(*args, miss_buf)
+            assert torch.equal(got[0], want[0]), (kind, miss_buf)
+            assert torch.equal(got[1], want[1]), (kind, miss_buf)
+        torch.cuda.synchronize()
+        stream = torch.cuda.current_stream(cuda_device).cuda_stream
+        table, state = miss._POOLS[(args[0].device, stream)]
+        assert bool((table == KEY_SENTINEL).all()) and \
+            state.tolist() == [0, 0]
+
+
 def test_resolve_adds_into_a_given_counter(cuda_device):
     dense = torch.tensor([0, -1, 2], dtype=torch.int32, device=cuda_device)
     keys = torch.tensor([0, 1, 2, 5], dtype=torch.int32, device=cuda_device)
@@ -1258,6 +1307,94 @@ def test_fanout_expand_in_a_graph(cuda_device):
             assert torch.equal(g.cpu(), w)
         assert int(want[5]) == drops
     assert total.tolist() == [[2, 0]]
+
+
+def _fanout_redesign_case(kind, rng):
+    """(csr_keys, csr_offsets, csr_dst, src, valid) for K11's plans."""
+    if kind == "wrap":  # the int32 scan wraps: the per-slot search
+        keys = np.array([3, 8, 11, 20])
+        offsets = np.array([0, 5, 2**30 + 5, 2**31 - 9, 2**31 - 2])
+        dst = rng.integers(0, 1000, 50_000)
+        src = np.array([3, 8, 8, 20, 11, 8, 3, 8, 99, 11] * 300)
+    elif kind == "power_law_row":  # one source of 200,000 edges
+        deg = np.concatenate([[200_000], np.minimum(rng.zipf(1.6, 20_000),
+                                                    5_000)])
+        keys = np.sort(rng.choice(1 << 20, len(deg), replace=False))
+        offsets = np.concatenate([[0], np.cumsum(deg)])
+        dst = rng.integers(0, 1 << 20, int(offsets[-1]) + 999)
+        src = np.concatenate([keys[:1], rng.choice(keys, 60_000),
+                              rng.integers(0, 1 << 20, 9_000)])
+        rng.shuffle(src)
+    elif kind == "crowded_windows":  # most lanes without edges
+        keys = np.arange(0, 40_000, 2)
+        offsets = np.concatenate([[0], np.cumsum(rng.integers(1, 4,
+                                                              len(keys)))])
+        dst = rng.integers(0, 1000, int(offsets[-1]) + 5)
+        src = rng.integers(0, 40_000, 400_000)
+        src[rng.random(len(src)) < 0.98] = 1  # no such source
+    else:  # "unaligned_width": a width off the 4-slot groups, overflowing
+        keys = np.array([1, 2, 5])
+        offsets = np.array([0, 3000, 3001, 3500])
+        dst = rng.integers(0, 1000, 6_003)
+        src = np.array([1, 2, 1, 5, 1, 7, 2, 5] * 40)
+    return (keys.astype(np.int32), offsets.astype(np.int32),
+            dst.astype(np.int32), src.astype(np.int32),
+            rng.random(len(src)) < 0.95)
+
+
+@pytest.mark.parametrize("kind", ["wrap", "power_law_row",
+                                  "crowded_windows", "unaligned_width"])
+def test_fanout_expand_plans_match_plain(cuda_device, kind):
+    """K11's plans against the plain version: the wrapping scan (the
+    per-slot search chosen on the device), one source of 200,000 edges,
+    slot tiles whose owners spread over several windows, a width off the
+    16-byte groups; twice each, and the pooled look-back state is zero
+    after every launch."""
+    from orleans_tpu_torch.kernels import fanout as kfan
+
+    rng = np.random.default_rng(len(kind))
+    cpu = [torch.from_numpy(a) for a in _fanout_redesign_case(kind, rng)]
+    want = kfan.fanout_expand_plain(*cpu)
+    for _ in range(2):
+        got = kfan.fanout_expand(*(t.to(cuda_device) for t in cpu))
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dst", "src_index", "out_valid", "total",
+                               "src_dropped", "n_dropped"), got, want):
+            assert torch.equal(g.cpu(), w), (kind, name)
+        stream = torch.cuda.current_stream(cuda_device).cuda_stream
+        assert int(kfan._LOOKBACK[(got[0].device, stream)].abs().sum()) == 0
+
+
+def test_fanout_expand_replays_twice_with_a_clean_look_back(cuda_device):
+    """K11 captured into a CUDA graph at a shape of many lane tiles (the
+    look-back walks over several windows of 32): two replays on new source
+    lanes each equal the plain version, and an eager launch between and
+    after them still does (the graph's look-back words are its own)."""
+    from orleans_tpu_torch.kernels import fanout as kfan
+    from orleans_tpu_torch.samples.chirper import build_follow_graph
+
+    rng = np.random.default_rng(21)
+    fan = build_follow_graph(50_000, 10.0, seed=3)
+    csr = fan.csr(cuda_device)
+    cpu_csr = fan.csr(torch.device("cpu"))
+    m = 80_000
+    src = torch.zeros(m, dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(m, dtype=torch.bool, device=cuda_device)
+    kfan.fanout_expand(*csr, src, valid)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kfan.fanout_expand(*csr, src, valid)
+    for _ in range(2):
+        keys = rng.integers(0, 52_000, m).astype(np.int32)
+        src.copy_(torch.from_numpy(keys))
+        graph.replay()
+        eager = kfan.fanout_expand(*csr, src, valid)
+        torch.cuda.synchronize()
+        want = kfan.fanout_expand_plain(*cpu_csr, torch.from_numpy(keys),
+                                        torch.ones(m, dtype=torch.bool))
+        for g, e, w in zip(out[:5], eager[:5], want[:5]):
+            assert torch.equal(g.cpu(), w) and torch.equal(e.cpu(), w)
 
 
 def _chirper_autofused(device, fan, follow_after=None):
