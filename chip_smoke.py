@@ -1286,6 +1286,46 @@ def check_attr_kernels(dev, timer, card: str) -> dict:
                                           flags, km),
                   lambda: attr.attr_match_plain(rows_l, valid_l, grow,
                                                 valid, flags, km), None))
+    # 1 and 32 entries, every entry stale, and entries one word (rows) and
+    # one byte (valid) past a 16-byte boundary, as rows of a longer buffer
+    # are (the last entry differing in its last lane)
+    match_variants = []
+    for name, k_v in (("k1", 1), ("k32", 32), ("k16_all_stale", 16),
+                      ("k1_odd_offset", 1), ("k16_odd_offset", 16),
+                      ("k32_odd_offset", 32)):
+        if name.endswith("odd_offset"):
+            big_r = torch.cat([grow[:1], grow]).repeat(k_v).view(k_v, m + 1)
+            big_v = torch.cat([valid[:1], valid]).repeat(k_v).view(k_v,
+                                                                   m + 1)
+            rows_v = [big_r[e, 1:] for e in range(k_v)]
+            valid_v = [big_v[e, 1:] for e in range(k_v)]
+            rows_v[k_v - 1][m - 1] += 1
+        else:
+            rows_v = [grow.clone() for _ in range(k_v)]
+            valid_v = [valid.clone() for _ in range(k_v)]
+            if name == "k16_all_stale":
+                for e, r in enumerate(rows_v):
+                    r[(e * 65_537) % m] += 1
+        outs = []
+        for fn in (attr.attr_match, attr.attr_match_plain):
+            flags_v = torch.full((k_v,), 7, dtype=torch.int32, device=dev)
+            km_v = zeros(1)
+            fn(rows_v, valid_v, grow, valid, flags_v, km_v)
+            outs.append((flags_v.tolist(), int(km_v[0])))
+        want_km = {"k1": 1, "k32": 32, "k16_all_stale": 0}.get(name, k_v - 1)
+        require(outs[0] == outs[1] and outs[0][1] == want_km,
+                f"attr_match != plain ({name}): {outs}")
+        flags_v, km_v = zeros(k_v), zeros(1)
+        match_variants.append(dict(
+            name=name, max_abs_err=0,
+            per=f"{k_v} entries of {m} lanes",
+            bound_ms=bound((k_v + 1) * 5 * m + 4 * k_v + 4)[0],
+            **measure(timer,
+                      lambda a=(rows_v, valid_v, grow, valid, flags_v,
+                                km_v): attr.attr_match(*a),
+                      lambda a=(rows_v, valid_v, grow, valid, flags_v,
+                                km_v): attr.attr_match_plain(*a), None)))
+    results["attr_match"]["variants"] = match_variants
 
     # -- K9 attr_snapshot ----------------------------------------------------
     snap_p = torch.zeros(cap_p, dtype=torch.int32, device=dev)
@@ -1366,6 +1406,10 @@ def check_attr_kernels(dev, timer, card: str) -> dict:
               f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
               f"{v['library_ms']:.4f}, bound {v['bound_ms']:.4f})",
               flush=True)
+    for v in results["attr_match"]["variants"]:
+        print(f"  attr_match {v['name']}: {v['ms']:.4f} ms, host "
+              f"{v['host_ms']:.4f} (plain {v['plain_ms']:.4f}, library "
+              f"null, bound {v['bound_ms']:.4f})", flush=True)
     return results
 
 
@@ -2227,6 +2271,44 @@ def check_new_kernels(dev, timer, card: str, wide: dict, graph: dict):
                   lambda: resolve.resolve_wide_plain(*mirror, hi_d, lo_d,
                                                      valid_d),
                   library_wide))
+    # the search's other plans: a mirror the tree holds whole (2,048 rows,
+    # 1,500 keys) and one whose buckets of 128 lift in L2 (524,288 rows,
+    # 300,000 keys), each with 1M lanes of its live keys
+    wide_variants = []
+    for name, n_keys, rows_cap in (("whole_2048", 1_500, 2048),
+                                   ("lift_524288", 300_000, 1 << 19)):
+        keys = np.unique(rng.integers(0, 2**63 - 1, n_keys, np.int64))
+        v_arena = GrainArena(vector_type("WideGame"), dev, capacity=rows_cap)
+        v_arena.resolve_rows(keys)
+        v_mirror = v_arena.device_index_wide()
+        v_hi, v_lo = (t(w) for w in split_wide_keys(rng.choice(keys,
+                                                               PLAYERS)))
+        got = resolve.resolve_wide(*v_mirror, v_hi, v_lo, valid_d)
+        want = resolve.resolve_wide_plain(*v_mirror, v_hi, v_lo, valid_d)
+        require(same(got, want) and int(want[1]) == 0,
+                f"resolve_wide != plain ({name})")
+        v_h = resolve.mix32(v_hi, v_lo)
+
+        def library_v(m_=v_mirror, h_=v_h, n_=rows_cap):
+            idx = torch.searchsorted(m_[0], h_).clamp_(max=n_ - 1)
+            rows = m_[1].index_select(0, idx).clamp_(min=0)
+            return m_[2].index_select(0, rows), m_[3].index_select(0, rows)
+
+        v_steps = math.ceil(math.log2(rows_cap + 1))
+        wide_variants.append(dict(
+            name=name, max_abs_err=0,
+            per=f"{PLAYERS} lanes against a mirror of {rows_cap} rows "
+                f"({len(keys)} keys), plan {resolve.resolve_plan(rows_cap)}",
+            bound_ms=bound(4 * 4 * rows_cap + PLAYERS * (4 + 4 + 1 + 4) + 4,
+                           int_ops=PLAYERS * (2 * v_steps + 24))[0],
+            **measure(timer,
+                      lambda a=(*v_mirror, v_hi, v_lo, valid_d):
+                      resolve.resolve_wide(*a),
+                      lambda a=(*v_mirror, v_hi, v_lo, valid_d):
+                      resolve.resolve_wide_plain(*a),
+                      library_v)))
+        del v_arena, v_mirror
+    results["resolve_wide"]["variants"] = wide_variants
 
     # -- K11 fanout_expand: the main path's publish round ---------------------
     fan = graph["fan"]
@@ -2254,12 +2336,29 @@ def check_new_kernels(dev, timer, card: str, wide: dict, graph: dict):
     wrap_src = t(np.array([3, 8, 8, 20, 11, 8, 3, 8, 99, 11] * 500,
                           np.int32))
     wrap_valid = t(rng.random(wrap_src.shape[0]) < 0.9)
+    # scans that wrap back to a positive total: four lanes of a source of
+    # 2**30 edges then one of 5 (total 5, its slots valid and gathered),
+    # and five lanes of the source of 2**30 (total 2**30, past the width)
+    back_dst = t(rng.integers(0, 1000, 300).astype(np.int32))
+    back_valid = torch.ones(5, dtype=torch.bool, device=dev)
+    back = (t(np.array([3, 8], np.int32)),
+            t(np.array([0, 5, 2**30 + 5], np.int32)), back_dst,
+            t(np.array([8, 8, 8, 8, 3], np.int32)), back_valid)
+    back_past = (t(np.array([3, 8], np.int32)),
+                 t(np.array([0, 2**30, 2**30 + 5], np.int32)), back_dst,
+                 t(np.full(5, 3, np.int32)), back_valid)
     for args, what in (((*csr, dup, dup_valid), "overflowing round"),
                        ((*empty, src_d, ones_d), "empty graph"),
-                       ((*wrap_csr, wrap_src, wrap_valid), "wrapping scan")):
+                       ((*wrap_csr, wrap_src, wrap_valid), "wrapping scan"),
+                       (back, "scan wrapping back to 5"),
+                       (back_past, "scan wrapping back to 2**30")):
         got = kfan.fanout_expand(*args)
         require(same(got, kfan.fanout_expand_plain(*args)),
                 f"fanout_expand != plain ({what})")
+    got = kfan.fanout_expand(*back)
+    require(int(got[3]) == 5 and int(got[2].sum()) == 5
+            and torch.equal(got[0][:5], back_dst[:5]),
+            "fanout_expand: the scan wrapping back to 5 lost its slots")
     require(int(kfan.fanout_expand(*csr, dup, dup_valid)[5]) > 0,
             "the overflowing round dropped no lane")
 

@@ -51,8 +51,8 @@
 //     changes; it stores 16-byte groups and gathers csr_dst contiguously
 //     along an owner's run.  When the
 //     wrap bit is set (the reference's searchsorted on a non-monotone
-//     offs), the block takes the per-slot binary search over offs in
-//     global memory instead: the choice is made on the device, so a CUDA
+//     offs), the block takes the reference's own fixed-depth bisection
+//     per slot over offs in global memory instead: the choice is made on the device, so a CUDA
 //     graph holds one plan.  The slot pass also zeroes the look-back
 //     state the lane pass used, so the next launch finds it clean.
 //
@@ -305,7 +305,10 @@ fanout_lanes_kernel(const int32_t* __restrict__ csr_keys,
 }
 
 // the reference's answer for slot j when offs may not be monotone: the
-// upper bound of j by bisection (torch.searchsorted's), clipped to m - 1
+// reference's fixed-depth bisection for searchsorted(side="right") (JAX's
+// default method): ceil(log2(m + 1)) steps from (low, high) = (0, m), each
+// mid = (low + high) / 2 in uint32, going left where j < offs[mid]; the
+// answer is high, clipped to m - 1
 __device__ void slot_by_search(int64_t j64, const int32_t* __restrict__ offs,
                                int64_t m, const int32_t* __restrict__ start,
                                const int32_t* __restrict__ csr_dst,
@@ -314,12 +317,15 @@ __device__ void slot_by_search(int64_t j64, const int32_t* __restrict__ offs,
                                int32_t* __restrict__ src_index,
                                uint8_t* __restrict__ out_valid) {
   const int32_t j = static_cast<int32_t>(j64);
-  int64_t a = 0, b = m;
-  while (a < b) {
-    const int64_t mid = a + ((b - a) >> 1);
-    if (offs[mid] <= j) a = mid + 1; else b = mid;
+  const int n_levels = 64 - __clzll(static_cast<unsigned long long>(m));
+  uint32_t low = 0, high = static_cast<uint32_t>(m);
+  for (int l = 0; l < n_levels; ++l) {
+    const uint32_t mid = (low + high) >> 1;  // < m while low < high
+    const bool go_left = j < offs[mid < m ? mid : m - 1];
+    low = go_left ? low : mid;
+    high = go_left ? mid : high;
   }
-  const int64_t src = a < m - 1 ? a : m - 1;
+  const int64_t src = high < m - 1 ? high : m - 1;
   const int32_t before = src > 0 ? offs[src - 1] : 0;
   const int32_t e = static_cast<int32_t>(
       static_cast<uint32_t>(start[src]) + static_cast<uint32_t>(j)

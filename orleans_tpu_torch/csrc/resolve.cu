@@ -37,6 +37,7 @@
 // overlap their loads.  The miss count is summed per block and lands
 // with ONE atomicAdd per block.
 #include "common.cuh"
+#include "resolve_tree.cuh"
 
 namespace {
 
@@ -110,21 +111,14 @@ resolve_dense_kernel(DenseArgs a) {
 }
 
 // -- K2 ----------------------------------------------------------------------
-// The sorted mirror's search tree, in shared memory in Eytzinger (BFS)
-// order: node i has children 2i and 2i + 1, so level l of every lane's
-// descent reads the 2**l consecutive words [2**l, 2**(l+1)) and a warp's
-// random keys spread over the banks instead of all striking the one bank
-// that a sorted array's midpoints at power-of-two strides share.
-//
-// WHOLE: the tree holds the mirror itself (n <= 2**levels - 1, padded with
-// INT32_MAX), and the descent's leaf is the lower bound.  Otherwise the
-// tree holds the splitters sk[(j + 1) << log_s], and its leaf b is the
-// bucket [b << log_s, (b + 1) << log_s) that holds the lower bound; the
-// bucket is searched in global memory (L2) by lifting over sub-buckets of
-// 8 keys, then one 32-byte run of 8 keys loaded as two int4.
+// The sorted mirror's search tree (resolve_tree.cuh), its splitters the
+// first key of every bucket after the first (LAST = 0): the leaf b holds
+// the lower bound in (b << log_s, (b + 1) << log_s], searched in global
+// memory (L2) by lifting over sub-buckets of 8 keys, then one 32-byte run
+// of 8 keys loaded as two int4.
 constexpr int R_THREADS = 512;
 constexpr int R_LANES = 4;
-constexpr int32_t R_INF = 2147483647;
+constexpr int32_t R_INF = OT_TREE_INF;
 
 struct SortedArgs {
   const int32_t* sk;
@@ -185,15 +179,7 @@ __global__ void __launch_bounds__(R_THREADS)
 resolve_sorted_kernel(SortedArgs a) {
   extern __shared__ int32_t tree[];  // nodes 1 .. 2**levels - 1
   __shared__ int warp_sums[R_THREADS / 32];
-  const int size = (1 << a.levels) - 1;
-  for (int j = threadIdx.x; j < size; j += blockDim.x) {
-    // in-order element j sits at depth levels-1-t, index q of its level
-    const int64_t src = WHOLE ? j
-                              : (static_cast<int64_t>(j) + 1) << a.log_s;
-    const int t = __ffs(j + 1) - 1;
-    tree[(1 << (a.levels - 1 - t)) + ((j + 1) >> (t + 1))] =
-        src < a.n ? __ldg(a.sk + src) : R_INF;
-  }
+  ot_tree_fill(tree, a.levels, WHOLE, a.log_s, 0, a.sk, a.n);
   __syncthreads();
 
   int local = 0;
@@ -219,23 +205,9 @@ resolve_sorted_kernel(SortedArgs a) {
         v[j] = in && a.valid[base + j];
       }
     }
-    // the four descents interleaved: the same steps for every lane, no
-    // branch, four independent shared loads in flight a step
+    // the four descents interleaved
     int32_t node[R_LANES], upper[R_LANES];
-#pragma unroll
-    for (int j = 0; j < R_LANES; ++j) {
-      node[j] = 1;
-      upper[j] = R_INF;
-    }
-    for (int l = 0; l < a.levels; ++l) {
-#pragma unroll
-      for (int j = 0; j < R_LANES; ++j) {
-        const int32_t t = tree[node[j]];
-        const bool lt = t < k[j];
-        upper[j] = lt ? upper[j] : t;
-        node[j] = 2 * node[j] + lt;
-      }
-    }
+    ot_tree_descend<R_LANES>(tree, a.levels, k, node, upper);
     int32_t out[R_LANES];
 #pragma unroll
     for (int j = 0; j < R_LANES; ++j) {

@@ -112,6 +112,26 @@ def _empty(width: int, device: torch.device, n_dropped) -> Expansion:
             n_dropped)
 
 
+def _bisect_right(offs: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """The upper bound of each ``j`` in ``offs`` by the reference's
+    bisection (``jnp.searchsorted(side="right")``'s default method):
+    ``ceil(log2(m + 1))`` steps from ``(low, high) = (0, m)``, each
+    ``mid = (low + high) // 2`` (uint32 in the reference; no sum here
+    passes 2**32), going left where ``j < offs[mid]``; the answer is
+    ``high``.  On a monotone ``offs`` it is the upper bound; where the
+    int32 scan wrapped and ``offs`` is not monotone, it is the
+    reference's own answer, which another bisection need not give."""
+    m = offs.shape[0]
+    low = torch.zeros(j.shape, dtype=torch.int64, device=j.device)
+    high = torch.full(j.shape, m, dtype=torch.int64, device=j.device)
+    for _ in range(m.bit_length()):  # ceil(log2(m + 1))
+        mid = (low + high) // 2  # < m while low < high
+        go_left = j < offs[mid.clamp(max=m - 1)]
+        low = torch.where(go_left, low, mid)
+        high = torch.where(go_left, mid, high)
+    return high
+
+
 def fanout_expand_plain(csr_keys: torch.Tensor, csr_offsets: torch.Tensor,
                         csr_dst: torch.Tensor, src_keys: torch.Tensor,
                         valid: torch.Tensor, n_dropped=None) -> Expansion:
@@ -129,7 +149,7 @@ def fanout_expand_plain(csr_keys: torch.Tensor, csr_offsets: torch.Tensor,
     src_dropped = hit & (deg > 0) & (offs > width)
     count += src_dropped.sum(dtype=torch.int32)
     j = torch.arange(width, dtype=torch.int32, device=src_keys.device)
-    src = torch.searchsorted(offs, j, right=True).clamp_(0, m - 1)
+    src = _bisect_right(offs, j).clamp_(0, m - 1)
     before = torch.where(src > 0, offs[(src - 1).clamp(min=0)], 0)
     e = _wrap32(start[src].to(torch.int64) + (j - before).to(torch.int64))
     out_valid = (j < total) & (offs[src] <= width)

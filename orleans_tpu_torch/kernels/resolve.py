@@ -18,7 +18,9 @@ count adds into it instead of a fresh zeroed scalar: a fused window sums
 every tick's misses into its one device total that way.
 
 What bounds them on an H100 and what the kernels do about it is in the
-notes at the top of ``csrc/resolve.cu`` and ``csrc/resolve_wide.cu``.
+notes at the top of ``csrc/resolve.cu`` and ``csrc/resolve_wide.cu``; K2
+and K10 share their search tree (``csrc/resolve_tree.cuh``) and its plan
+(``resolve_plan``).
 """
 
 from __future__ import annotations
@@ -58,7 +60,10 @@ _SIGNATURES = {
                        ctypes.c_int, ctypes.c_int, _P),
 }
 _SIG_WIDE = {"resolve_wide": (_P, _P, ctypes.c_int32, _P, _P, ctypes.c_int32,
-                              _P, _P, _P, _P, _P, ctypes.c_int64, _P)}
+                              ctypes.c_int, _P, _P, _P, _P, _P,
+                              ctypes.c_int64,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, _P)}
 
 
 def _check_vector(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -181,14 +186,15 @@ SORTED_BLOCKS_PER_SM_LIFT = 1
 
 
 def resolve_plan(n: int) -> Tuple[bool, int, int, int]:
-    """K2's search plan for a mirror of ``n`` keys: ``(whole, levels,
-    log_s, blocks_per_sm)``.  A mirror of at most ``2**TREE_LEVELS - 1``
-    keys goes whole into the shared-memory tree of ``2**levels - 1``
-    nodes; a longer one leaves there its splitters ``sorted_keys[(j + 1)
-    * 2**log_s]``, the first key of each bucket of ``s = 2**log_s`` keys
-    after the first bucket, with ``s >= 8`` the least power of two that
-    needs at most ``2**TREE_LEVELS`` buckets; and the grid's blocks on
-    each SM."""
+    """K2's and K10's search plan for a mirror of ``n`` keys: ``(whole,
+    levels, log_s, blocks_per_sm)``.  A mirror of at most
+    ``2**TREE_LEVELS - 1`` keys goes whole into the shared-memory tree of
+    ``2**levels - 1`` nodes; a longer one leaves there one key of each
+    bucket of ``s = 2**log_s`` keys (K2 the first key of each bucket
+    after the first, ``sorted_keys[(j + 1) * s]``; K10 the last key of
+    each, ``sorted_h[(j + 1) * s - 1]``), with ``s >= 8`` the least power
+    of two that needs at most ``2**TREE_LEVELS`` buckets; and the grid's
+    blocks on each SM."""
     if n < 1:
         raise ValueError("an empty mirror has no plan")
     if n < 1 << TREE_LEVELS:
@@ -272,14 +278,33 @@ def _check_wide(sorted_h, rows_by_h, hi_col, lo_col, hi, lo, valid) -> None:
         _check_vector("hi", hi, torch.int32, lo.device)
         if hi.shape != lo.shape:
             raise ValueError(f"hi {tuple(hi.shape)} != lo {tuple(lo.shape)}")
-    for name, t in (("sorted_h", sorted_h), ("rows_by_h", rows_by_h),
-                    ("hi_col", hi_col), ("lo_col", lo_col)):
+    for name, t in (("sorted_h", sorted_h), ("rows_by_h", rows_by_h)):
         _check_vector(name, t, torch.int32, lo.device)
     if sorted_h.shape != rows_by_h.shape or sorted_h.shape[0] == 0:
         raise ValueError("sorted_h/rows_by_h must be equal, non-empty "
                          "vectors")
+    if _interleaved(hi_col, lo_col):
+        if hi_col.dtype != torch.int32 or hi_col.device != lo.device:
+            raise TypeError("hi_col/lo_col must be int32 on the keys' "
+                            "device")
+    else:
+        for name, t in (("hi_col", hi_col), ("lo_col", lo_col)):
+            _check_vector(name, t, torch.int32, lo.device)
     if hi_col.shape != lo_col.shape or hi_col.shape[0] == 0:
         raise ValueError("hi_col/lo_col must be equal, non-empty vectors")
+
+
+def _interleaved(hi_col: torch.Tensor, lo_col: torch.Tensor) -> bool:
+    """``hi_col`` and ``lo_col`` are the two columns of one ``[cap, 2]``
+    word array (``GrainArena.device_index_wide``'s layout): 1-D views of
+    stride 2, ``lo_col`` one word after ``hi_col``."""
+    return (isinstance(hi_col, torch.Tensor)
+            and isinstance(lo_col, torch.Tensor)
+            and hi_col.dim() == 1 and lo_col.dim() == 1
+            and hi_col.stride(0) == 2 and lo_col.stride(0) == 2
+            and hi_col.dtype == lo_col.dtype
+            and lo_col.data_ptr() == hi_col.data_ptr()
+            + hi_col.element_size())
 
 
 def resolve_wide_plain(sorted_h: torch.Tensor, rows_by_h: torch.Tensor,
@@ -330,11 +355,14 @@ def resolve_wide(sorted_h: torch.Tensor, rows_by_h: torch.Tensor,
     rows = torch.empty(m, dtype=torch.int32, device=lo.device)
     misses = _miss_counter(misses, lo)
     if m:
+        whole, levels, log_s, per_sm = resolve_plan(sorted_h.shape[0])
         _launch("resolve_wide", rows, sorted_h.data_ptr(),
                 rows_by_h.data_ptr(), sorted_h.shape[0], hi_col.data_ptr(),
                 lo_col.data_ptr(), hi_col.shape[0],
+                2 if _interleaved(hi_col, lo_col) else 1,
                 None if hi is None else hi.data_ptr(), lo.data_ptr(),
                 valid.data_ptr(), rows.data_ptr(), misses.data_ptr(), m,
-                source="resolve_wide", signatures=_SIG_WIDE)
+                int(whole), levels, log_s, per_sm, source="resolve_wide",
+                signatures=_SIG_WIDE)
         _build.note_launch(resolve_wide)
     return rows, misses

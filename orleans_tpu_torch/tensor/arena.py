@@ -402,7 +402,9 @@ class GrainArena:
         the 30-bit hashes of the live keys in ascending order (ties in key
         order) padded to capacity with 2**31 - 1, the row of each (padded
         with -1), and the two words of the key of every row (0 and -1 on
-        free rows).  Rebuilt after any activation or growth."""
+        free rows).  The two word columns are the halves of one ``[capacity,
+        2]`` array (views of stride 2), so K10 checks a candidate row with
+        one 8-byte load.  Rebuilt after any activation or growth."""
         if self._dirty:
             self._rebuild_index()
         if self._dev_wide_stale or self._dev_wide is None:
@@ -414,12 +416,14 @@ class GrainArena:
                 [h[order], np.full(pad, 2**31 - 1, np.int32)])
             rows_by_h = np.concatenate(
                 [self._sorted_rows[order], np.full(pad, -1, np.int32)])
-            hi_col = np.zeros(self.capacity, np.int32)
-            lo_col = np.full(self.capacity, -1, np.int32)
-            hi_col[self._sorted_rows] = hi
-            lo_col[self._sorted_rows] = lo
-            self._dev_wide = tuple(self._to_device(p) for p in
-                                   (sorted_h, rows_by_h, hi_col, lo_col))
+            words = np.empty((self.capacity, 2), np.int32)
+            words[:, 0], words[:, 1] = 0, -1
+            words[self._sorted_rows, 0] = hi
+            words[self._sorted_rows, 1] = lo
+            words_d = self._to_device(words)
+            self._dev_wide = (self._to_device(sorted_h),
+                              self._to_device(rows_by_h), words_d[:, 0],
+                              words_d[:, 1])
             self._dev_wide_stale = False
         return self._dev_wide
 

@@ -117,7 +117,8 @@ def test_trace_script_imports_nothing_of_jax():
 
 @pytest.mark.parametrize("script", ["probe_k9_k22.py", "probe_k2_k7.py",
                                     "probe_k4_k8.py", "probe_k1_k3.py",
-                                    "probe_k5_k24.py", "probe_k6_k11.py"])
+                                    "probe_k5_k24.py", "probe_k6_k11.py",
+                                    "probe_k10_k8.py"])
 def test_probe_scripts_import_nothing_of_jax(script):
     """The kernel probes run on the card beside the smoke, on the parent
     tree too: the standard library, torch, numpy, the port and the

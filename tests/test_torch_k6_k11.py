@@ -14,8 +14,9 @@ and held against the plain versions and the JAX functions
 * K11's slot pass: with offs monotone, each slot tile's windows of owner
   lanes from its first owner to the next tile's, each group of 4 slots
   owned by a search over the window and another where the owner changes;
-  under the wrap bit, the per-slot bisection (``torch.searchsorted``'s
-  answer on a non-monotone scan).
+  under the wrap bit, the per-slot bisection of JAX's
+  ``jnp.searchsorted`` (a fixed number of halvings from ``(0, m)``), whose
+  answer on a non-monotone scan is the reference's.
 * K6's mark: 4 lanes a thread 32 apart, a warp's missing lanes that share
   a key electing their lowest lane, the leader reading its slot before
   claiming an empty one (linear probing over the kernel's hash); blocks
@@ -166,15 +167,18 @@ def emulate_lane_pass(csr_keys, csr_offsets, src_keys, valid, width, rng,
 # -- K11: the slot pass --------------------------------------------------------
 
 def _slot_by_search(j, offs, start, csr_dst, width, total):
+    """One slot under the wrap bit: the reference's fixed-depth bisection
+    (``ceil(log2(m + 1))`` steps from ``(0, m)``, ``mid`` the floored
+    mean, left where ``j < offs[mid]``, the answer ``high``), clipped."""
     m = len(offs)
-    a, b = 0, m
-    while a < b:
-        mid = a + ((b - a) >> 1)
-        if offs[mid] <= j:
-            a = mid + 1
+    low, high = 0, m
+    for _ in range(m.bit_length()):
+        mid = (low + high) // 2
+        if j < offs[mid]:
+            high = mid
         else:
-            b = mid
-    src = min(a, m - 1)
+            low = mid
+    src = min(high, m - 1)
     before = offs[src - 1] if src > 0 else 0
     e = int(_wrap32(start[src] + j - before))
     ok = j < total and offs[src] <= width
@@ -342,18 +346,9 @@ def test_fanout_emulation_matches_plain(case):
 
 FANOUT_NAMES = ("dst", "src_index", "out_valid", "total", "src_dropped",
                 "n_dropped")
-#: an open fault: on a wrapping scan, src_index differs from JAX's
-WRAP_SRC_INDEX = pytest.mark.xfail(
-    strict=True,
-    reason="under a wrapping int32 scan offs is not monotone, and the "
-           "plain version's torch.searchsorted (which the kernel follows) "
-           "and JAX's jnp.searchsorted bisect it to different owners: "
-           "src_index differs on invalid slots")
 
 
-@pytest.mark.parametrize("case", [
-    "power_law_row", pytest.param("wrap", marks=WRAP_SRC_INDEX),
-    "overflow"])
+@pytest.mark.parametrize("case", ["power_law_row", "wrap", "overflow"])
 def test_fanout_emulation_matches_jax(case):
     """The emulation against JAX ``_expand_kernel`` (jitted on the CPU),
     six outputs exactly."""
@@ -366,28 +361,50 @@ def test_fanout_emulation_matches_jax(case):
                                       np.asarray(w, np.int64), err_msg=name)
 
 
-@pytest.mark.parametrize("case", ["graph", "witness"])
-def test_fanout_wrap_matches_jax_but_for_src_index(case):
-    """Under a wrapping scan every output but ``src_index`` equals JAX's:
-    the destinations, the valid flags, the total, the drop flags and
-    their count (``src_index`` is the open fault above, held against JAX
-    in ``test_fanout_emulation_matches_jax``).  The witness is a small
-    one: five lanes, a width of 300."""
+@pytest.mark.parametrize("case", ["graph", "witness", "wrap_back",
+                                  "wrap_back_past_width"])
+def test_fanout_wrap_matches_jax_src_index_included(case):
+    """Under a wrapping scan all six outputs equal JAX's, ``src_index``
+    included (the slot's owner by the reference's own bisection of a
+    non-monotone offs), through the emulation and the plain version.
+    The witness is a small one: five lanes, a width of 300.  The
+    wrap-back cases' scans wrap twice and end on a positive total: four
+    lanes of a source of 2**30 edges and one of 5 give offs 2**30,
+    -2**31, -2**30, 0, 5, so the last lane owns the 5 live slots, which
+    are valid and gather their destinations; five lanes of the source of
+    2**30 give offs 2**30, -2**31, -2**30, 0, 2**30 and a total of 2**30,
+    whose slots the bisection gives the last lane, past the width."""
+    dst = np.random.default_rng(5).integers(0, 1000, 300).astype(np.int32)
     if case == "graph":
         args = _fanout_graph("wrap", np.random.default_rng(11))
-    else:
+    elif case == "witness":
         args = (np.array([3, 8, 11, 20], np.int32),
                 np.array([0, 5, 2**30 + 5, 2**31 - 9, 2**31 - 2], np.int32),
                 np.arange(300, dtype=np.int32),
                 np.array([3, 20, 20, 11, 8], np.int32), np.ones(5, bool))
+    elif case == "wrap_back":
+        args = (np.array([3, 8], np.int32),
+                np.array([0, 5, 2**30 + 5], np.int32), dst,
+                np.array([8, 8, 8, 8, 3], np.int32), np.ones(5, bool))
+    else:
+        args = (np.array([3, 8], np.int32),
+                np.array([0, 2**30, 2**30 + 5], np.int32), dst,
+                np.full(5, 3, np.int32), np.ones(5, bool))
     got, lane, _ = emulate_fanout(*args)
     assert lane[5]  # the scan wrapped
+    plain = _plain_fanout(args)
     want = _expand_kernel(*(jnp.asarray(a) for a in args))
-    for name, g, w in zip(FANOUT_NAMES, got, want):
-        if name != "src_index":
-            np.testing.assert_array_equal(np.asarray(g, np.int64),
-                                          np.asarray(w, np.int64),
-                                          err_msg=name)
+    for name, g, p, w in zip(FANOUT_NAMES, got, plain, want):
+        w = np.asarray(w, np.int64)
+        np.testing.assert_array_equal(np.asarray(g, np.int64), w,
+                                      err_msg=f"emulation {name}")
+        np.testing.assert_array_equal(p, w, err_msg=f"plain {name}")
+    if case == "wrap_back":
+        assert int(want[3]) == 5
+        np.testing.assert_array_equal(np.asarray(want[0])[:5], dst[:5])
+        assert np.asarray(want[2]).sum() == 5
+    if case == "wrap_back_past_width":
+        assert int(want[3]) == 2**30 and not np.asarray(want[2]).any()
 
 
 @pytest.mark.parametrize("lane_tile", [32, 256])
