@@ -482,6 +482,30 @@ def bound(bytes_moved: float, int_ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def wide_bound(n_keys: int, lanes: int, narrow: bool = False):
+    """K10's bound: each live key's hash, row and two key words read once
+    (16 B: the padding and the free rows are not needed), each lane's
+    words, valid flag and row (13 B, 9 in narrow mode), the miss count;
+    and a search of ceil(log2(n_keys + 1)) steps a lane."""
+    steps = math.ceil(math.log2(n_keys + 1))
+    return bound(16 * n_keys + lanes * (9 if narrow else 13) + 4,
+                 int_ops=lanes * (2 * steps + 24))
+
+
+def match_stacks(plan_rows, plan_valid, k: int, odd: bool = False):
+    """K8's match inputs: ``k`` entries equal to the plan (rows, valid),
+    as clones, or with ``odd`` as rows of one longer buffer each, one word
+    (rows) and one byte (valid) past a 16-byte boundary."""
+    if not odd:
+        return ([plan_rows.clone() for _ in range(k)],
+                [plan_valid.clone() for _ in range(k)])
+    m = plan_rows.shape[0]
+    big_r = torch.cat([plan_rows[:1], plan_rows]).repeat(k).view(k, m + 1)
+    big_v = torch.cat([plan_valid[:1], plan_valid]).repeat(k).view(k, m + 1)
+    return ([big_r[e, 1:] for e in range(k)],
+            [big_v[e, 1:] for e in range(k)])
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -1264,8 +1288,7 @@ def check_attr_kernels(dev, timer, card: str) -> dict:
 
     # -- K8 attr_match: 16 stacked GameGrain entries, two of them stale ----
     k = 16
-    rows_l = [grow.clone() for _ in range(k)]
-    valid_l = [valid.clone() for _ in range(k)]
+    rows_l, valid_l = match_stacks(grow, valid, k)
     rows_l[3][12345] += 1
     valid_l[11][m - 1] = False
     outs = []
@@ -1293,19 +1316,13 @@ def check_attr_kernels(dev, timer, card: str) -> dict:
     for name, k_v in (("k1", 1), ("k32", 32), ("k16_all_stale", 16),
                       ("k1_odd_offset", 1), ("k16_odd_offset", 16),
                       ("k32_odd_offset", 32)):
+        rows_v, valid_v = match_stacks(grow, valid, k_v,
+                                       odd=name.endswith("odd_offset"))
         if name.endswith("odd_offset"):
-            big_r = torch.cat([grow[:1], grow]).repeat(k_v).view(k_v, m + 1)
-            big_v = torch.cat([valid[:1], valid]).repeat(k_v).view(k_v,
-                                                                   m + 1)
-            rows_v = [big_r[e, 1:] for e in range(k_v)]
-            valid_v = [big_v[e, 1:] for e in range(k_v)]
             rows_v[k_v - 1][m - 1] += 1
-        else:
-            rows_v = [grow.clone() for _ in range(k_v)]
-            valid_v = [valid.clone() for _ in range(k_v)]
-            if name == "k16_all_stale":
-                for e, r in enumerate(rows_v):
-                    r[(e * 65_537) % m] += 1
+        elif name == "k16_all_stale":
+            for e, r in enumerate(rows_v):
+                r[(e * 65_537) % m] += 1
         outs = []
         for fn in (attr.attr_match, attr.attr_match_plain):
             flags_v = torch.full((k_v,), 7, dtype=torch.int32, device=dev)
@@ -2147,6 +2164,28 @@ def wide_inputs():
                 hi=hi, lo=lo, scores=scores)
 
 
+def wide_variant_mirrors(dev, seed: int = 17) -> dict:
+    """K10's other search plans, each with ``PLAYERS`` lanes of its live
+    keys: a mirror the tree holds whole (2,048 rows, 1,500 keys) and one
+    whose buckets of 128 lift in L2 (524,288 rows, 300,000 keys).  Name ->
+    (live keys, ``device_index_wide``, hi, lo)."""
+    from orleans_tpu_torch.samples import presence_wide  # noqa: F401
+    from orleans_tpu_torch.tensor.arena import GrainArena, split_wide_keys
+    from orleans_tpu_torch.tensor.vector_grain import vector_type
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, n_keys, rows_cap in (("whole_2048", 1_500, 2048),
+                                   ("lift_524288", 300_000, 1 << 19)):
+        keys = np.unique(rng.integers(0, 2**63 - 1, n_keys, np.int64))
+        arena = GrainArena(vector_type("WideGame"), dev, capacity=rows_cap)
+        arena.resolve_rows(keys)
+        hi, lo = (torch.from_numpy(w).to(dev)
+                  for w in split_wide_keys(rng.choice(keys, PLAYERS)))
+        out[name] = (len(keys), arena.device_index_wide(), hi, lo)
+    return out
+
+
 def chirper_graph():
     """The Chirper follow graph, 200,000 accounts, mean 25 followers, Zipf
     1.6, seed 0, built once for every phase that uses it, with its edges
@@ -2251,7 +2290,6 @@ def check_new_kernels(dev, timer, card: str, wide: dict, graph: dict):
         require(torch.equal(got[0], want[0])
                 and int(counter[0]) == 11 + int(want[1]),
                 f"resolve_wide != plain ({what})")
-    steps = math.ceil(math.log2(cap + 1))
     h_d = resolve.mix32(hi_d, lo_d)
 
     def library_wide():
@@ -2264,50 +2302,39 @@ def check_new_kernels(dev, timer, card: str, wide: dict, graph: dict):
         max_abs_err=0,
         library="torch.searchsorted + 3 index_select (no single call "
                 "computes it: one probe, no word check, no miss count)",
-        bound=bound(4 * 4 * cap + PLAYERS * (4 + 4 + 1 + 4) + 4,
-                    int_ops=PLAYERS * (2 * steps + 24)),
+        bound=wide_bound(len(wide["games"]), PLAYERS),
         **measure(timer,
                   lambda: resolve.resolve_wide(*mirror, hi_d, lo_d, valid_d),
                   lambda: resolve.resolve_wide_plain(*mirror, hi_d, lo_d,
                                                      valid_d),
                   library_wide))
-    # the search's other plans: a mirror the tree holds whole (2,048 rows,
-    # 1,500 keys) and one whose buckets of 128 lift in L2 (524,288 rows,
-    # 300,000 keys), each with 1M lanes of its live keys
+    # the search's other plans: the whole mirror in the tree, and buckets
     wide_variants = []
-    for name, n_keys, rows_cap in (("whole_2048", 1_500, 2048),
-                                   ("lift_524288", 300_000, 1 << 19)):
-        keys = np.unique(rng.integers(0, 2**63 - 1, n_keys, np.int64))
-        v_arena = GrainArena(vector_type("WideGame"), dev, capacity=rows_cap)
-        v_arena.resolve_rows(keys)
-        v_mirror = v_arena.device_index_wide()
-        v_hi, v_lo = (t(w) for w in split_wide_keys(rng.choice(keys,
-                                                               PLAYERS)))
+    for name, (n_keys, v_mirror, v_hi, v_lo) in \
+            wide_variant_mirrors(dev).items():
         got = resolve.resolve_wide(*v_mirror, v_hi, v_lo, valid_d)
         want = resolve.resolve_wide_plain(*v_mirror, v_hi, v_lo, valid_d)
         require(same(got, want) and int(want[1]) == 0,
                 f"resolve_wide != plain ({name})")
         v_h = resolve.mix32(v_hi, v_lo)
+        rows_cap = v_mirror[0].shape[0]
 
         def library_v(m_=v_mirror, h_=v_h, n_=rows_cap):
             idx = torch.searchsorted(m_[0], h_).clamp_(max=n_ - 1)
             rows = m_[1].index_select(0, idx).clamp_(min=0)
             return m_[2].index_select(0, rows), m_[3].index_select(0, rows)
 
-        v_steps = math.ceil(math.log2(rows_cap + 1))
         wide_variants.append(dict(
             name=name, max_abs_err=0,
             per=f"{PLAYERS} lanes against a mirror of {rows_cap} rows "
-                f"({len(keys)} keys), plan {resolve.resolve_plan(rows_cap)}",
-            bound_ms=bound(4 * 4 * rows_cap + PLAYERS * (4 + 4 + 1 + 4) + 4,
-                           int_ops=PLAYERS * (2 * v_steps + 24))[0],
+                f"({n_keys} keys), plan {resolve.resolve_plan(rows_cap)}",
+            bound_ms=wide_bound(n_keys, PLAYERS)[0],
             **measure(timer,
                       lambda a=(*v_mirror, v_hi, v_lo, valid_d):
                       resolve.resolve_wide(*a),
                       lambda a=(*v_mirror, v_hi, v_lo, valid_d):
                       resolve.resolve_wide_plain(*a),
                       library_v)))
-        del v_arena, v_mirror
     results["resolve_wide"]["variants"] = wide_variants
 
     # -- K11 fanout_expand: the main path's publish round ---------------------

@@ -58,8 +58,7 @@
 //
 // Scratch (start, offs, the tile owners) comes from the wrapper, and so
 // does the look-back state: a zeroed block of 64-bit words (one status
-// word a lane tile) that every launch leaves zeroed, or a fresh one the
-// launch zeroes first (`fresh`, inside a CUDA graph's capture).
+// word a lane tile) that every launch leaves zeroed.
 #include "common.cuh"
 
 namespace {
@@ -479,16 +478,15 @@ fanout_slots_kernel(const int32_t* __restrict__ offs, int64_t m,
 
 }  // namespace
 
-// lookback: ceil(m / LANE_TILE) zeroed 64-bit words (zeroed here first
-// when fresh != 0); tile_owner: ceil(width / SLOT_TILE) + 1 int32,
-// the last the wrap flag
+// lookback: ceil(m / LANE_TILE) zeroed 64-bit words; tile_owner:
+// ceil(width / SLOT_TILE) + 1 int32, the last the wrap flag
 OT_EXPORT int fanout_expand(const int32_t* csr_keys,
                             const int32_t* csr_offsets, int32_t n_src,
                             const int32_t* csr_dst, int32_t width,
                             const int32_t* src_keys, const uint8_t* valid,
                             int64_t m, int32_t* start, int32_t* offs,
-                            uint64_t* lookback, int fresh,
-                            int32_t* tile_owner, int32_t* dst,
+                            uint64_t* lookback, int32_t* tile_owner,
+                            int32_t* dst,
                             int32_t* src_index, uint8_t* out_valid,
                             int32_t* total, uint8_t* src_dropped,
                             int32_t* n_dropped, void* stream) {
@@ -498,18 +496,13 @@ OT_EXPORT int fanout_expand(const int32_t* csr_keys,
   const int64_t n_slot_tiles =
       width > 0 ? (static_cast<int64_t>(width) + SLOT_TILE - 1) / SLOT_TILE
                 : 0;
-  cudaError_t err;
-  if (fresh) {
-    err = cudaMemsetAsync(lookback, 0, n_tiles * sizeof(uint64_t), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   int32_t* wrapped = tile_owner + n_slot_tiles;
   fanout_lanes_kernel<<<static_cast<unsigned int>(n_tiles), LANE_THREADS, 0,
                         s>>>(csr_keys, csr_offsets, n_src, src_keys, valid,
                              m, width, n_tiles, n_slot_tiles, lookback,
                              start, offs, src_dropped, tile_owner, wrapped,
                              total, n_dropped);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute early[1];
   early[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;

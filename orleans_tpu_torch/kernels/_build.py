@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,6 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # kernel wrappers that count their launches (see ``counted``)
 _COUNTED: List[Callable] = []
+# (kernel, device, stream) -> (size, state every launch leaves as made)
+_STREAM_POOLS: Dict[Tuple[str, torch.device, int], Tuple[int, Any]] = {}
 
 
 def counted(fn: Callable) -> Callable:
@@ -93,6 +95,30 @@ def launch_report() -> Dict[str, Dict[str, int]]:
 def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = fn.captured = fn.replayed = 0
+
+
+def stream_pool(kernel: str, device: torch.device,
+                make: Callable[[int], Any], size: int = 1) -> Any:
+    """The state ``kernel``'s launches start from, ``make(n)`` for some
+    ``n >= size``.  Eagerly, a pool per (kernel, device, stream), made once
+    and left as made by every launch, so no call clears it first; a larger
+    ``size`` replaces a smaller pool.  While a CUDA graph captures,
+    ``make(size)`` inside the graph, so every replay starts from it."""
+    if torch.cuda.is_current_stream_capturing():
+        return make(size)
+    key = (kernel, device, torch.cuda.current_stream(device).cuda_stream)
+    pool = _STREAM_POOLS.get(key)
+    if pool is None or pool[0] < size:
+        pool = _STREAM_POOLS[key] = (size, make(size))
+    return pool[1]
+
+
+def drop_pool(kernel: str, device: torch.device) -> None:
+    """Forget the current stream's pool of ``kernel`` (a launch that failed
+    may have left it dirty): the next launch makes a new one."""
+    _STREAM_POOLS.pop(
+        (kernel, device, torch.cuda.current_stream(device).cuda_stream),
+        None)
 
 
 def _nvcc() -> str:

@@ -458,26 +458,6 @@ def _check_match(rows_list, valid_list, plan_rows, plan_valid, flags, km
     return dev
 
 
-# (device, stream) -> attr_match's two state words (the entries' mismatch
-# mask and the blocks' ticket), zero, and left so by every launch
-_MATCH_POOLS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _match_state(dev: torch.device) -> torch.Tensor:
-    """The zeroed state words an ``attr_match`` launch starts from: a pool
-    per (device, stream), made once and left zero by every launch (its
-    last block clears them), so no call clears anything first.  While a
-    CUDA graph captures, a fresh pair zeroed inside the graph."""
-    if torch.cuda.is_current_stream_capturing():
-        return torch.zeros(2, dtype=torch.int32, device=dev)
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    state = _MATCH_POOLS.get(key)
-    if state is None:
-        state = _MATCH_POOLS[key] = torch.zeros(2, dtype=torch.int32,
-                                                device=dev)
-    return state
-
-
 def attr_match_plain(rows_list: Sequence[torch.Tensor],
                      valid_list: Sequence[torch.Tensor],
                      plan_rows: torch.Tensor, plan_valid: torch.Tensor,
@@ -507,15 +487,18 @@ def attr_match(rows_list: Sequence[torch.Tensor],
     rows_ptrs = (ctypes.c_int64 * k)(*[r.data_ptr() for r in rows_list])
     valid_ptrs = (ctypes.c_int64 * k)(*[v.data_ptr() for v in valid_list])
     lib = _build.library("attr_apply", _SIG_APPLY)
-    state = _match_state(dev)
-    stream = _stream(dev)
+    # the entries' mismatch mask and the blocks' ticket, zero, and left so
+    # by every launch (its last block clears them)
+    state = _build.stream_pool(
+        "attr_match", dev,
+        lambda n: torch.zeros(n, dtype=torch.int32, device=dev), 2)
     err = lib.attr_match(ctypes.addressof(rows_ptrs),
                          ctypes.addressof(valid_ptrs), k,
                          plan_rows.data_ptr(), plan_valid.data_ptr(),
                          plan_rows.shape[0], flags.data_ptr(), km.data_ptr(),
-                         state.data_ptr(), stream)
-    if err != 0:  # the state may be dirty: the next launch makes a new one
-        _MATCH_POOLS.pop((dev, stream), None)
+                         state.data_ptr(), _stream(dev))
+    if err != 0:
+        _build.drop_pool("attr_match", dev)
     _build.check(lib, err, "attr_match")
     _build.note_launch(attr_match)
 

@@ -21,15 +21,15 @@ The wrapper takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors.  ``m == 0`` returns the empty expansion (every
 slot invalid), where the JAX kernel fails to trace.  The lane pass's
 look-back words are a zeroed pool per (device, stream) that every launch
-leaves zeroed; inside a CUDA graph's capture the launch zeroes fresh ones
-itself.  What bounds the kernel on an H100 and what its design does about
+leaves zeroed (``_build.stream_pool``; inside a CUDA graph's capture,
+fresh ones zeroed in the graph).  What bounds the kernel on an H100 and what its design does about
 it is in the note at the top of ``csrc/fanout.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -44,8 +44,7 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _SIGNATURES = {"fanout_expand": (_P, _P, _I32, _P, _I32, _P, _P, _I64, _P,
-                                 _P, _P, ctypes.c_int, _P, _P, _P, _P, _P,
-                                 _P, _P, _P)}
+                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P)}
 #: lanes a tile of the lane pass, slots a tile of the slot pass
 #: (``csrc/fanout.cu``)
 LANE_TILE = 1024
@@ -77,28 +76,6 @@ def _check(csr_keys, csr_offsets, csr_dst, src_keys, valid) -> None:
             or csr_offsets.shape[0] != csr_keys.shape[0] + 1:
         raise ValueError("the graph needs at least one source row and one "
                          "offset more than sources")
-
-
-# (device, stream) -> the look-back state every launch leaves zeroed
-_LOOKBACK: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _lookback(device: torch.device, n_tiles: int) -> Tuple[torch.Tensor, int]:
-    """(the lane pass's look-back words, whether the launch must zero them
-    first): one status word a lane tile.  Eagerly, a
-    pool per (device, stream), zeroed once when made and left zeroed by
-    every launch (its slot pass clears what the lane pass used).  While a
-    CUDA graph captures, a fresh block the launch zeroes (a memset node of
-    the captured call), so every replay starts clean."""
-    if torch.cuda.is_current_stream_capturing():
-        return torch.empty(n_tiles, dtype=torch.int64, device=device), 1
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    words = _LOOKBACK.get(key)
-    if words is None or words.shape[0] < n_tiles:
-        words = _LOOKBACK[key] = torch.zeros(max(n_tiles, 256),
-                                             dtype=torch.int64,
-                                             device=device)
-    return words, 0
 
 
 def _empty(width: int, device: torch.device, n_dropped) -> Expansion:
@@ -178,23 +155,27 @@ def fanout_expand(csr_keys: torch.Tensor, csr_offsets: torch.Tensor,
         return torch.empty(n, dtype=torch.int32, device=dev)
 
     start, offs = i32(m), i32(m)
-    words, fresh = _lookback(dev, -(-m // LANE_TILE))
+    # the lane pass's look-back: a status word a lane tile, zero, and left
+    # so by every launch (its slot pass clears what the lane pass used)
+    words = _build.stream_pool(
+        "fanout_expand", dev,
+        lambda n: torch.zeros(n, dtype=torch.int64, device=dev),
+        max(-(-m // LANE_TILE), 256))
     tile_owner = i32(-(-width // SLOT_TILE) + 1)  # and the wrap flag
     dst, src_index = i32(width), i32(width)
     out_valid = torch.empty(width, dtype=torch.bool, device=dev)
     total = torch.empty((), dtype=torch.int32, device=dev)
     src_dropped = torch.empty(m, dtype=torch.bool, device=dev)
     lib = _build.library("fanout", _SIGNATURES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fanout_expand(
         csr_keys.data_ptr(), csr_offsets.data_ptr(), csr_keys.shape[0],
         csr_dst.data_ptr(), width, src_keys.data_ptr(), valid.data_ptr(), m,
-        start.data_ptr(), offs.data_ptr(), words.data_ptr(), fresh,
+        start.data_ptr(), offs.data_ptr(), words.data_ptr(),
         tile_owner.data_ptr(), dst.data_ptr(), src_index.data_ptr(),
         out_valid.data_ptr(), total.data_ptr(), src_dropped.data_ptr(),
-        count.data_ptr(), stream)
-    if err != 0:  # the state may be dirty: the next launch makes a new one
-        _LOOKBACK.pop((dev, stream), None)
+        count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        _build.drop_pool("fanout_expand", dev)
     _build.check(lib, err, "fanout_expand")
     _build.note_launch(fanout_expand)
     return dst, src_index, out_valid, total, src_dropped, count

@@ -12,8 +12,9 @@ fill_value=SENTINEL)``.  The kernel chain runs on the stream with no host
 synchronisation; the drain's one device-to-host copy of the keys follows
 it.  One wrapper call is one counted launch of the chain.
 
-The hash table and its count are a pool per (device, stream), filled once
-when made and left so by every launch (it clears only the slots it
+The hash table and its count are a pool per (device, stream)
+(``_build.stream_pool``), filled once when made and left so by every
+launch (it clears only the slots it
 used), so no call fills the table.  What bounds the chain on an H100 and
 its design are in the note at the top of ``csrc/miss.cu``.
 """
@@ -21,7 +22,7 @@ its design are in the note at the top of ``csrc/miss.cu``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -36,34 +37,17 @@ _SIGNATURES = {"miss_keys": (_P, _P, _P, _I64, _P, _P, _I64, _P, _I64, _P,
 #: counts take 256 int32 a block)
 MAX_SORT_BLOCKS = 1024
 
-# (device, stream) -> [the hash table, all the sentinel; the count and the
-# emit's done-counter, both 0], left so by every launch
-_POOLS: Dict[Tuple[torch.device, int], list] = {}
-
-
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
-def _pool(device: torch.device, p: int) -> list:
-    """The table of at least ``p`` slots (a power of two) and the state
-    words a launch starts from.  Eagerly, a pool per (device, stream), made
-    once (the table filled with the sentinel) and left so by every launch,
-    which clears only the slots it used; a larger table replaces a smaller
-    one.  While a CUDA graph captures, a fresh pair filled inside the
-    graph."""
-    def fresh(size: int) -> list:
-        return [torch.full((size,), KEY_SENTINEL, dtype=torch.int32,
-                           device=device),
-                torch.zeros(2, dtype=torch.int32, device=device)]
-
-    if torch.cuda.is_current_stream_capturing():
-        return fresh(p)
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    pool = _POOLS.get(key)
-    if pool is None or pool[0].shape[0] < p:
-        pool = _POOLS[key] = fresh(p)
-    return pool
+def _fresh_pool(device: torch.device, p: int) -> list:
+    """The table of ``p`` slots, all the sentinel, and the count and the
+    emit's done-counter, both 0: every launch leaves them so, clearing only
+    the slots it used."""
+    return [torch.full((p,), KEY_SENTINEL, dtype=torch.int32,
+                       device=device),
+            torch.zeros(2, dtype=torch.int32, device=device)]
 
 
 def _check(keys: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
@@ -111,20 +95,22 @@ def miss_keys(keys: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
     if m == 0:
         out.fill_(KEY_SENTINEL)
         return out, missing
-    table, state = _pool(dev, max(1024, _pow2_at_least(2 * m)))
+    table, state = _build.stream_pool(
+        "miss_keys", dev, lambda p: _fresh_pool(dev, p),
+        max(1024, _pow2_at_least(2 * m)))
     uniq, slots, spare = (torch.empty(m, dtype=torch.int32, device=dev)
                           for _ in range(3))
     block_counts = torch.empty(256 * MAX_SORT_BLOCKS, dtype=torch.int32,
                                device=dev)
     lib = _build.library("miss", _SIGNATURES, init="miss_keys_init")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.miss_keys(
         keys.data_ptr(), rows.data_ptr(), valid.data_ptr(), m,
         missing.data_ptr(), out.data_ptr(), miss_buf, table.data_ptr(),
         table.shape[0], state.data_ptr(), uniq.data_ptr(), slots.data_ptr(),
-        spare.data_ptr(), block_counts.data_ptr(), MAX_SORT_BLOCKS, stream)
-    if err != 0:  # the pool may be dirty: the next launch makes a new one
-        _POOLS.pop((dev, stream), None)
+        spare.data_ptr(), block_counts.data_ptr(), MAX_SORT_BLOCKS,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        _build.drop_pool("miss_keys", dev)
     _build.check(lib, err, "miss_keys")
     _build.note_launch(miss_keys)
     return out, missing

@@ -69,9 +69,9 @@ def _mirror(dev, keys: np.ndarray, capacity=None) -> tuple:
 
 
 def k10_inputs(dev) -> dict:
-    """Each case's arguments of ``resolve_wide`` (mirror, hi, lo, valid)."""
+    """Each case's live keys and arguments of ``resolve_wide`` (mirror, hi,
+    lo, valid)."""
     import chip_smoke as cs
-    from orleans_tpu_torch.tensor.arena import split_wide_keys
 
     rng = np.random.default_rng(17)
     wide = cs.wide_inputs()
@@ -80,21 +80,19 @@ def k10_inputs(dev) -> dict:
     ones = torch.ones(cs.PLAYERS, dtype=torch.bool, device=dev)
     one_key = _mirror(dev, wide["games"][:1], capacity=1)
     narrow_keys = np.unique(rng.integers(0, 2**31 - 1, 10_000))
-    small_keys = np.unique(rng.integers(0, 2**63 - 1, 1_500, np.int64))
-    large_keys = np.unique(rng.integers(0, 2**63 - 1, 300_000, np.int64))
+    n_main = len(wide["games"])
     cases = {
-        "main": (*main, hi, lo, ones),
-        "main_invalid": (*main, hi, lo, torch.zeros_like(ones)),
-        "one_key": (*one_key, hi, lo, ones),
-        "narrow": (*_mirror(dev, narrow_keys), None,
-                   _t(rng.choice(narrow_keys, cs.PLAYERS).astype(np.int32),
-                      dev), ones),
+        "main": (n_main, (*main, hi, lo, ones)),
+        "main_invalid": (n_main, (*main, hi, lo, torch.zeros_like(ones))),
+        "one_key": (1, (*one_key, hi, lo, ones)),
+        "narrow": (len(narrow_keys), (
+            *_mirror(dev, narrow_keys), None,
+            _t(rng.choice(narrow_keys, cs.PLAYERS).astype(np.int32), dev),
+            ones)),
     }
-    for name, keys, cap in (("whole_2048", small_keys, 2048),
-                            ("large_524288", large_keys, 1 << 19)):
-        l_hi, l_lo = split_wide_keys(rng.choice(keys, cs.PLAYERS))
-        cases[name] = (*_mirror(dev, keys, capacity=cap), _t(l_hi, dev),
-                       _t(l_lo, dev), ones)
+    for name, (n_keys, mirror, v_hi, v_lo) in \
+            cs.wide_variant_mirrors(dev).items():
+        cases[name] = (n_keys, (*mirror, v_hi, v_lo, ones))
     return cases
 
 
@@ -109,7 +107,7 @@ def probe_k10(dev, timer, cases: dict) -> dict:
     from orleans_tpu_torch.kernels import resolve
 
     out = {}
-    for name, args in cases.items():
+    for name, (n_keys, args) in cases.items():
         sorted_h, rows_by_h, hi_col, lo_col, hi, lo, valid = args
         got = resolve.resolve_wide(*args)
         want = resolve.resolve_wide_plain(*args)
@@ -118,13 +116,12 @@ def probe_k10(dev, timer, cases: dict) -> dict:
                    f"resolve_wide != plain ({name})")
         m = lo.shape[0]
         out[name] = {
-            "mirror": sorted_h.shape[0], "lanes": m,
+            "mirror": sorted_h.shape[0], "keys": n_keys, "lanes": m,
             "misses": int(want[1]),
             "ms": timer(_k10(args)),
-            "bound_ms": cs.bound(16 * sorted_h.shape[0]
-                                 + m * (9 if hi is None else 13) + 4)[0]}
+            "bound_ms": cs.wide_bound(n_keys, m, narrow=hi is None)[0]}
     # K2 on the main mirror's hashes: its search and one gather
-    sorted_h, rows_by_h, _, _, hi, lo, valid = cases["main"]
+    sorted_h, rows_by_h, _, _, hi, lo, valid = cases["main"][1]
     h = resolve.mix32(hi, lo)
     out["k2_on_main_hashes_ms"] = timer(
         lambda: resolve.resolve_sorted(sorted_h, rows_by_h, h, valid))
@@ -141,26 +138,18 @@ def k8_inputs(dev) -> dict:
     grow = _t(games, dev)
     valid = torch.ones(m, dtype=torch.bool, device=dev)
 
-    def stack(k):
-        return [grow.clone() for _ in range(k)], \
-            [valid.clone() for _ in range(k)]
-
-    r16, v16 = stack(16)
+    r16, v16 = cs.match_stacks(grow, valid, 16)
     r16[3][12345] += 1
     v16[11][m - 1] = False
-    stale_r, stale_v = stack(16)
+    stale_r, stale_v = cs.match_stacks(grow, valid, 16)
     for r in stale_r:
         r[0] += 1
-    # views one word (rows) and one byte (valid) past the plan's alignment
-    big_r = torch.cat([grow[:1], grow]).repeat(16).view(16, m + 1)
-    big_v = torch.cat([valid[:1], valid]).repeat(16).view(16, m + 1)
-    odd_r = [big_r[e, 1:] for e in range(16)]
-    odd_v = [big_v[e, 1:] for e in range(16)]
     return {"k16_two_stale": (r16, v16, grow, valid),
-            "k1": (*stack(1), grow, valid),
-            "k32": (*stack(32), grow, valid),
+            "k1": (*cs.match_stacks(grow, valid, 1), grow, valid),
+            "k32": (*cs.match_stacks(grow, valid, 32), grow, valid),
             "k16_all_stale": (stale_r, stale_v, grow, valid),
-            "k16_odd_offset": (odd_r, odd_v, grow, valid)}
+            "k16_odd_offset": (*cs.match_stacks(grow, valid, 16, odd=True),
+                               grow, valid)}
 
 
 def _k8(args, flags, km):
@@ -198,7 +187,7 @@ def probe_split(k10: dict, k8: dict, dev) -> dict:
     import chip_smoke as cs
 
     out = {}
-    for name, args in k10.items():
+    for name, (_, args) in k10.items():
         out[f"k10_{name}_us"] = cs._split_us(_k10(args), SPLIT_CALLS)
     for name, args in k8.items():
         flags = torch.zeros(len(args[0]), dtype=torch.int32, device=dev)

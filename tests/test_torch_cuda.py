@@ -304,6 +304,14 @@ def test_miss_keys_matches_plain(cuda_device, kind):
         assert torch.equal(got_missing, want_missing), miss_buf
 
 
+def _stream_pool(kernel, device):
+    """The state a kernel's launches on the current stream start from."""
+    from orleans_tpu_torch.kernels import _build
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return _build._STREAM_POOLS[(kernel, device, stream)][1]
+
+
 def _miss_redesign_case(kind, rng):
     """Lanes for K6's device-chosen sort paths and its pooled table."""
     if kind == "cold_tick":  # every lane missing over 10,000 games
@@ -347,8 +355,7 @@ def test_miss_keys_sort_paths_and_clean_pool(cuda_device, kind):
             assert torch.equal(got[0], want[0]), (kind, miss_buf)
             assert torch.equal(got[1], want[1]), (kind, miss_buf)
         torch.cuda.synchronize()
-        stream = torch.cuda.current_stream(cuda_device).cuda_stream
-        table, state = miss._POOLS[(args[0].device, stream)]
+        table, state = _stream_pool("miss_keys", args[0].device)
         assert bool((table == KEY_SENTINEL).all()) and \
             state.tolist() == [0, 0]
 
@@ -1361,8 +1368,8 @@ def test_fanout_expand_plans_match_plain(cuda_device, kind):
         for name, g, w in zip(("dst", "src_index", "out_valid", "total",
                                "src_dropped", "n_dropped"), got, want):
             assert torch.equal(g.cpu(), w), (kind, name)
-        stream = torch.cuda.current_stream(cuda_device).cuda_stream
-        assert int(kfan._LOOKBACK[(got[0].device, stream)].abs().sum()) == 0
+        words = _stream_pool("fanout_expand", got[0].device)
+        assert int(words.abs().sum()) == 0
 
 
 def test_fanout_expand_replays_twice_with_a_clean_look_back(cuda_device):

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from orleans_tpu_torch.kernels import _build
 from orleans_tpu_torch.kernels import attr as kattr
 from orleans_tpu_torch.kernels import resolve
 from orleans_tpu_torch.kernels.resolve import KEY_SENTINEL
@@ -626,12 +627,16 @@ def test_attr_match_kernel_matches_plain(cuda_device, case):
         1, dtype=torch.int32)]
     kattr.attr_match_plain([_t(r) for r in rows], [_t(v) for v in valid],
                            _t(plan_rows), _t(plan_valid), *want)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
     for _ in range(2):
         got = [torch.full((k,), 7, dtype=torch.int32, device=cuda_device),
                torch.zeros(1, dtype=torch.int32, device=cuda_device)]
         kattr.attr_match(d_rows, d_valid, *d_plan, *got)
         assert got[0].cpu().tolist() == want[0].tolist()
         assert int(got[1][0]) == int(want[1][0])
+        state = _build._STREAM_POOLS[("attr_match", d_plan[0].device,
+                                      stream)][1]
+        assert state.tolist() == [0, 0]
     empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
     none = torch.zeros(0, dtype=torch.bool, device=cuda_device)
     got = [torch.full((3,), 7, dtype=torch.int32, device=cuda_device),
